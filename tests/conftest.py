@@ -45,6 +45,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: excluded from the tier-1 run (-m 'not slow')"
     )
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips where there is none"
+    )
 
 
 # GC tax: jax's in-process caches (jaxprs, lowered/compiled
