@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py            # GEMM N=2048, ratio 0.1, seed 0
     python3 chip_smoke.py --n 256    # a quicker check (no MRC baseline)
@@ -7,19 +7,38 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. card: the name and power limit nvidia-smi reports;
-2. build: csrc/sampled_hist.cu for sm_90a with nvcc, its build seconds
-   and ptxas' register/spill lines;
-3. kernel vs plain: every dispatch of the main path (the engine's own
+2. build: csrc/sampled_hist.cu (kernel B1) and csrc/pow2_hist.cu
+   (kernel B2) for sm_90a, one nvcc each, started together; build
+   seconds and ptxas' register/spill lines;
+3. B2 vs plain on made inputs: a numpy-seeded 2^20 input over all 64
+   bins (0, negatives and 2^62-1 included) with bool and with int
+   weights, and a same-bin weight total of exactly 2^31; bit-equal;
+4. B1 vs plain: every dispatch of the main path (the engine's own
    plan_dispatches, so the same host-drawn keys and shapes) through the
-   CUDA kernel and through its plain torch version on the card; residual,
-   hist, cold and the sorted pair outputs must be equal; both are timed
-   with CUDA events;
-4. main path: run_sampled -> cri_distribute -> aet_mrc on the card, four
-   runs in the order kernel, plain, plain, kernel (kernel_backend "cuda"
-   then "torch"), each with its host seconds per stage. Every kernel run
-   must launch the kernel once per dispatch of phase 3, every plain run
-   never; all four folded PRIStates and MRC bytes must be equal, and the
-   MRC's L1 error against baselines/gemm<N>.json.gz must be at most 0.01.
+   CUDA kernel and through its plain torch version on the card;
+   residual, hist, cold and the sorted pair outputs must be equal; both
+   are timed with CUDA events;
+5. main path: run_sampled -> cri_distribute -> aet_mrc on the card,
+   once with kernel_backend "cuda" and once with "torch", each with its
+   host seconds per stage. The "cuda" run must launch B1 once per
+   dispatch of phase 4, the "torch" run never, neither launches B2;
+   both folded PRIStates and MRC bytes must be equal, and the MRC's L1
+   error against baselines/gemm<N>.json.gz must be at most 0.01;
+6. sharded path: sampled_outputs_sharded over build_mesh() (every
+   visible card) and fold_results, which is run_sampled_sharded with
+   the psum'd pow2 histograms kept, with host seconds per stage and the
+   device's busy time from a torch.profiler trace of the run. B2
+   must launch once per shard per chunk and B1 never; the folded
+   PRIState and MRC bytes must equal the main path's, and each ref's
+   pow2 histogram the pow2 binning of its exact noshare pairs;
+7. B2 vs plain on the sharded path's own inputs (every launch's
+   max(ri, 1) and bool weights, recorded during phase 6); bit-equal;
+   kernel, plain version and the torch.searchsorted + torch.bincount
+   yardstick timed per run, as device time from torch.profiler and as
+   CUDA events around the calls;
+8. two shards on one card: run_sampled_sharded over
+   build_mesh(devices=["cuda:0", "cuda:0"]) at GEMM N=512 must fold to
+   run_sampled's PRIState and MRC bytes.
 
 Then one JSON line of kernel numbers, the nvidia-smi line, and last the
 result line {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -39,7 +58,7 @@ import numpy as np
 
 MRC_L1_LIMIT = 0.01
 KERNEL_REPS, PLAIN_REPS = 10, 2  # timed calls per dispatch, after a warm-up
-MAIN_PATH_ORDER = ("cuda", "torch", "torch", "cuda")
+MAIN_PATH_ORDER = ("cuda", "torch")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # Non-tensor-core integer rate of an H100 SXM: 64 INT32 lanes per SM
 # (half its 128 FP32 lanes) x 132 SMs x 1.98 GHz = 16.7e12 int32
@@ -52,6 +71,16 @@ BYTES_PER_SAMPLE = 8 + 8
 REPLACES = "pluss_sampler_optimization_tpu/ops/pallas_sampled.py:126"
 SOURCE = "pluss_sampler_optimization_torch/csrc/sampled_hist.cu"
 SPANS = ("draw", "stage", "dispatch", "decode", "fold")
+# Kernel B2: per element an 8 B value and a 1 B bool weight read (8 B
+# for int weights), the (64,) int64 output written once; int64
+# operations per element: the weight and zero tests, the clz and the add.
+B2_REPLACES = "pluss_sampler_optimization_tpu/ops/pallas_hist.py:39"
+B2_SOURCE = "pluss_sampler_optimization_torch/csrc/pow2_hist.cu"
+B2_OPS_PER_ELEMENT = 4
+B2_RUN_REPS = 5  # timed passes over all of a run's B2 inputs
+SHARDED_SPANS = ("draw", "shard_put", "dispatch_psum", "gather_fetch",
+                 "merge")
+TWO_SHARD_N = 512
 
 
 def _card_line() -> str:
@@ -80,20 +109,135 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _spans_text(spans: dict) -> str:
-    return ", ".join(f"{k} {spans.get(k, 0.0):.3f} s" for k in SPANS)
+def _device_intervals(prof) -> list:
+    """(start, end) microseconds of every device activity (kernel,
+    memset, copy) a torch.profiler trace recorded."""
+    from torch.autograd import DeviceType
+
+    return [(e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type != DeviceType.CPU]
+
+
+def _busy_us(intervals) -> float:
+    """Device-busy microseconds: the length of the union of intervals."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def _device_ms(fn, reps: int):
+    """Mean device milliseconds of fn() per call: the summed durations of
+    the device activities a torch.profiler trace of reps calls records,
+    after a warm-up call. None where the trace records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    iv = _device_intervals(prof)
+    if not iv:
+        return None
+    return sum(b - a for a, b in iv) / reps / 1e3
+
+
+def _spans_text(spans: dict, names=SPANS) -> str:
+    return ", ".join(f"{k} {spans.get(k, 0.0):.3f} s" for k in names)
+
+
+def _reset_launches() -> None:
+    import pluss_sampler_optimization_torch.ops.pow2_hist as p2
+    import pluss_sampler_optimization_torch.ops.sampled_hist as sh
+
+    sh.LAUNCHES = p2.LAUNCHES = 0
+
+
+def _launches() -> tuple[int, int]:
+    """(B1 launches, B2 launches) since the last _reset_launches."""
+    import pluss_sampler_optimization_torch.ops.pow2_hist as p2
+    import pluss_sampler_optimization_torch.ops.sampled_hist as sh
+
+    return sh.LAUNCHES, p2.LAUNCHES
 
 
 def phase_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
     from pluss_sampler_optimization_torch.ops import _build
 
-    t0 = time.perf_counter()
-    path, log = _build.build("sampled_hist", force=True)
-    print(f"build: {os.path.relpath(path)} in "
-          f"{time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"build: {line.strip()}")
+    def one(name):
+        t0 = time.perf_counter()
+        path, log = _build.build(name, force=True)
+        return path, log, time.perf_counter() - t0
+
+    names = ("sampled_hist", "pow2_hist")
+    with ThreadPoolExecutor(len(names)) as ex:
+        built = list(ex.map(one, names))
+    for path, log, secs in built:
+        print(f"build: {os.path.relpath(path)} in {secs:.2f} s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"build: {line.strip()}")
+
+
+def _b2_compare(label: str, values, weights):
+    """B2 and its plain version on one input: raises unless bit-equal;
+    returns the kernel's histogram and the max abs error."""
+    import torch
+
+    from pluss_sampler_optimization_torch.ops.pow2_hist import (
+        pow2_hist,
+        pow2_hist_plain,
+    )
+
+    got, plain = pow2_hist(values, weights), pow2_hist_plain(values, weights)
+    torch.cuda.synchronize()
+    err = int((got - plain).abs().max())
+    if not torch.equal(got, plain):
+        raise AssertionError(
+            f"B2 vs plain: {label} differs (max abs err {err})"
+        )
+    return got, err
+
+
+def phase_b2_made(dev) -> int:
+    """B2 vs plain on made inputs; returns the max abs error."""
+    import torch
+
+    rng = np.random.default_rng(7)
+    n = 1 << 20
+    e = rng.integers(0, 63, size=n).astype(np.int64)
+    lo = np.left_shift(np.int64(1), e)
+    vals = lo + rng.integers(0, 1 << 62, size=n) % lo  # bin e
+    vals[rng.random(n) < 0.05] = 0
+    neg = rng.random(n) < 0.05
+    vals[neg] = -rng.integers(1, 1 << 62, size=int(neg.sum()))
+    vals[:4] = [0, -(1 << 62), (1 << 62) - 1, -1]
+    v = torch.from_numpy(vals).to(dev)
+    wb = torch.from_numpy(rng.random(n) < 0.8).to(dev)
+    wi = torch.from_numpy(rng.integers(-3, 1 << 20, size=n)).to(dev)
+    hist, err = _b2_compare("2^20 made values, bool weights", v, wb)
+    if int((hist > 0).sum()) != 64:
+        raise AssertionError("B2: the made input does not fill 64 bins")
+    err = max(err, _b2_compare("2^20 made values, int weights", v, wi)[1])
+    # the JAX package's overflow boundary: two 2^30 weights in one bin
+    vals = torch.full((1024,), 1 << 10, dtype=torch.int64, device=dev)
+    w = torch.zeros(1024, dtype=torch.int64, device=dev)
+    w[0] = w[128] = 1 << 30
+    hist, e2 = _b2_compare("same-bin total 2^31", vals, w)
+    hist = hist.cpu()
+    if int(hist[10]) != 1 << 31 or int(hist.sum()) != 1 << 31:
+        raise AssertionError(f"B2: same-bin total gave {hist.tolist()}")
+    print("B2 vs plain: 2^20 made values over all 64 bins (bool and int "
+          "weights) and the 2^31 same-bin total: equal")
+    return max(err, e2)
 
 
 def phase_kernels(n: int, cfg, dev) -> dict:
@@ -183,21 +327,31 @@ def phase_kernels(n: int, cfg, dev) -> dict:
     }
 
 
-def phase_main_path(n: int, cfg, dispatches: int) -> int:
-    """Main-path runs on the card in MAIN_PATH_ORDER; returns the
-    kernel's launches in one "cuda" run."""
+def _state_mrc(state, machine):
+    from pluss_sampler_optimization_torch.runtime.aet import aet_mrc
+    from pluss_sampler_optimization_torch.runtime.baseline import (
+        state_to_json,
+    )
+    from pluss_sampler_optimization_torch.runtime.cri import cri_distribute
+
+    T = machine.thread_num
+    return state_to_json(state), aet_mrc(cri_distribute(state, T, T),
+                                         machine)
+
+
+def phase_main_path(n: int, cfg, dispatches: int):
+    """Main-path runs on the card in MAIN_PATH_ORDER; returns B1's
+    launches in the "cuda" run and the folded (PRIState JSON, MRC)."""
     import torch
 
     from pluss_sampler_optimization_torch.config import MachineConfig
     from pluss_sampler_optimization_torch.models import gemm
-    import pluss_sampler_optimization_torch.ops.sampled_hist as sh
     from pluss_sampler_optimization_torch.runtime.aet import (
         aet_mrc,
         mrc_l1_error,
     )
     from pluss_sampler_optimization_torch.runtime.baseline import (
         load_baseline,
-        state_to_json,
     )
     from pluss_sampler_optimization_torch.runtime.cri import cri_distribute
     from pluss_sampler_optimization_torch.sampler.sampled import run_sampled
@@ -208,33 +362,34 @@ def phase_main_path(n: int, cfg, dispatches: int) -> int:
     for i, backend in enumerate(MAIN_PATH_ORDER, 1):
         c = dataclasses.replace(cfg, kernel_backend=backend)
         spans: dict = {}
-        sh.LAUNCHES = 0
+        _reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, results = run_sampled(gemm(n), machine, c, device="cuda",
                                      spans=spans)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = sh.LAUNCHES
-        mrc = aet_mrc(cri_distribute(state, T, T), machine)
+        launches, b2 = _launches()
+        got = _state_mrc(state, machine)
         samples = sum(r.n_samples for r in results)
         print(f"main path: run {i} kernel_backend={backend} gemm({n}) "
               f"{wall:.3f} s ({_spans_text(spans)}, rest "
               f"{wall - sum(spans.values()):.3f} s), {samples} samples, "
-              f"{launches} kernel launches, MRC of {len(mrc)} points")
+              f"{launches} B1 launches, {b2} B2 launches, MRC of "
+              f"{len(got[1])} points")
         want = dispatches if backend == "cuda" else 0
-        if launches != want:
+        if launches != want or b2 != 0:
             raise AssertionError(
-                f"main path: {launches} kernel launches under "
-                f"kernel_backend={backend} (expected {want})"
+                f"main path: {launches} B1 and {b2} B2 launches under "
+                f"kernel_backend={backend} (expected {want} and 0)"
             )
         if backend == "cuda":
             kernel_launches = launches
         if first is None:
-            first = (state_to_json(state), mrc)
-        elif state_to_json(state) != first[0]:
+            first = got
+        elif got[0] != first[0]:
             raise AssertionError(f"main path: run {i}'s PRIState differs")
-        elif mrc.tobytes() != first[1].tobytes():
+        elif got[1].tobytes() != first[1].tobytes():
             raise AssertionError(f"main path: run {i}'s MRC bytes differ")
     print("main path: all runs give equal PRIStates and MRC bytes")
     mrc = first[1]
@@ -248,7 +403,7 @@ def phase_main_path(n: int, cfg, dispatches: int) -> int:
             raise AssertionError(f"main path: baselines/gemm{n}.json.gz "
                                  "is missing")
         print(f"main path: no baseline for gemm{n}; MRC error not checked")
-        return kernel_launches
+        return kernel_launches, first
     mrc_b = aet_mrc(cri_distribute(base["state"], T, T), machine)
     err = mrc_l1_error(mrc, mrc_b)
     print(f"main path: MRC L1 error vs baselines/gemm{n}.json.gz: {err!r}")
@@ -256,7 +411,196 @@ def phase_main_path(n: int, cfg, dispatches: int) -> int:
         raise AssertionError(
             f"main path: MRC L1 error {err} above {MRC_L1_LIMIT}"
         )
-    return kernel_launches
+    return kernel_launches, first
+
+
+def _b2_launches_expected(results, mesh) -> int:
+    """One B2 launch per shard per chunk of every ref."""
+    from pluss_sampler_optimization_torch.sampler.sampled import (
+        default_batch,
+    )
+
+    n_dev = mesh.size
+    step = max(n_dev, (default_batch(mesh.devices[0]) // n_dev) * n_dev)
+    return sum(-(-r.n_samples // step) for r in results) * n_dev
+
+
+def phase_sharded(n: int, cfg, main_path) -> tuple[int, list]:
+    """The sharded path over every visible card, under torch.profiler;
+    returns B2's launches and the (values, weights) of each launch,
+    recorded on the way (the recording's copies are device work in the
+    trace too)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pluss_sampler_optimization_torch.config import MachineConfig
+    from pluss_sampler_optimization_torch.models import gemm
+    from pluss_sampler_optimization_torch.parallel import (
+        build_mesh,
+        sharded,
+    )
+    from pluss_sampler_optimization_torch.runtime.hist import pow2_floor
+    from pluss_sampler_optimization_torch.sampler.sampled import (
+        fold_results,
+    )
+
+    machine = MachineConfig()
+    mesh = build_mesh()
+    inputs = []
+    hist_fn = sharded.pow2_hist_auto
+
+    def recording(values, weights, backend):
+        inputs.append((values.clone(), weights.clone()))
+        return hist_fn(values, weights, backend)
+
+    spans: dict = {}
+    sharded.pow2_hist_auto = recording
+    try:
+        _reset_launches()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            results, dense = sharded.sampled_outputs_sharded(
+                gemm(n), machine, cfg, mesh=mesh, spans=spans
+            )
+            state = fold_results(results, machine.thread_num)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        b1, launches = _launches()
+    finally:
+        sharded.pow2_hist_auto = hist_fn
+    iv = _device_intervals(prof)
+    b2_iv = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if "pow2_hist_kernel" in e.name]
+    if iv:
+        busy = _busy_us(iv) / 1e6
+        print(f"sharded path: profiler: device busy {busy:.4f} s of the "
+              f"{wall:.3f} s run (idle share {1 - busy / wall:.5f}); "
+              f"{len(b2_iv)} B2 kernels, {sum(b - a for a, b in b2_iv):.1f} "
+              "us of device time in all")
+    else:
+        print("sharded path: profiler: no device activity recorded; "
+              "device busy time not measured")
+    want = _b2_launches_expected(results, mesh)
+    print(f"sharded path: gemm({n}) {wall:.3f} s "
+          f"({_spans_text(spans, SHARDED_SPANS)}, rest "
+          f"{wall - sum(spans.values()):.3f} s), "
+          f"{sum(r.n_samples for r in results)} samples, {launches} B2 "
+          f"launches (expected {want}: one per shard per chunk), {b1} B1 "
+          f"launches, over {mesh.size} shard(s)")
+    if launches != want or b1 != 0:
+        raise AssertionError(
+            f"sharded path: {launches} B2 and {b1} B1 launches (expected "
+            f"{want} and 0)"
+        )
+    got = _state_mrc(state, machine)
+    if got[0] != main_path[0] or got[1].tobytes() != main_path[1].tobytes():
+        raise AssertionError("sharded path: PRIState or MRC bytes differ "
+                             "from the main path's")
+    for r, nh in zip(results, dense):
+        from_pairs: dict = {}
+        for ri_val, cnt in r.noshare.items():
+            k = pow2_floor(max(int(ri_val), 1))
+            from_pairs[k] = from_pairs.get(k, 0) + int(cnt)
+        if from_pairs != {1 << e: int(c) for e, c in enumerate(nh) if c}:
+            raise AssertionError(
+                f"sharded path: ref {r.name}'s pow2 histogram is not the "
+                "binning of its exact noshare pairs"
+            )
+    print("sharded path: PRIState and MRC bytes equal the main path's; "
+          "every ref's pow2 histogram equals its binned exact pairs")
+    return launches, inputs
+
+
+def phase_b2_engine(inputs, max_err: int) -> dict:
+    """B2 vs plain on the sharded path's inputs, timed per run (all the
+    inputs, once each); returns B2's JSON entry (without launches), its
+    max abs error taken over these comparisons and max_err. Times are
+    device time from torch.profiler where it records any, else CUDA
+    events around the calls (which then include the host's launch
+    overhead)."""
+    import torch
+
+    from pluss_sampler_optimization_torch.ops.pow2_hist import (
+        pow2_hist,
+        pow2_hist_plain,
+    )
+
+    pow2 = torch.tensor([1 << e for e in range(63)], dtype=torch.int64,
+                        device=inputs[0][0].device)
+
+    def library(v, w):
+        # two calls, defined on values >= 1 only, which the engine passes
+        return torch.bincount(torch.searchsorted(pow2, v, right=True) - 1,
+                              w, minlength=64)
+
+    nbytes = ops = 0
+    for i, (v, w) in enumerate(inputs):
+        got, err = _b2_compare(f"sharded path input {i}", v, w)
+        max_err = max(max_err, err)
+        if not torch.equal(library(v, w).to(torch.int64), got):
+            raise AssertionError(f"B2 yardstick: input {i} differs")
+        nbytes += v.numel() * (8 + w.element_size()) + 64 * 8
+        ops += v.numel() * B2_OPS_PER_ELEMENT
+    times = {}
+    for name, fn in (("kernel", pow2_hist), ("plain", pow2_hist_plain),
+                     ("library", library)):
+        def run(fn=fn):
+            for v, w in inputs:
+                fn(v, w)
+
+        call = _time_ms(run, B2_RUN_REPS)
+        dev = _device_ms(run, B2_RUN_REPS)
+        times[name] = call if dev is None else dev
+        print(f"B2 timing: {name} per run: CUDA events around the calls "
+              f"{call:.4f} ms, profiler device time "
+              + ("not recorded" if dev is None else f"{dev:.4f} ms"))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT64_OPS_PER_S * 1e3
+    k = len(inputs)
+    print(f"B2 vs plain: all {k} sharded-path inputs equal; per run kernel "
+          f"{times['kernel']:.4f} ms ({times['kernel'] / k * 1e3:.2f} us "
+          f"per launch), plain {times['plain']:.4f} ms, searchsorted + "
+          f"bincount {times['library']:.4f} ms; bound {bytes_ms:.4f} ms by "
+          f"bytes ({bytes_ms / k * 1e3:.3f} us per launch; int64 operations "
+          f"{ops_ms:.4f} ms)")
+    return {
+        "name": "pow2_hist", "route": "cuda", "source": B2_SOURCE,
+        "replaces": B2_REPLACES, "launches": None, "max_abs_err": max_err,
+        "ms": times["kernel"], "plain_ms": times["plain"],
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": times["library"],
+    }
+
+
+def phase_two_shards(cfg) -> None:
+    """Two shards on one card fold to run_sampled's state and MRC."""
+    from pluss_sampler_optimization_torch.config import MachineConfig
+    from pluss_sampler_optimization_torch.models import gemm
+    from pluss_sampler_optimization_torch.parallel import (
+        build_mesh,
+        run_sampled_sharded,
+    )
+    from pluss_sampler_optimization_torch.sampler.sampled import run_sampled
+
+    machine = MachineConfig()
+    n = TWO_SHARD_N
+    want = _state_mrc(run_sampled(gemm(n), machine, cfg)[0], machine)
+    mesh = build_mesh(devices=["cuda:0", "cuda:0"])
+    _reset_launches()
+    state, results = run_sampled_sharded(gemm(n), machine, cfg, mesh=mesh)
+    _, b2 = _launches()
+    got = _state_mrc(state, machine)
+    if got[0] != want[0] or got[1].tobytes() != want[1].tobytes():
+        raise AssertionError(f"two shards: gemm({n}) differs from "
+                             "run_sampled")
+    if b2 != _b2_launches_expected(results, mesh):
+        raise AssertionError(f"two shards: {b2} B2 launches, expected "
+                             f"{_b2_launches_expected(results, mesh)}")
+    print(f"two shards on cuda:0: gemm({n}) PRIState and MRC bytes equal "
+          f"run_sampled's; {b2} B2 launches")
 
 
 def main(argv=None) -> int:
@@ -271,18 +615,26 @@ def main(argv=None) -> int:
         return 2
     from pluss_sampler_optimization_torch.config import SamplerConfig
 
+    dev = torch.device("cuda")
     card = _card_line()
     print(f"card: {card}")
     phase_build()
+    b2_err = phase_b2_made(dev)
     cfg = SamplerConfig(ratio=0.1, seed=0)
-    k = phase_kernels(args.n, cfg, torch.device("cuda"))
+    k = phase_kernels(args.n, cfg, dev)
     print(f"kernels: all {k['dispatches']} dispatches: kernel "
           f"{k['entry']['ms']:.3f} ms, plain {k['entry']['plain_ms']:.3f} ms, "
           f"bound {k['entry']['bound_ms']:.3f} ms by "
           f"{k['entry']['bound_by']} (bytes {k['bytes_ms']:.4f} ms, "
           f"int64 operations {k['ops_ms']:.3f} ms)")
-    k["entry"]["launches"] = phase_main_path(args.n, cfg, k["dispatches"])
-    print(json.dumps({"kernels": [k["entry"]]}))
+    k["entry"]["launches"], main_path = phase_main_path(
+        args.n, cfg, k["dispatches"])
+    b2_launches, inputs = phase_sharded(args.n, cfg, main_path)
+    b2 = phase_b2_engine(inputs, b2_err)
+    b2["launches"] = b2_launches
+    del inputs
+    phase_two_shards(cfg)
+    print(json.dumps({"kernels": [k["entry"], b2]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,8 @@ stays the reference: every ported piece gives that package's exact
 answer on the same inputs. It imports neither JAX nor the JAX package.
 So far it runs the sampled engine (sampler/sampled.py) through the
 hand-written CUDA kernel csrc/sampled_hist.cu on an NVIDIA Hopper card,
-with a plain torch version on the CPU. Entry points run on CUDA unless
+and the mesh-sharded sampled engine (parallel/sharded.py) through the
+kernel csrc/pow2_hist.cu, with plain torch versions on the CPU. Entry points run on CUDA unless
 the caller asks for the CPU (device="cpu", --device cpu), and raise
 where CUDA is absent.
 """

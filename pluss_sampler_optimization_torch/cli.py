@@ -1,7 +1,12 @@
-"""Command line of the port: the sampled engine's `sample` mode.
+"""Command line of the port: the sampled engines' `sample` mode.
 
     python -m pluss_sampler_optimization_torch sample --model gemm --n 128
     python -m pluss_sampler_optimization_torch sample --n 16 --device cpu
+    python -m pluss_sampler_optimization_torch sample --engine sharded
+
+`--engine sharded` runs the mesh-sharded engine over every visible card
+(one CPU device with `--device cpu`); its lines equal `--engine
+sampled`'s.
 
 Prints the lines the JAX package's `sample` mode prints, in its order:
 one line per tracked ref, the noshare and share private-reuse dumps, the
@@ -28,22 +33,30 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--chunk", type=int, default=4)
     ap.add_argument("--ratio", type=float, default=0.1)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--engine", default="sampled",
+                    choices=["sampled", "sharded"],
+                    help="sampled (default) or sharded (the mesh-sharded "
+                    "engine over every visible card)")
     ap.add_argument("--kernel-backend", default=None, choices=KERNEL_BACKENDS,
-                    help="classify+histogram implementation (default auto: "
-                    "the CUDA kernel on the card, plain torch on the CPU)")
+                    help="kernel implementation (default auto: the CUDA "
+                    "kernels on the card, plain torch on the CPU)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap
 
 
-def sample_lines(program, machine, cfg, device) -> list[str]:
+def sample_lines(program, machine, cfg, device,
+                 engine: str = "sampled") -> list[str]:
     """The sample mode's output lines."""
     from .runtime import report
     from .runtime.aet import aet_mrc
     from .runtime.cri import cri_distribute
-    from .sampler.sampled import run_sampled
 
-    state, per_ref = run_sampled(program, machine, cfg, device=device)
+    if engine == "sharded":
+        from .parallel import run_sampled_sharded as run
+    else:
+        from .sampler.sampled import run_sampled as run
+    state, per_ref = run(program, machine, cfg, device=device)
     lines = [
         f"ref {r.name}: {r.n_samples} samples, cold {r.cold:g}"
         for r in per_ref
@@ -68,5 +81,6 @@ def main(argv=None) -> int:
     cfg = SamplerConfig(
         ratio=args.ratio, seed=args.seed, kernel_backend=args.kernel_backend
     )
-    report.emit(sample_lines(program, machine, cfg, args.device))
+    report.emit(sample_lines(program, machine, cfg, args.device,
+                             args.engine))
     return 0

@@ -86,11 +86,15 @@ class SamplerConfig:
     # bit-identical to the JAX package's host stream; True is not
     # ported yet and raises (ROADMAP A3).
     device_draw: bool | None = None
-    # Which classify+histogram implementation the sampled engine's hot
-    # loop runs: "cuda" (the hand-written kernel,
-    # csrc/sampled_hist.cu), "torch" (its plain tensor version), or
-    # None/"auto": "cuda" for tensors on a CUDA device, "torch" on the
-    # CPU. Every backend folds to bit-identical PRIStates/MRCs.
+    # Which kernels the sampled engines run: "cuda" (the hand-written
+    # kernels: csrc/sampled_hist.cu for run_sampled's classify+histogram,
+    # csrc/pow2_hist.cu for the sharded engine's pow2 histogram),
+    # "torch" (plain tensor code: sampled_hist_plain, and exp_hist in
+    # the sharded engine), or None/"auto": "cuda" for tensors on a CUDA
+    # device, "torch" on the CPU. Every backend folds to bit-identical
+    # PRIStates/MRCs. In the sharded engine this is the JAX package's
+    # use_pallas_hist: "torch" is use_pallas_hist=False (exp_hist), and
+    # "auto"/"cuda" launch the kernel on CUDA tensors.
     kernel_backend: str | None = None
 
     def __post_init__(self) -> None:

@@ -1,3 +1,3 @@
-"""Device ops of the port: the exact pair reduction (histogram.py) and
-the fused classify+histogram kernel with its plain version
-(sampled_hist.py)."""
+"""Device ops of the port: the histogram primitives (histogram.py), the
+fused classify+histogram kernel with its plain version (sampled_hist.py)
+and the pow2 histogram kernel with its plain version (pow2_hist.py)."""

@@ -1,9 +1,15 @@
-"""Exact sparse (key, count) reduction on tensors.
+"""Histogram primitives on tensors: pow2 bins and exact sparse pairs.
 
-Port of the JAX package's ops/histogram.py::sorted_k_unique. It runs
-outside the fused classify kernel there too (ops/pallas_sampled.py
-reduces the kernel's residual stream with it), so plain torch — one
-sort plus a segmented sum — is the whole implementation here.
+Port of the JAX package's ops/histogram.py:
+
+- `exp_bin`/`exp_hist`: the dense 64-bin pow2 histogram, binned by exact
+  integer comparison (a float log2 is inexact above 2^53);
+- `sorted_k_unique`: the exact (key, count) reduction; it runs outside
+  the fused classify kernel there too (ops/pallas_sampled.py reduces
+  the kernel's residual stream with it), so plain torch — one sort plus
+  a segmented sum — is the whole implementation here;
+- `fixed_k_unique`: the same three outputs under the name the sharded
+  engine uses (see its docstring).
 """
 
 from __future__ import annotations
@@ -11,6 +17,26 @@ from __future__ import annotations
 import torch
 
 SENTINEL = 1 << 62
+N_EXP_BINS = 64
+_POW2 = [1 << e for e in range(63)]
+
+
+def exp_bin(x):
+    """63 - clz(x) of int64 x, as the JAX package's exp_bin: floor(log2 x)
+    for x > 0, -1 for x == 0 and 63 for x < 0 (its bit pattern read as
+    unsigned is at least 2^63). Exact: a search over the 63 int64 powers
+    of two, no float log2."""
+    pow2 = torch.tensor(_POW2, dtype=torch.int64, device=x.device)
+    e = torch.searchsorted(pow2, x, right=True) - 1
+    return torch.where(x < 0, 63, e)
+
+
+def exp_hist(values, weights):
+    """Add weights into the 64 pow2 exponent bins. values must be > 0
+    where weights are nonzero (masked entries: pass weight 0, value 1)."""
+    e = exp_bin(torch.clamp(values.to(torch.int64), min=1))
+    return torch.zeros(N_EXP_BINS, dtype=torch.int64, device=values.device
+                       ).index_add_(0, e, weights.to(torch.int64))
 
 
 def sorted_k_unique(values, valid, k: int, weights=None):
@@ -54,3 +80,13 @@ def sorted_k_unique(values, valid, k: int, weights=None):
     counts = torch.zeros(k + 1, dtype=torch.int64, device=dev)
     counts.scatter_add_(0, seg_c, add)
     return keys[:k], counts[:k], n_unique
+
+
+def fixed_k_unique(values, valid, k: int):
+    """Exact sparse histogram with capacity k over masked int64 values:
+    (keys[k] ascending, counts[k], n_unique), empty slots -1/0, entries
+    beyond capacity dropped while n_unique stays the true distinct
+    count. The JAX package reaches these outputs by scatter-max hash
+    rounds, a TPU device for avoiding a sort; they are the sorted
+    reduction's outputs, so the port sorts."""
+    return sorted_k_unique(values, valid, k)

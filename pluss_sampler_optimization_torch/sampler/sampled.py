@@ -357,6 +357,27 @@ def per_sample_ri(
     )
 
 
+def pad_keys(
+    keys: np.ndarray, n_dev: int, min_per_dev: int = 16,
+    total: int | None = None,
+):
+    """Pad sample keys with repeats of key 0 so each of n_dev equal
+    shards gets at least min_per_dev entries (or exactly total/n_dev
+    when `total` is given, to keep one compiled shape across batch
+    chunks). Returns (padded keys, valid count); the kernels
+    reconstruct the padding weight mask from the count on device."""
+    s = len(keys)
+    if s == 0:
+        raise ValueError("pad_keys needs at least one sample key")
+    if total is None:
+        per_dev = max(min_per_dev, -(-s // n_dev))
+        total = per_dev * n_dev
+    assert total % n_dev == 0 and total >= s
+    out = np.full(total, keys[0], dtype=np.int64)
+    out[:s] = keys
+    return out, s
+
+
 def decode_pairs(keys, counts, noshare: dict, share: dict) -> None:
     """Fold device (packed key, count) pairs into host sparse hists."""
     for key, cnt in zip(keys.tolist(), counts.tolist()):

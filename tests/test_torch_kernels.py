@@ -1,7 +1,8 @@
-"""The hand-written CUDA kernel against its plain torch version, on the card.
+"""The hand-written CUDA kernels against their plain torch versions, on the card.
 
 Marked `gpu`: every test skips where torch sees no CUDA device (decided
-inside the `cuda` fixture, never at import). On a machine with a card:
+inside the `cuda` fixture, never at import); the multi-card tests also
+skip with fewer than two cards. On a machine with a card:
 
     python -m pytest tests/test_torch_kernels.py -q -p no:cacheprovider --noconftest
 
@@ -14,10 +15,16 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from _torch_dist import check_workers, run_workers
 
 import pluss_sampler_optimization_torch as T
 from pluss_sampler_optimization_torch.models import REGISTRY
+from pluss_sampler_optimization_torch.ops import pow2_hist as p2
 from pluss_sampler_optimization_torch.ops import sampled_hist as sh
+from pluss_sampler_optimization_torch.parallel import (
+    build_mesh,
+    run_sampled_sharded,
+)
 from pluss_sampler_optimization_torch.runtime.baseline import state_to_json
 from pluss_sampler_optimization_torch.sampler import sampled as S
 
@@ -99,3 +106,102 @@ def test_run_sampled_kernel_equals_plain_on_card(name, cuda):
     assert [dataclasses.asdict(r) for r in res_k] == [
         dataclasses.asdict(r) for r in res_t
     ]
+
+
+def _b2_made_input(n, seed):
+    """n values over all 64 ladder bins, 0 and negatives included."""
+    rng = np.random.default_rng(seed)
+    e = rng.integers(0, 63, size=n).astype(np.int64)
+    lo = np.left_shift(np.int64(1), e)
+    vals = lo + rng.integers(0, 1 << 62, size=n) % lo  # bin e
+    vals[rng.random(n) < 0.05] = 0
+    neg = rng.random(n) < 0.05
+    vals[neg] = -rng.integers(1, 1 << 62, size=int(neg.sum()))
+    vals[:4] = [0, -(1 << 62), (1 << 62) - 1, -1]
+    return vals, rng
+
+
+@pytest.mark.parametrize("weights", ["bool", "int"])
+def test_pow2_hist_kernel_matches_plain(weights, cuda):
+    vals, rng = _b2_made_input(1 << 20, 7)
+    w = (rng.random(len(vals)) < 0.8 if weights == "bool"
+         else rng.integers(-3, 1 << 20, size=len(vals)))
+    v, wt = torch.from_numpy(vals).to(cuda), torch.from_numpy(w).to(cuda)
+    n0 = p2.LAUNCHES
+    got = p2.pow2_hist(v, wt)
+    assert p2.LAUNCHES == n0 + 1
+    want = p2.pow2_hist_plain(v, wt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int((want != 0).sum()) == 64
+
+
+def test_pow2_hist_kernel_same_bin_total_2_31(cuda):
+    """The JAX package's overflow boundary: exact in int64."""
+    vals = torch.full((1024,), 1 << 10, dtype=torch.int64, device=cuda)
+    w = torch.zeros(1024, dtype=torch.int64, device=cuda)
+    w[0] = w[128] = 1 << 30
+    got = p2.pow2_hist(vals, w)
+    assert torch.equal(got, p2.pow2_hist_plain(vals, w))
+    assert int(got[10]) == 1 << 31 and int(got.sum()) == 1 << 31
+
+
+def test_pow2_hist_kernel_empty_and_rejects(cuda):
+    n0 = p2.LAUNCHES
+    got = p2.pow2_hist(torch.zeros(0, dtype=torch.int64, device=cuda),
+                       torch.zeros(0, dtype=torch.bool, device=cuda))
+    assert p2.LAUNCHES == n0 and got.tolist() == [0] * 64
+    v = torch.ones(8, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        p2.pow2_hist(v, torch.ones(8, device=cuda))
+    with pytest.raises(ValueError):
+        p2.pow2_hist(v, torch.ones(8, dtype=torch.bool))
+
+
+def test_two_shards_on_one_card_fold_like_run_sampled(cuda):
+    prog, m = REGISTRY["gemm"](64), T.MachineConfig()
+    cfg = T.SamplerConfig(ratio=0.2, seed=0)
+    n0 = p2.LAUNCHES
+    st_s, res = run_sampled_sharded(
+        prog, m, cfg, build_mesh(devices=["cuda:0", "cuda:0"]), batch=512)
+    assert p2.LAUNCHES > n0
+    st, _ = T.run_sampled(prog, m, cfg)
+    st_c, res_c = run_sampled_sharded(prog, m, cfg, device="cpu")
+    assert state_to_json(st_s) == state_to_json(st) == state_to_json(st_c)
+    assert [dataclasses.asdict(r) for r in res] == [
+        dataclasses.asdict(r) for r in res_c
+    ]
+
+
+@pytest.fixture
+def cards(cuda):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    return n
+
+
+def test_sharded_over_every_card_folds_like_run_sampled(cards):
+    """One process, one shard per card: the reduction gathers onto
+    cuda:0 across cards."""
+    prog, m = REGISTRY["gemm"](256), T.MachineConfig()
+    cfg = T.SamplerConfig(ratio=0.2, seed=0)
+    mesh = build_mesh()
+    assert mesh.size == cards
+    n0 = p2.LAUNCHES
+    st_s, res = run_sampled_sharded(prog, m, cfg, mesh, batch=4096)
+    assert p2.LAUNCHES > n0
+    st, _ = T.run_sampled(prog, m, cfg)
+    _, res_1 = run_sampled_sharded(prog, m, cfg, build_mesh(1))
+    assert state_to_json(st_s) == state_to_json(st)
+    assert [dataclasses.asdict(r) for r in res] == [
+        dataclasses.asdict(r) for r in res_1
+    ]
+
+
+def test_nccl_processes_match_the_single_process_engine(cards):
+    """One process per card over NCCL (tests/_torch_dist.py): every rank
+    prints run_sampled's state and the one-device sharded results."""
+    outs = run_workers(cards, "cuda", n=64, timeout=600)
+    assert outs[0]["mesh"] == [f"cuda:{i}" for i in range(cards)]
+    check_workers(outs, "cuda", n=64)
