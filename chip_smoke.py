@@ -9,7 +9,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. card: the name and power limit nvidia-smi reports;
 2. build: csrc/sampled_hist.cu (kernel B1) and csrc/pow2_hist.cu
    (kernel B2) for sm_90a, one nvcc each, started together; build
-   seconds and ptxas' register/spill lines;
+   seconds, and ptxas' registers, stack frame and spill bytes for every
+   kernel instantiation (B1 has 6, sampled_hist_kernel<LV, NHMAX>:
+   source-ref level 0-2 by most band-plan heads per sink group, 1 for
+   at most one, 3 for up to three);
 3. B2 vs plain on made inputs: a numpy-seeded 2^20 input over all 64
    bins (0, negatives and 2^62-1 included) with bool and with int
    weights, and a same-bin weight total of exactly 2^31; bit-equal;
@@ -17,7 +20,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    plan_dispatches, so the same host-drawn keys and shapes) through the
    CUDA kernel and through its plain torch version on the card;
    residual, hist, cold and the sorted pair outputs must be equal; both
-   are timed with CUDA events;
+   are timed with CUDA events, and each dispatch's instantiation is
+   printed;
 5. main path: run_sampled -> cri_distribute -> aet_mrc on the card,
    once with kernel_backend "cuda" and once with "torch", each with its
    host seconds per stage. The "cuda" run must launch B1 once per
@@ -60,11 +64,18 @@ MRC_L1_LIMIT = 0.01
 KERNEL_REPS, PLAIN_REPS = 10, 2  # timed calls per dispatch, after a warm-up
 MAIN_PATH_ORDER = ("cuda", "torch")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-# Non-tensor-core integer rate of an H100 SXM: 64 INT32 lanes per SM
-# (half its 128 FP32 lanes) x 132 SMs x 1.98 GHz = 16.7e12 int32
-# operations/s (the FP32 67 TFLOP/s figure counts an FMA as two). An
-# int64 add, compare or select takes two int32 instructions.
-INT64_OPS_PER_S = 16.7e12 / 2
+# Issue rate of 32-bit integer instructions on an H100 SXM: each SM's four
+# schedulers issue one warp instruction (32 lanes) per clock, 128 lanes,
+# x 132 SMs x 1.98 GHz = 33.45e12 lane-instructions/s. The integer work
+# splits over two pipes of 64 lanes per SM each, the ALU pipe (adds,
+# compares, logic, shifts) and the FMA pipe (IMAD), so 128 is reached
+# only by a mix; a kernel on one pipe alone gets half (16.7e12). The
+# assumption is this script's: the published table holds no integer
+# rate. ops/sampled_hist.py::ops_per_sample counts 32-bit issues, so B1's
+# operation bound is that count over this rate; the kernels line also
+# prints it at the one-pipe rate.
+INT32_ISSUES_PER_S = 128 * 132 * 1.98e9
+INT32_PIPE_PER_S = INT32_ISSUES_PER_S / 2
 # Bytes one sample costs the kernel on the main path: its 8 B key read
 # and its 8 B residual written (the engine passes no mask).
 BYTES_PER_SAMPLE = 8 + 8
@@ -72,11 +83,12 @@ REPLACES = "pluss_sampler_optimization_tpu/ops/pallas_sampled.py:126"
 SOURCE = "pluss_sampler_optimization_torch/csrc/sampled_hist.cu"
 SPANS = ("draw", "stage", "dispatch", "decode", "fold")
 # Kernel B2: per element an 8 B value and a 1 B bool weight read (8 B
-# for int weights), the (64,) int64 output written once; int64
-# operations per element: the weight and zero tests, the clz and the add.
+# for int weights), the (64,) int64 output written once; 32-bit issues
+# per element: the weight test, the 64-bit zero test (2), the 64-bit clz
+# (3), the bin (1) and the add (1).
 B2_REPLACES = "pluss_sampler_optimization_tpu/ops/pallas_hist.py:39"
 B2_SOURCE = "pluss_sampler_optimization_torch/csrc/pow2_hist.cu"
-B2_OPS_PER_ELEMENT = 4
+B2_OPS_PER_ELEMENT = 8
 B2_RUN_REPS = 5  # timed passes over all of a run's B2 inputs
 SHARDED_SPANS = ("draw", "shard_put", "dispatch_psum", "gather_fetch",
                  "merge")
@@ -182,9 +194,10 @@ def phase_build() -> None:
         built = list(ex.map(one, names))
     for path, log, secs in built:
         print(f"build: {os.path.relpath(path)} in {secs:.2f} s")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"build: {line.strip()}")
+        for k in _build.ptxas_report(log):
+            print(f"build: {k['name']}: {k.get('registers')} registers, "
+                  f"{k.get('stack')} B stack frame, {k.get('spill_stores')} "
+                  f"B spill stores, {k.get('spill_loads')} B spill loads")
 
 
 def _b2_compare(label: str, values, weights):
@@ -242,8 +255,8 @@ def phase_b2_made(dev) -> int:
 
 def phase_kernels(n: int, cfg, dev) -> dict:
     """Kernel vs plain on every dispatch of the main path; returns the
-    kernel's JSON entry (without launches), its bound's two parts and
-    the number of dispatches."""
+    kernel's JSON entry (without launches), its bound's parts and the
+    number of dispatches."""
     import torch
 
     from pluss_sampler_optimization_torch.config import MachineConfig
@@ -253,6 +266,7 @@ def phase_kernels(n: int, cfg, dev) -> dict:
         sorted_k_unique,
     )
     from pluss_sampler_optimization_torch.ops.sampled_hist import (
+        instantiation,
         ops_per_sample,
         sampled_hist_cuda,
         sampled_hist_plain,
@@ -297,7 +311,7 @@ def phase_kernels(n: int, cfg, dev) -> dict:
                     )
         ms = _time_ms(kern, KERNEL_REPS)
         plain_ms = _time_ms(plain, PLAIN_REPS)
-        ops = ops_per_sample(d.desc.cpu().numpy()) * keys.numel()
+        ops = ops_per_sample(d.desc, d.highs) * keys.numel()
         nbytes = BYTES_PER_SAMPLE * keys.numel() + 8 * got[1].numel() \
             + 8 * got[2].numel()
         tot["ms"] += ms
@@ -305,12 +319,14 @@ def phase_kernels(n: int, cfg, dev) -> dict:
         tot["bytes"] += nbytes
         tot["ops"] += ops
         n_dispatches += 1
+        lv, nhmax = instantiation(d.desc)
         print(f"kernels: dispatch {n_dispatches} {label} R={keys.shape[0]} "
-              f"B={keys.shape[1]} equal; kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, {ops // keys.numel()} int64 ops/sample")
+              f"B={keys.shape[1]} sampled_hist_kernel<{lv}, {nhmax}> equal; "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"{ops // keys.numel()} int32 issues/sample")
     print(f"kernels: {n_dispatches} dispatches; host {_spans_text(spans)}")
     bytes_ms = tot["bytes"] / HBM_BYTES_PER_S * 1e3
-    ops_ms = tot["ops"] / INT64_OPS_PER_S * 1e3
+    ops_ms = tot["ops"] / INT32_ISSUES_PER_S * 1e3
     return {
         "entry": {
             "name": "sampled_hist", "route": "cuda", "source": SOURCE,
@@ -323,6 +339,7 @@ def phase_kernels(n: int, cfg, dev) -> dict:
         },
         "bytes_ms": bytes_ms,
         "ops_ms": ops_ms,
+        "pipe_ms": tot["ops"] / INT32_PIPE_PER_S * 1e3,
         "dispatches": n_dispatches,
     }
 
@@ -557,13 +574,13 @@ def phase_b2_engine(inputs, max_err: int) -> dict:
               f"{call:.4f} ms, profiler device time "
               + ("not recorded" if dev is None else f"{dev:.4f} ms"))
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / INT64_OPS_PER_S * 1e3
+    ops_ms = ops / INT32_ISSUES_PER_S * 1e3
     k = len(inputs)
     print(f"B2 vs plain: all {k} sharded-path inputs equal; per run kernel "
           f"{times['kernel']:.4f} ms ({times['kernel'] / k * 1e3:.2f} us "
           f"per launch), plain {times['plain']:.4f} ms, searchsorted + "
           f"bincount {times['library']:.4f} ms; bound {bytes_ms:.4f} ms by "
-          f"bytes ({bytes_ms / k * 1e3:.3f} us per launch; int64 operations "
+          f"bytes ({bytes_ms / k * 1e3:.3f} us per launch; int32 issues "
           f"{ops_ms:.4f} ms)")
     return {
         "name": "pow2_hist", "route": "cuda", "source": B2_SOURCE,
@@ -626,7 +643,8 @@ def main(argv=None) -> int:
           f"{k['entry']['ms']:.3f} ms, plain {k['entry']['plain_ms']:.3f} ms, "
           f"bound {k['entry']['bound_ms']:.3f} ms by "
           f"{k['entry']['bound_by']} (bytes {k['bytes_ms']:.4f} ms, "
-          f"int64 operations {k['ops_ms']:.3f} ms)")
+          f"int32 issues {k['ops_ms']:.4f} ms; at the one-pipe rate "
+          f"{k['pipe_ms']:.4f} ms)")
     k["entry"]["launches"], main_path = phase_main_path(
         args.n, cfg, k["dispatches"])
     b2_launches, inputs = phase_sharded(args.n, cfg, main_path)

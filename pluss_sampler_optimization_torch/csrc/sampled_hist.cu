@@ -16,40 +16,72 @@
 // Design. The Pallas kernel was traced per kernel signature, with the
 // classify's structure baked in. Here one build serves every
 // rectangular signature: the host packs the structure (schedule, loop
-// starts and steps, the ref tables, and each sink group's band plan)
-// into a small int64 descriptor (ops/sampled_hist.py::build_descriptor)
-// that every block copies into shared memory and every thread walks.
-// One thread per sample, a grid-stride loop per member ref (grid.y).
-// The TPU kernel's comparison ladder becomes a direct bin by clz into
-// a per-block shared histogram; one global atomicAdd per bin per block
-// flushes it. Integer sums do not depend on order, so the result is
-// exact. Every division that can see a negative numerator or divisor
-// floors (floordiv_i64/floormod_i64), as jnp and torch do.
+// starts and steps, the ref tables, each sink group's band plan, and a
+// division record for every divisor) into a small int64 descriptor
+// (ops/sampled_hist.py::build_descriptor), passed by value as a kernel
+// parameter, so every thread reads it from the constant bank. One thread
+// per sample, a grid-stride loop per member ref (grid.y), as many blocks
+// as the card holds at once. The TPU kernel's comparison ladder becomes a
+// direct bin by clz; lanes of a warp with the same bin are counted
+// together (__match_any_sync) into a per-block shared histogram, and one
+// global atomicAdd per bin per block flushes it. Integer sums do not
+// depend on order, so the result is exact.
 //
-// Bound on an H100: per sample it reads an 8 B key (and a 1 B mask
-// where the caller passes one; the engine's dispatches pass none) and
-// writes an 8 B residual, while the classify costs 600 to 1,500 int64
-// operations at GEMM's signatures (ops/sampled_hist.py::ops_per_sample
-// counts them) and the card has no int64 ALU. So it is bound by integer
-// operations, not bytes: the design keeps each sample's whole classify
-// in registers and writes nothing to memory but the residual and the
-// per-block histogram. No TMA and no wgmma: this is the simple, exact
-// version, and speed comes in a later change.
+// Bound on an H100: integer issue slots. Per sample it reads an 8 B key
+// (and a 1 B mask where the caller passes one; the engine's dispatches
+// pass none) and writes an 8 B residual, against 227 to 452 32-bit
+// integer instructions that the classify needs at GEMM's signatures,
+// each value at its narrowest width (ops/sampled_hist.py::ops_per_sample
+// counts them); the card has no int64 ALU and no integer divider. This
+// kernel keeps every value in int64, so it issues more than that count.
+// The design spends its issue slots and registers on that:
+//   - no division instruction sequence at all: every floor division is
+//     by a divisor fixed per launch, so the host ships it as a record (a
+//     shift for a power of two, else a round-up multiplier and a shift)
+//     and the thread spends a multiply-high, a shift and a sign fix;
+//   - what depends only on the sample's position (m0, r0, j0, rr0 of
+//     nextuse.py::min_position_after) is computed once per sample, and
+//     what does not depend on the member sink (strategies A and B, and
+//     whether strategy C exists) once per band candidate: the members
+//     only add their body offsets at the end of the group;
+//   - the walk keeps every value in scalars or arrays indexed by
+//     compile-time constants: one kernel per source-ref level LV and per
+//     head-count class NHMAX, 1 (no group has more than one band-plan
+//     head) or 3 (up to three): 6 instantiations, the launch picks one
+//     from the descriptor. Inside, one walk per sink level and head
+//     count, head loops nested by templates, so nothing lives in local
+//     memory; the descriptor costs no registers, and the per-member
+//     state of a level-2 walk lives in shared memory;
+//   - __launch_bounds__ cuts registers for 3 blocks of 256 per SM where
+//     NHMAX is 1 (80 registers), 2 where it is 3. The grid is the card's
+//     resident blocks (SMs times the occupancy), asked once per device.
+// No TMA, no wgmma and no shared-memory tiling: the kernel moves 16 B
+// per sample, so there is nothing for them to feed.
 //
 // The same file compiles as plain C++ (no __CUDACC__): it then exports
-// sampled_hist_host, a serial loop over the same per-sample code, which
-// the CPU tests build with g++ to check the descriptor walk.
+// sampled_hist_host, a serial loop over the same per-sample code (every
+// instantiation), and sampled_hist_divmod, the floor division and
+// modulo by a record, which the CPU tests build with g++ and hold
+// against the plain version and Python's // and %.
 
 #include <stdint.h>
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
+
+#include <atomic>
 #define HD __host__ __device__ __forceinline__
 #else
 #define HD static inline
 #endif
+#ifdef __CUDA_ARCH__
+#define UNROLL _Pragma("unroll")
+#else
+#define UNROLL
+#endif
 
 typedef long long i64;
+typedef unsigned long long u64;
 
 // Leading zeros of x > 0: the device intrinsic on the card, the builtin
 // in the host compilation passes.
@@ -57,7 +89,7 @@ HD int clz64(i64 x) {
 #ifdef __CUDA_ARCH__
     return __clzll(x);
 #else
-    return __builtin_clzll((unsigned long long)x);
+    return __builtin_clzll((u64)x);
 #endif
 }
 
@@ -66,9 +98,84 @@ HD int clz64(i64 x) {
 #define RATIO_SLOTS 16
 #define NOSHARE_SLOT 15
 #define N_BINS 64
+// Words of the descriptor the kernel parameter holds (16 KB); a build
+// may set a smaller one with -DMAX_DESC=n.
+#ifndef MAX_DESC
 #define MAX_DESC 2048
+#endif
 #define MAX_MEMBERS 8
 #define MAX_DEPTH 3
+#define THREADS 256
+// Stride between one thread's per-member slots of a level-2 walk: a
+// column of the block's shared array on the card, a plain array on the
+// host.
+#ifdef __CUDA_ARCH__
+#define NB_STRIDE THREADS
+#else
+#define NB_STRIDE 1
+#endif
+// Blocks of THREADS per SM that __launch_bounds__ cuts the registers for:
+// 3 (80 registers) where no group has more than one band-plan head (every
+// model of the repository but heat-3d); 2 otherwise, where the walk needs
+// up to 124 registers and would spill at 80 (ptxas, sm_90a). A finer
+// split of NHMAX gains nothing: 0 and 1 heads fit 3 blocks alike, 2 and 3
+// heads 2 blocks alike.
+#define BLOCKS_PER_SM(NHMAX) ((NHMAX) <= 1 ? 3 : 2)
+
+// A division record: three int64 words, the divisor d != 0, a multiplier
+// and info = shift | DIV_NEG when d < 0. With e = |d|:
+//   - e a power of two: multiplier 0, shift log2 e, and t / e = t >> shift;
+//   - otherwise, with l = ceil(log2 e): multiplier M = ceil(2^(63+l) / e),
+//     which is below 2^64, and shift l - 1, so that
+//     t / e = umulhi(t, M) >> (l - 1) for every 0 <= t < 2^63: with
+//     t = q*e + r (r < e), t*M / 2^(63+l) = t/e + t*(M*e - 2^(63+l)) /
+//     (e * 2^(63+l)), and that excess is below 2^63 * e / (e * 2^(63+l))
+//     = 2^-l < 1/e, so the product stays below q + (r + 1)/e <= q + 1.
+// floordiv_rec folds a negative numerator onto t = ~a = -a - 1 >= 0 and
+// back (floor(a/e) = ~floor(~a/e)), so with a positive divisor it is
+// exact for EVERY int64 numerator; a negative divisor (a descending
+// loop's step) turns floor(a/d) into -ceil(a/e), exact wherever the
+// quotient fits int64 (everything but INT64_MIN / -1). No numerator
+// range is assumed, so build_descriptor asserts none.
+#define DIV_D 0
+#define DIV_M 1
+#define DIV_INFO 2
+#define DIV_SIZE 3
+#define DIV_NEG 64
+
+HD u64 umulhi(u64 a, u64 b) {
+#ifdef __CUDA_ARCH__
+    return __umul64hi(a, b);
+#else
+    return (u64)(((unsigned __int128)a * b) >> 64);
+#endif
+}
+
+// floor(t / |d|) for 0 <= t < 2^63.
+HD u64 udiv_rec(u64 t, const i64* rec) {
+    const u64 m = (u64)rec[DIV_M];
+    const int s = (int)(rec[DIV_INFO] & 63);
+    return (m ? umulhi(t, m) : t) >> s;
+}
+
+// floor(a / d), as Python's // and torch's floor division.
+HD i64 floordiv_rec(i64 a, const i64* rec) {
+    const i64 sgn = a >> 63;  // 0 or -1
+    i64 q = (i64)(udiv_rec((u64)(a ^ sgn), rec) ^ (u64)sgn);
+    if (rec[DIV_INFO] & DIV_NEG) {
+        const i64 r = (i64)((u64)a + (u64)rec[DIV_D] * (u64)q);  // a - e*q
+        q = (i64)(0ULL - (u64)q - (u64)(r != 0));
+    }
+    return q;
+}
+
+// a - d * floor(a / d) given q = floor(a / d): Python's %.
+HD i64 floormod_rec(i64 a, i64 q, const i64* rec) {
+    return (i64)((u64)a - (u64)q * (u64)rec[DIV_D]);
+}
+
+HD i64 min_i64(i64 a, i64 b) { return a < b ? a : b; }
+HD i64 max_i64(i64 a, i64 b) { return a > b ? a : b; }
 
 // Descriptor layout; ops/sampled_hist.py writes the same offsets.
 #define D_LV 0
@@ -93,7 +200,14 @@ HD int clz64(i64 x) {
 #define D_OFF_LC 31
 #define D_OFF_REFS 32
 #define D_OFF_GROUPS 33
-#define D_HEADER 34
+// division records: chunk, threads, cls, acc[0..2], each level's step
+// (n / (chunk * threads) is (n / chunk) / threads: no record of its own)
+#define D_DIV_CHUNK 34
+#define D_DIV_THREADS 37
+#define D_DIV_CLS 40
+#define D_DIV_ACC 43
+#define D_DIV_STEP 52
+#define D_HEADER 61
 // per-ref record
 #define R_OFF 0
 #define R_COEFF 1
@@ -111,32 +225,17 @@ HD int clz64(i64 x) {
 #define G_TW 5
 #define G_CONST 6
 #define G_HEADS 7
+// per-head record; H_CV holds the head coefficient's division record
 #define H_LEVEL 0
 #define H_NU 1
 #define H_CV 2
-#define H_RMIN 3
-#define H_RMAX 4
-#define H_SIZE 5
+#define H_RMIN (H_CV + DIV_SIZE)
+#define H_RMAX (H_RMIN + 1)
+#define H_SIZE (H_RMAX + 1)
 #define G_MEMBERS (G_HEADS + MAX_DEPTH * H_SIZE)
 #define TERM_CHECK 0
 #define TERM_INTERVAL 1
 #define TERM_WINDOW 2
-
-HD i64 floordiv_i64(i64 a, i64 b) {
-    i64 q = a / b;
-    if ((a % b != 0) && ((a < 0) != (b < 0))) q -= 1;
-    return q;
-}
-
-HD i64 floormod_i64(i64 a, i64 b) {
-    i64 r = a % b;
-    if (r != 0 && ((r < 0) != (b < 0))) r += b;
-    return r;
-}
-
-HD i64 cdiv_i64(i64 a, i64 b) { return -floordiv_i64(-a, b); }
-HD i64 min_i64(i64 a, i64 b) { return a < b ? a : b; }
-HD i64 max_i64(i64 a, i64 b) { return a > b ? a : b; }
 
 // One level's domain in a band candidate (sampler/nextuse.py::_LevelSpec)
 #define SPEC_FREE 0
@@ -156,287 +255,354 @@ HD i64 spec_min_val(const Spec& s) {
     return 0;
 }
 
-HD i64 spec_min_gt(const Spec& s, i64 x) {
-    if (s.kind == SPEC_FIXED) return (s.valid && s.a > x) ? s.a : INF_I64;
-    if (s.kind == SPEC_INTERVAL) {
-        i64 nxt = max_i64(s.a, x + 1);
-        return nxt < s.b ? nxt : INF_I64;
-    }
-    i64 nxt = max_i64(0, x + 1);
-    return nxt < s.a ? nxt : INF_I64;
-}
-
-HD i64 spec_eq(const Spec& s, i64 x) {
-    if (s.kind == SPEC_FIXED) return (s.valid && s.a == x) ? x : INF_I64;
-    if (s.kind == SPEC_INTERVAL) return (x >= s.a && x < s.b) ? x : INF_I64;
-    return (x >= 0 && x < s.a) ? x : INF_I64;
-}
-
-HD i64 spec_min_scaled_gt(const Spec& s, i64 scale, i64 x) {
-    if (s.kind == SPEC_FIXED)
-        return (s.valid && s.a * scale > x) ? s.a : INF_I64;
-    i64 lo = s.kind == SPEC_INTERVAL ? s.a : 0;
-    i64 hi = s.kind == SPEC_INTERVAL ? s.b : s.a;
-    i64 nxt = max_i64(lo, floordiv_i64(x, scale) + 1);
+// Smallest element >= x, INF when none. _LevelSpec.min_gt(x) is
+// spec_min_ge(x + 1), and min_scaled_gt(scale, x) with scale > 0 is
+// spec_min_ge(floor(x / scale) + 1): v * scale > x iff v > floor(x/scale).
+HD i64 spec_min_ge(const Spec& s, i64 x) {
+    if (s.kind == SPEC_FIXED) return (s.valid && s.a >= x) ? s.a : INF_I64;
+    const i64 lo = s.kind == SPEC_INTERVAL ? s.a : 0;
+    const i64 hi = s.kind == SPEC_INTERVAL ? s.b : s.a;
+    const i64 nxt = max_i64(lo, x);
     return nxt < hi ? nxt : INF_I64;
 }
 
-// Position of ref `off` at (m, n1, n2), INF when any part is INF
-// (nextuse.py::min_position_after's pos + guard).
-HD i64 guarded_pos(const i64* d, int lv, i64 off, i64 m, i64 n1, i64 n2) {
-    if (m >= INF_I64 || n1 >= INF_I64 || n2 >= INF_I64) return INF_I64;
-    i64 p = m * d[D_ACC] + off;
-    if (lv >= 1) p += d[D_NPRE0] + n1 * d[D_ACC + 1];
-    if (lv >= 2) p += d[D_NPRE1] + n2 * d[D_ACC + 2];
+HD bool spec_has(const Spec& s, i64 x) {
+    if (s.kind == SPEC_FIXED) return s.valid && s.a == x;
+    const i64 lo = s.kind == SPEC_INTERVAL ? s.a : 0;
+    const i64 hi = s.kind == SPEC_INTERVAL ? s.b : s.a;
+    return x >= lo && x < hi;
+}
+
+// What every group's walk reads of one sample: its thread and position,
+// and the mixed-radix split of the position that
+// nextuse.py::min_position_after takes of p0 (m0, r0, j0, rr0), computed
+// once per sample here rather than once per member per candidate.
+struct Sample {
+    i64 tid, p0;
+    i64 m0, r0;   // p0 = m0 * acc0 + r0
+    i64 j0, rr0;  // r0 = npre0 + j0 * acc1 + rr0
+};
+
+// The static schedule's owner thread and thread-local index of a
+// normalized parallel iteration n >= 0 (core/schedule.py): with
+// q = n / chunk and qq = q / threads (= n / (chunk * threads)),
+// owner = q mod threads and local = qq * chunk + n mod chunk.
+// Unsigned arithmetic: a caller may pass an n < 0 whose results it
+// then ignores.
+HD void schedule_of(const i64* d, i64 n, i64* owner, i64* local) {
+    const u64 ch = (u64)d[D_DIV_CHUNK + DIV_D];
+    const u64 th = (u64)d[D_DIV_THREADS + DIV_D];
+    const u64 q = udiv_rec((u64)n, d + D_DIV_CHUNK);
+    const u64 qq = udiv_rec(q, d + D_DIV_THREADS);
+    *owner = (i64)(q - qq * th);
+    *local = (i64)(qq * ch + ((u64)n - q * ch));
+}
+
+// Level l fixed to the loop VALUE v (nextuse.py's spec_from_value):
+// normalize, validate, and at level 0 map to the sample thread's own
+// index. Out of range, n may be anything; then valid is false and a is
+// never read.
+HD Spec spec_fixed(const i64* d, int l, i64 v, bool ok, i64 tid) {
+    const i64* rec = d + D_DIV_STEP + l * DIV_SIZE;
+    const i64 rel = v - d[D_LSTART + l];
+    const i64 n = floordiv_rec(rel, rec);
+    const bool on_grid = floormod_rec(rel, n, rec) == 0;
+    Spec s;
+    s.kind = SPEC_FIXED;
+    s.b = 0;
+    s.valid = ok && on_grid && n >= 0 && n < d[D_TRIPS + l];
+    if (l == 0) {
+        i64 owner, local;
+        schedule_of(d, n, &owner, &local);
+        s.valid = s.valid && owner == tid;
+        s.a = local;
+    } else {
+        s.a = n;
+    }
+    return s;
+}
+
+// Position base m*acc0 [+ npre0 + n1*acc1 [+ npre1 + n2*acc2]] of a
+// sink at level SL, body offset excluded; INF when a part is INF
+// (min_position_after's pos + guard).
+template <int SL>
+HD i64 pos_base(const i64* d, i64 m, i64 n1, i64 n2) {
+    if (m >= INF_I64 || (SL >= 1 && n1 >= INF_I64)
+        || (SL >= 2 && n2 >= INF_I64))
+        return INF_I64;
+    i64 p = m * d[D_ACC];
+    if constexpr (SL >= 1) p += d[D_NPRE0] + n1 * d[D_ACC + 1];
+    if constexpr (SL >= 2) p += d[D_NPRE1] + n2 * d[D_ACC + 2];
     return p;
 }
 
-// nextuse.py::min_position_after: minimal position of a sink (level lv,
-// body offset off) strictly after p0 over the level box `sp`.
-HD i64 min_position_after(const i64* d, int lv, i64 off, i64 p0,
-                          const Spec* sp) {
-    i64 a0 = d[D_ACC];
-    i64 m0 = floordiv_i64(p0, a0);
-    i64 r0 = p0 - m0 * a0;
-    if (lv == 0) {
-        i64 pa = guarded_pos(d, 0, off, spec_min_gt(sp[0], m0), 0, 0);
-        i64 pb = guarded_pos(d, 0, off, spec_eq(sp[0], m0), 0, 0);
-        return min_i64(pa, pb > p0 ? pb : INF_I64);
-    }
-    i64 np0 = d[D_NPRE0], np1 = d[D_NPRE1];
-    i64 a1 = d[D_ACC + 1];
-    i64 j0 = floordiv_i64(r0 - np0, a1);
-    i64 rr0 = r0 - np0 - j0 * a1;
-    i64 mA = spec_min_gt(sp[0], m0);
-    i64 mB = spec_eq(sp[0], m0);
-    if (lv == 1) {
-        i64 pa = guarded_pos(d, 1, off, mA, spec_min_val(sp[1]), 0);
-        i64 pb = guarded_pos(d, 1, off, mB, spec_min_gt(sp[1], j0), 0);
-        i64 pc = guarded_pos(d, 1, off, mB, spec_eq(sp[1], j0), 0);
-        return min_i64(min_i64(pa, pb), pc > p0 ? pc : INF_I64);
-    }
-    i64 a2 = d[D_ACC + 2];
-    i64 n2min = spec_min_val(sp[2]);
-    i64 pa = guarded_pos(d, 2, off, mA, spec_min_val(sp[1]), n2min);
-    i64 pb = guarded_pos(d, 2, off, mB, spec_min_gt(sp[1], j0), n2min);
-    // need np1 + n2*a2 + off > rr0
-    i64 n2c = spec_min_scaled_gt(sp[2], a2, rr0 - np1 - off);
-    i64 pc = guarded_pos(d, 2, off, mB, spec_eq(sp[1], j0), n2c);
-    return min_i64(min_i64(pa, pb), pc > p0 ? pc : INF_I64);
+// Head bounds of one band-plan head at residual band start lo: the head
+// value runs over [umin, umin + n_u), and is in the band iff <= umax.
+HD void head_bounds(const i64* h, i64 lo, i64 W, i64* umin, i64* umax) {
+    const i64* cv = h + H_CV;
+    *umin = -floordiv_rec(h[H_RMAX] - lo, cv);  // ceil((lo - rmax) / cv)
+    *umax = floordiv_rec(lo + W - 1 - h[H_RMIN], cv);
 }
 
-// Per-sample state of one sink group's candidate walk.
-struct GroupWalk {
+// Which of the first NH heads fixes level l (head levels are distinct),
+// -1 for none.
+template <int NH>
+HD int head_at(const i64* g, int l) {
+    int k = -1;
+    UNROLL
+    for (int i = 0; i < NH; ++i)
+        if (g[G_HEADS + i * H_SIZE + H_LEVEL] == l) k = i;
+    return k;
+}
+
+// One sink group's walk: its records, which head fixes each level (-1
+// for none), and the per-member slots of a level-2 walk (slot jj at
+// nb[jj * NB_STRIDE]: per-thread shared memory on the card).
+struct Group {
     const i64* d;
     const i64* g;
-    int level;     // sink level
-    i64 tid, p0;
-    int fk[MAX_DEPTH];  // 0 free, 1 fixval, 2 interval (value space)
-    i64 fa[MAX_DEPTH], fb[MAX_DEPTH];
-    i64 bests[MAX_MEMBERS];
+    int hk[MAX_DEPTH];
+    i64* nb;
 };
 
-HD i64 owner_tid(const i64* d, i64 n) {
-    return floormod_i64(floordiv_i64(n, d[D_CHUNK]), d[D_THREADS]);
-}
+// The values of the first NH heads in a candidate: scalars, not an array,
+// so that picking one by a level's head index stays a select in
+// registers.
+struct HeadValues {
+    i64 u0, u1, u2;
+};
 
-HD i64 local_index(const i64* d, i64 n) {
-    i64 c = d[D_CHUNK];
-    return floordiv_i64(n, c * d[D_THREADS]) * c + floormod_i64(n, c);
-}
+// What the band candidates of a group reduce to, member offsets aside.
+struct Acc {
+    i64 min_ab;  // strategies A and B: min over candidates of the base
+    bool any_c;  // strategy C exists in some candidate (SL 0 and 1)
+};
 
-// nextuse.py::next_use_candidates_group's emit: assemble the level box
-// of one candidate and reduce every member sink over it.
-HD void emit(GroupWalk& w, bool ok, bool any_fixed) {
-    const i64* d = w.d;
-    Spec sp[MAX_DEPTH];
-    for (int l = 0; l <= w.level; ++l) {
-        i64 start = d[D_LSTART + l], step = d[D_LSTEP + l];
-        i64 trip = d[D_TRIPS + l];
-        if (w.fk[l] == 2) {
-            i64 n_lo = max_i64(w.fa[l] - start, 0);
-            i64 n_hi = min_i64(w.fb[l] - start, trip);
+// One band candidate (nextuse.py::next_use_candidates_group's emit): the
+// level box from the head values u, the terminal's band start lo and
+// window index kw, then the member-independent part of every strategy
+// of min_position_after at sink level SL.
+template <int SL, int NH>
+HD void candidate(const Group& G, const Sample& s, const HeadValues& u,
+                  i64 lo, i64 kw, bool ok, Acc& acc) {
+    const i64* d = G.d;
+    const int term = (int)G.g[G_TERM];
+    const int tl = (int)G.g[G_TLEVEL];
+    Spec sp[SL + 1];
+    UNROLL
+    for (int l = 0; l <= SL; ++l) {
+        if (G.hk[l] >= 0) {
+            const i64 v = G.hk[l] == 0 ? u.u0 : G.hk[l] == 1 ? u.u1 : u.u2;
+            sp[l] = spec_fixed(d, l, v, ok, s.tid);
+        } else if (term == TERM_WINDOW && tl == l) {
+            sp[l] = spec_fixed(d, l, lo + kw, ok, s.tid);
+        } else if (term == TERM_INTERVAL && tl == l) {
+            const i64 start = d[D_LSTART + l];
+            const i64 n_lo = max_i64(lo - start, 0);
+            const i64 n_hi = min_i64(lo + d[D_W] - start, d[D_TRIPS + l]);
             sp[l].kind = SPEC_INTERVAL;
             sp[l].valid = true;
             sp[l].a = n_lo;
             sp[l].b = ok ? n_hi : n_lo;
-        } else if (w.fk[l] == 1) {
-            i64 rel = w.fa[l] - start;
-            i64 n = floordiv_i64(rel, step);
-            bool okv = ok && floormod_i64(rel, step) == 0 && n >= 0
-                       && n < trip;
-            sp[l].kind = SPEC_FIXED;
-            sp[l].b = 0;
-            if (l == 0) {
-                okv = okv && owner_tid(d, n) == w.tid;
-                sp[l].a = local_index(d, n);
-            } else {
-                sp[l].a = n;
-            }
-            sp[l].valid = okv;
         } else {
             sp[l].kind = SPEC_FREE;
             sp[l].valid = true;
-            sp[l].a = l == 0 ? d[d[D_OFF_LC] + w.tid] : trip;
+            sp[l].a = l == 0 ? d[d[D_OFF_LC] + s.tid] : d[D_TRIPS + l];
             sp[l].b = 0;
         }
     }
-    const i64* refs = d + d[D_OFF_REFS];
-    int nm = (int)w.g[G_NMEM];
-    for (int jj = 0; jj < MAX_MEMBERS; ++jj) {
-        if (jj >= nm) break;
-        i64 j = w.g[G_MEMBERS + jj];
-        i64 p = min_position_after(d, w.level, refs[j * R_SIZE + R_OFF],
-                                   w.p0, sp);
-        if (!any_fixed && !ok) p = INF_I64;
-        w.bests[jj] = min_i64(w.bests[jj], p);
-    }
-}
-
-// The terminal node of the band plan (nextuse.py::_band_candidates).
-HD void terminal(GroupWalk& w, i64 lo_cur, bool ok) {
-    const i64* g = w.g;
-    i64 W = w.d[D_W];
-    int term = (int)g[G_TERM];
-    bool any_fixed = g[G_NHEADS] > 0 || term != TERM_CHECK;
-    if (term == TERM_CHECK) {
-        emit(w, ok && lo_cur <= 0 && lo_cur > -W, any_fixed);
-        return;
-    }
-    int l = (int)g[G_TLEVEL];
-    if (term == TERM_INTERVAL) {
-        w.fk[l] = 2;
-        w.fa[l] = lo_cur;
-        w.fb[l] = lo_cur + W;
-        emit(w, ok, true);
+    const i64 mA = spec_min_ge(sp[0], s.m0 + 1);
+    const bool mB = spec_has(sp[0], s.m0);
+    if constexpr (SL == 0) {
+        acc.min_ab = min_i64(acc.min_ab, pos_base<0>(d, mA, 0, 0));
+        acc.any_c = acc.any_c || mB;
     } else {
-        w.fk[l] = 1;
-        for (i64 k = 0; k < g[G_TW]; ++k) {
-            w.fa[l] = lo_cur + k;
-            emit(w, ok, true);
-        }
-    }
-    w.fk[l] = 0;
-}
-
-// One head node: enumerate its n_u values, then recurse by hand (the
-// plan has at most MAX_DEPTH heads).
-HD void head_bounds(const i64* h, i64 lo_cur, i64 W, i64* u_min,
-                    i64* u_max) {
-    i64 cv = h[H_CV];
-    *u_min = cdiv_i64(lo_cur - h[H_RMAX], cv);
-    *u_max = floordiv_i64(lo_cur + W - 1 - h[H_RMIN], cv);
-}
-
-HD void walk_group(GroupWalk& w, i64 line) {
-    const i64* g = w.g;
-    i64 W = w.d[D_W];
-    int nh = (int)g[G_NHEADS];
-    for (int l = 0; l < MAX_DEPTH; ++l) w.fk[l] = 0;
-    i64 lo = line * W - g[G_CONST];
-    if (nh == 0) {
-        terminal(w, lo, true);
-        return;
-    }
-    const i64* h0 = g + G_HEADS;
-    const i64* h1 = h0 + H_SIZE;
-    const i64* h2 = h1 + H_SIZE;
-    int l0 = (int)h0[H_LEVEL], l1 = (int)h1[H_LEVEL], l2 = (int)h2[H_LEVEL];
-    i64 u0min, u0max;
-    head_bounds(h0, lo, W, &u0min, &u0max);
-    for (i64 i0 = 0; i0 < h0[H_NU]; ++i0) {
-        i64 u0 = u0min + i0;
-        i64 lo1 = lo - h0[H_CV] * u0;
-        bool ok1 = u0 <= u0max;
-        w.fk[l0] = 1;
-        w.fa[l0] = u0;
-        if (nh == 1) {
-            terminal(w, lo1, ok1);
-            continue;
-        }
-        i64 u1min, u1max;
-        head_bounds(h1, lo1, W, &u1min, &u1max);
-        for (i64 i1 = 0; i1 < h1[H_NU]; ++i1) {
-            i64 u1 = u1min + i1;
-            i64 lo2 = lo1 - h1[H_CV] * u1;
-            bool ok2 = ok1 && u1 <= u1max;
-            w.fk[l1] = 1;
-            w.fa[l1] = u1;
-            if (nh == 2) {
-                terminal(w, lo2, ok2);
-                continue;
+        const i64 n2min = SL == 2 ? spec_min_val(sp[SL]) : 0;
+        const i64 pa = pos_base<SL>(d, mA, spec_min_val(sp[1]), n2min);
+        const i64 pb = mB ? pos_base<SL>(d, s.m0, spec_min_ge(sp[1], s.j0 + 1),
+                                         n2min)
+                          : INF_I64;
+        acc.min_ab = min_i64(acc.min_ab, min_i64(pa, pb));
+        const bool c = mB && spec_has(sp[1], s.j0);
+        if constexpr (SL == 1) {
+            acc.any_c = acc.any_c || c;
+        } else if (c) {
+            const i64* refs = d + d[D_OFF_REFS];
+            const int nm = (int)G.g[G_NMEM];
+            for (int jj = 0; jj < nm; ++jj) {
+                const i64 off = refs[G.g[G_MEMBERS + jj] * R_SIZE + R_OFF];
+                const i64 qp1 = floordiv_rec(s.rr0 - d[D_NPRE1] - off,
+                                             d + D_DIV_ACC + 2 * DIV_SIZE)
+                                + 1;
+                i64* slot = G.nb + jj * NB_STRIDE;
+                *slot = min_i64(*slot, spec_min_ge(sp[SL], qp1));
             }
-            i64 u2min, u2max;
-            head_bounds(h2, lo2, W, &u2min, &u2max);
-            for (i64 i2 = 0; i2 < h2[H_NU]; ++i2) {
-                i64 u2 = u2min + i2;
-                w.fk[l2] = 1;
-                w.fa[l2] = u2;
-                terminal(w, lo2 - h2[H_CV] * u2, ok2 && u2 <= u2max);
-            }
-            w.fk[l2] = 0;
         }
-        w.fk[l1] = 0;
     }
 }
 
-// sampled.py::classify_samples for one sample: decode, geometry, the
-// best sink over every group, and the share test.
-HD void classify_one(const i64* d, i64 key, i64 h0, i64 h1, i64 h2,
-                     i64 rx, i64* packed, i64* ri_out, bool* share,
-                     bool* found) {
-    // decode_sample_keys: innermost level first
+// The band plan (_band_candidates) from head K on: head K's values, each
+// narrowing the band for the heads after it, then the terminal. One
+// nested loop per head, unrolled by the template, so that every head's
+// state sits in registers.
+template <int SL, int NH, int K>
+HD void band(const Group& G, const Sample& s, i64 lo, bool ok,
+             HeadValues& u, Acc& acc) {
+    const i64* d = G.d;
+    if constexpr (K < NH) {
+        const i64* h = G.g + G_HEADS + K * H_SIZE;
+        i64 umin, umax;
+        head_bounds(h, lo, d[D_W], &umin, &umax);
+        const int n = (int)h[H_NU];
+        for (int i = 0; i < n; ++i) {
+            const i64 uk = umin + i;
+            if constexpr (K == 0) u.u0 = uk;
+            if constexpr (K == 1) u.u1 = uk;
+            if constexpr (K == 2) u.u2 = uk;
+            band<SL, NH, K + 1>(G, s, lo - h[H_CV + DIV_D] * uk,
+                                ok && uk <= umax, u, acc);
+        }
+    } else {
+        const int term = (int)G.g[G_TERM];
+        const i64 W = d[D_W];
+        if (term == TERM_CHECK) {
+            const bool okc = ok && lo <= 0 && lo > -W;
+            // a constant ref (no head, no unit-stride terminal): no spec
+            // carries the validity, so an invalid band is no candidate
+            if (NH > 0 || okc) candidate<SL, NH>(G, s, u, lo, 0, okc, acc);
+        } else {
+            const i64 nw = term == TERM_WINDOW ? G.g[G_TW] : 1;
+            for (i64 kw = 0; kw < nw; ++kw)
+                candidate<SL, NH>(G, s, u, lo, kw, ok, acc);
+        }
+    }
+}
+
+// nextuse.py::next_use_candidates_group for one sink group at sink level
+// SL with NH band-plan heads, then _best_sink's in-order update of
+// (best, best_sink) over the group's members. Per candidate the
+// member-independent part of every strategy is reduced:
+//   A and B: min over candidates of the position base (the members add
+//     their offsets at the end: min(x + off) = min(x) + off);
+//   C at SL 0 and 1: its position is p0 - r0 (SL 0) or p0 - rr0 (SL 1)
+//     plus the offset whenever it exists, and it lies after p0 iff
+//     off > r0 (rr0), so only whether it exists is kept;
+//   C at SL 2: the level-2 index is the smallest box element >= qp1 =
+//     floor((rr0 - npre1 - off) / acc2) + 1, which depends on the member,
+//     so where C exists each member's minimum index is kept in nb.
+// The result equals the per-member, per-candidate minimum of the plain
+// version for every input.
+template <int SL, int NH>
+HD void walk_group(const i64* d, const i64* g, const Sample& s, i64 line, i64* nb,
+                   i64* best, i64* best_sink) {
+    const Group G{d, g, {head_at<NH>(g, 0), head_at<NH>(g, 1),
+                         head_at<NH>(g, 2)}, nb};
+    const int nm = (int)g[G_NMEM];
+    if constexpr (SL == 2) {
+        for (int jj = 0; jj < nm; ++jj) nb[jj * NB_STRIDE] = INF_I64;
+    }
+    Acc acc{INF_I64, false};
+    HeadValues u{0, 0, 0};
+    band<SL, NH, 0>(G, s, line * d[D_W] - g[G_CONST], true, u, acc);
+    // the members, in order, each with its own body offset
+    const i64* refs = d + d[D_OFF_REFS];
+    for (int jj = 0; jj < nm; ++jj) {
+        const i64 j = g[G_MEMBERS + jj];
+        const i64 off = refs[j * R_SIZE + R_OFF];
+        i64 p = acc.min_ab < INF_I64 ? acc.min_ab + off : INF_I64;
+        i64 pc;
+        if constexpr (SL == 0) {
+            pc = acc.any_c && off > s.r0 ? s.p0 - s.r0 + off : INF_I64;
+        } else if constexpr (SL == 1) {
+            pc = acc.any_c && off > s.rr0 ? s.p0 - s.rr0 + off : INF_I64;
+        } else {
+            // n2 * acc2 > rr0 - npre1 - off makes pc > p0 (acc2 > 0)
+            const i64 n2 = nb[jj * NB_STRIDE];
+            pc = n2 < INF_I64 ? s.p0 - s.rr0 + d[D_NPRE1]
+                                    + n2 * d[D_ACC + 2] + off
+                              : INF_I64;
+        }
+        p = min_i64(p, pc);
+        if (p < *best) {
+            *best = p;
+            *best_sink = j;
+        }
+    }
+}
+
+// walk_group with the group's head count nh <= NHMAX as a template
+// argument.
+template <int SL, int NH, int NHMAX>
+HD void walk_nh(int nh, const i64* d, const i64* g, const Sample& s, i64 line, i64* nb,
+                i64* best, i64* best_sink) {
+    if constexpr (NH == NHMAX) {
+        walk_group<SL, NH>(d, g, s, line, nb, best, best_sink);
+    } else if (nh == NH) {
+        walk_group<SL, NH>(d, g, s, line, nb, best, best_sink);
+    } else {
+        walk_nh<SL, NH + 1, NHMAX>(nh, d, g, s, line, nb, best, best_sink);
+    }
+}
+
+// sampled.py::classify_samples for one sample of a source ref at level
+// LV whose groups have at most NHMAX heads: decode, geometry, the best
+// sink over every group, and the share test. hr: the division records of
+// the key's three radices.
+template <int LV, int NHMAX>
+HD void classify_one(const i64* d, i64 key, const i64* hr, i64 rx, i64* nb,
+                     i64* packed, i64* ri_out, bool* share, bool* found) {
+    // decode_sample_keys: innermost level first; a padded radix is 1
     i64 n[MAX_DEPTH];
-    n[2] = floormod_i64(key, h2);
-    key = floordiv_i64(key, h2);
-    n[1] = floormod_i64(key, h1);
-    key = floordiv_i64(key, h1);
-    n[0] = floormod_i64(key, h0);
-    int lv = (int)d[D_LV];
-    // _sample_geometry
-    i64 tid = owner_tid(d, n[0]);
-    i64 m = local_index(d, n[0]);
-    i64 v0 = d[D_S_START] + n[0] * d[D_S_STEP];
+    i64 q = floordiv_rec(key, hr + 2 * DIV_SIZE);
+    n[2] = floormod_rec(key, q, hr + 2 * DIV_SIZE);
+    key = q;
+    q = floordiv_rec(key, hr + DIV_SIZE);
+    n[1] = floormod_rec(key, q, hr + DIV_SIZE);
+    key = q;
+    n[0] = floormod_rec(key, floordiv_rec(key, hr), hr);
+    // _sample_geometry; n[0] >= 0, as a floor modulo by a positive radix
+    Sample s;
+    i64 m;
+    schedule_of(d, n[0], &s.tid, &m);
+    const i64 v0 = d[D_S_START] + n[0] * d[D_S_STEP];
     const i64* refs = d + d[D_OFF_REFS];
     const i64* rr = refs + rx * R_SIZE;
-    i64 p0 = m * d[D_ACC] + rr[R_OFF];
-    if (lv >= 1) p0 += d[D_NPRE0] + n[1] * d[D_ACC + 1];
-    if (lv >= 2) p0 += d[D_NPRE1] + n[2] * d[D_ACC + 2];
+    s.p0 = m * d[D_ACC] + rr[R_OFF];
+    if constexpr (LV >= 1) s.p0 += d[D_NPRE0] + n[1] * d[D_ACC + 1];
+    if constexpr (LV >= 2) s.p0 += d[D_NPRE1] + n[2] * d[D_ACC + 2];
     i64 flat = rr[R_CONST] + v0 * rr[R_COEFF];
-    for (int l = 1; l <= lv; ++l) {
-        i64 vl = d[D_STARTB + l] + d[D_SC + l] * v0 + n[l] * d[D_LSTEP + l];
+    UNROLL
+    for (int l = 1; l <= LV; ++l) {
+        const i64 vl = d[D_STARTB + l] + d[D_SC + l] * v0
+                       + n[l] * d[D_LSTEP + l];
         flat += vl * rr[R_COEFF + l];
     }
-    i64 line = floordiv_i64(flat * d[D_DS], d[D_CLS]);
-    // _best_sink
+    const i64 line = floordiv_rec(flat * d[D_DS], d + D_DIV_CLS);
+    s.m0 = floordiv_rec(s.p0, d + D_DIV_ACC);
+    s.r0 = s.p0 - s.m0 * d[D_ACC];
+    s.j0 = floordiv_rec(s.r0 - d[D_NPRE0], d + D_DIV_ACC + DIV_SIZE);
+    s.rr0 = s.r0 - d[D_NPRE0] - s.j0 * d[D_ACC + 1];
+    // _best_sink: groups in order, members in order, first minimum wins
     i64 best = INF_I64, best_sink = 0;
     const i64* g = d + d[D_OFF_GROUPS];
-    int ng = (int)d[D_NGROUPS];
-    GroupWalk w;
-    w.d = d;
-    w.tid = tid;
-    w.p0 = p0;
+    const int ng = (int)d[D_NGROUPS];
     for (int gi = 0; gi < ng; ++gi) {
-        w.g = g;
-        w.level = (int)g[G_LEVEL];
-        int nm = (int)g[G_NMEM];
-        for (int jj = 0; jj < MAX_MEMBERS; ++jj) w.bests[jj] = INF_I64;
-        walk_group(w, line);
-        for (int jj = 0; jj < MAX_MEMBERS; ++jj) {
-            if (jj >= nm) break;
-            if (w.bests[jj] < best) {
-                best = w.bests[jj];
-                best_sink = g[G_MEMBERS + jj];
-            }
-        }
-        g += G_MEMBERS + nm;
+        const int level = (int)g[G_LEVEL], nh = (int)g[G_NHEADS];
+        if (level == 0)
+            walk_nh<0, 0, NHMAX>(nh, d, g, s, line, nb, &best, &best_sink);
+        else if (level == 1)
+            walk_nh<1, 0, NHMAX>(nh, d, g, s, line, nb, &best, &best_sink);
+        else
+            walk_nh<2, 0, NHMAX>(nh, d, g, s, line, nb, &best, &best_sink);
+        g += G_MEMBERS + g[G_NMEM];
     }
-    bool fnd = best < INF_I64;
-    i64 ri = fnd ? best - p0 : 0;
-    i64 thr = refs[best_sink * R_SIZE + R_THR];
-    i64 dthr = ri - thr;
-    bool shr = fnd && thr > 0 && (ri < 0 ? -ri : ri) > (dthr < 0 ? -dthr : dthr);
-    i64 slot = shr ? refs[best_sink * R_SIZE + R_RATIO] : NOSHARE_SLOT;
+    const bool fnd = best < INF_I64;
+    const i64 ri = fnd ? best - s.p0 : 0;
+    const i64 thr = refs[best_sink * R_SIZE + R_THR];
+    const i64 dthr = ri - thr;
+    const bool shr = fnd && thr > 0
+                     && (ri < 0 ? -ri : ri) > (dthr < 0 ? -dthr : dthr);
+    const i64 slot = shr ? refs[best_sink * R_SIZE + R_RATIO] : NOSHARE_SLOT;
     *packed = ri * RATIO_SLOTS + slot;
     *ri_out = ri;
     *share = shr;
@@ -446,46 +612,74 @@ HD void classify_one(const i64* d, i64 key, i64 h0, i64 h1, i64 h2,
 // One sample's contribution: residual lane, histogram bin, cold count.
 // Returns the bin (0..63) of a noshare ri >= 1 sample, 64 for a cold
 // sample, -1 otherwise.
-HD int sample_step(const i64* d, i64 key, bool mk, i64 h0, i64 h1, i64 h2,
-                   i64 rx, i64* residual) {
+template <int LV, int NHMAX>
+HD int sample_step(const i64* d, i64 key, bool mk, const i64* hr, i64 rx, i64* nb,
+                   i64* residual) {
     if (!mk) {  // masked-out lane: nothing but the sentinel
         *residual = SENTINEL;
         return -1;
     }
     i64 packed, ri;
     bool shr, fnd;
-    classify_one(d, key, h0, h1, h2, rx, &packed, &ri, &shr, &fnd);
-    bool nosh = fnd && !shr && ri >= 1;
+    classify_one<LV, NHMAX>(d, key, hr, rx, nb, &packed, &ri, &shr, &fnd);
+    const bool nosh = fnd && !shr && ri >= 1;
     *residual = (fnd && !nosh) ? packed : SENTINEL;
     if (nosh) return 63 - clz64(ri);
     return fnd ? -1 : N_BINS;
 }
 
+// The most band-plan heads of any group of a descriptor: NHMAX 1 serves
+// up to one, NHMAX 3 more.
+HD int max_heads(const i64* d) {
+    int nh = 0;
+    const i64* g = d + d[D_OFF_GROUPS];
+    for (i64 gi = 0; gi < d[D_NGROUPS]; ++gi) {
+        if (g[G_NHEADS] > nh) nh = (int)g[G_NHEADS];
+        g += G_MEMBERS + g[G_NMEM];
+    }
+    return nh;
+}
+
 #ifdef __CUDACC__
 
-__global__ void __launch_bounds__(256)
+// The launch's constants, passed by value: kernel parameters live in the
+// constant bank, which every lane of a warp reads at one address at no
+// cost in registers, and the compiler may keep them as instruction
+// operands or in uniform registers.
+struct Params {
+    i64 hr[MAX_DEPTH * DIV_SIZE];  // the radices' division records
+    i64 desc[MAX_DESC];            // build_descriptor's words
+};
+
+template <int LV, int NHMAX>
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM(NHMAX))
 sampled_hist_kernel(const i64* __restrict__ keys,
                     const unsigned char* __restrict__ mask, i64 B,
-                    const i64* __restrict__ desc, int desc_len, i64 h0,
-                    i64 h1, i64 h2, const i64* __restrict__ rx,
-                    i64* __restrict__ residual,
-                    unsigned long long* __restrict__ hist,
-                    unsigned long long* __restrict__ cold) {
-    __shared__ i64 s_desc[MAX_DESC];
-    __shared__ unsigned long long s_hist[N_BINS + 1];  // + cold
-    for (int i = threadIdx.x; i < desc_len; i += blockDim.x)
-        s_desc[i] = desc[i];
+                    const __grid_constant__ Params pr,
+                    const i64* __restrict__ rx, i64* __restrict__ residual,
+                    u64* __restrict__ hist, u64* __restrict__ cold) {
+    __shared__ i64 s_nb[MAX_MEMBERS * THREADS];  // walk_group's nb
+    __shared__ u64 s_hist[N_BINS + 1];  // + cold
     for (int i = threadIdx.x; i <= N_BINS; i += blockDim.x) s_hist[i] = 0;
     __syncthreads();
     const i64 r = blockIdx.y;
     const i64 rxv = rx[r];
     const i64 base = r * B;
-    for (i64 b = (i64)blockIdx.x * blockDim.x + threadIdx.x; b < B;
-         b += (i64)gridDim.x * blockDim.x) {
-        bool mk = mask == nullptr || mask[base + b] != 0;
-        int bin = sample_step(s_desc, keys[base + b], mk, h0, h1, h2, rxv,
-                              residual + base + b);
-        if (bin >= 0) atomicAdd(&s_hist[bin], 1ULL);
+    const i64 stride = (i64)gridDim.x * blockDim.x;
+    // b0 is the same for every thread of the block, so every lane of a
+    // warp runs every iteration and __match_any_sync sees the full warp
+    for (i64 b0 = (i64)blockIdx.x * blockDim.x; b0 < B; b0 += stride) {
+        const i64 b = b0 + threadIdx.x;
+        int bin = -1;
+        if (b < B) {
+            const bool mk = mask == nullptr || mask[base + b] != 0;
+            bin = sample_step<LV, NHMAX>(pr.desc, keys[base + b], mk, pr.hr,
+                                         rxv, s_nb + threadIdx.x,
+                                         residual + base + b);
+        }
+        const unsigned peers = __match_any_sync(0xffffffffu, bin);
+        if (bin >= 0 && (int)(threadIdx.x & 31) == __ffs(peers) - 1)
+            atomicAdd(&s_hist[bin], (u64)__popc(peers));
     }
     __syncthreads();
     for (int i = threadIdx.x; i < N_BINS; i += blockDim.x)
@@ -494,50 +688,124 @@ sampled_hist_kernel(const i64* __restrict__ keys,
         atomicAdd(&cold[r], s_hist[N_BINS]);
 }
 
-// keys/residual: int64 [R, B]; mask: uint8 [R, B], or null when every
-// lane is live; desc: int64
-// [desc_len]; rx: int64 [R]; hist: int64 [R, 64] and cold: int64 [R],
-// both zeroed by the caller. Launches on `stream`, allocates nothing,
-// returns cudaGetLastError() (or cudaErrorInvalidValue for arguments
-// the kernel does not take).
+typedef int (*LaunchFn)(const void*, const void*, i64, i64, const Params&,
+                        const void*, void*, void*, void*, cudaStream_t);
+
+#define MAX_DEVICES 64
+
+template <int LV, int NHMAX>
+static int launch(const void* keys, const void* mask, i64 R, i64 B,
+                  const Params& pr, const void* rx, void* residual,
+                  void* hist, void* cold, cudaStream_t stream) {
+    // as many blocks as the card holds at once, split over the R rows;
+    // the card's SM count times this instantiation's blocks per SM, asked
+    // once per device (0: not asked yet; every thread that asks gets the
+    // same answer)
+    static std::atomic<int> resident[MAX_DEVICES];
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+    int slots = resident[dev].load(std::memory_order_relaxed);
+    if (slots == 0) {
+        int sms = 0, per_sm = 0;
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (e == cudaSuccess)
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, sampled_hist_kernel<LV, NHMAX>, THREADS, 0);
+        if (e != cudaSuccess) return (int)e;
+        slots = per_sm * sms > 0 ? per_sm * sms : 1;
+        resident[dev].store(slots, std::memory_order_relaxed);
+    }
+    i64 bx = (slots + R - 1) / R;
+    const i64 need = (B + THREADS - 1) / THREADS;
+    if (bx > need) bx = need;
+    if (bx < 1) bx = 1;
+    dim3 grid((unsigned)bx, (unsigned)R);
+    sampled_hist_kernel<LV, NHMAX><<<grid, THREADS, 0, stream>>>(
+        (const i64*)keys, (const unsigned char*)mask, B, pr, (const i64*)rx,
+        (i64*)residual, (u64*)hist, (u64*)cold);
+    return (int)cudaGetLastError();
+}
+
+// [LV][0]: NHMAX 1 (groups of at most one head), [LV][1]: NHMAX 3
+#define LAUNCH_ROW(LV) {launch<LV, 1>, launch<LV, 3>}
+static const LaunchFn LAUNCH[MAX_DEPTH][2] = {
+    LAUNCH_ROW(0), LAUNCH_ROW(1), LAUNCH_ROW(2)};
+
+// keys/residual: int64 [R, B] on the card; mask: uint8 [R, B], or null
+// when every lane is live; desc: the HOST's int64 [desc_len]
+// (build_descriptor); hrec: the host's int64 [9], the division records
+// of the three radices; rx: int64 [R]; hist: int64 [R, 64] and cold:
+// int64 [R], both zeroed by the caller. Launches the instantiation of
+// the descriptor's source-ref level (desc[D_LV]) and most heads per
+// group on `stream`, allocates nothing, returns cudaGetLastError() (or
+// cudaErrorInvalidValue for arguments the kernel does not take).
 extern "C" int sampled_hist_launch(const void* keys, const void* mask,
-                                   i64 R, i64 B, const void* desc,
-                                   int desc_len, i64 h0, i64 h1, i64 h2,
+                                   i64 R, i64 B, const i64* desc,
+                                   int desc_len, const i64* hrec,
                                    const void* rx, void* residual,
                                    void* hist, void* cold, void* stream) {
-    if (desc_len > MAX_DESC || R < 1 || R > 65535 || B < 1)
+    if (desc_len < D_HEADER || desc_len > MAX_DESC || R < 1 || R > 65535
+        || B < 1 || desc[D_LV] < 0 || desc[D_LV] >= MAX_DEPTH
+        || max_heads(desc) > MAX_DEPTH)
         return (int)cudaErrorInvalidValue;
-    const int threads = 256;
-    i64 bx = (B + threads - 1) / threads;
-    if (bx > 1024) bx = 1024;
-    dim3 grid((unsigned)bx, (unsigned)R);
-    sampled_hist_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-        (const i64*)keys, (const unsigned char*)mask, B, (const i64*)desc,
-        desc_len, h0, h1, h2, (const i64*)rx, (i64*)residual,
-        (unsigned long long*)hist, (unsigned long long*)cold);
-    return (int)cudaGetLastError();
+    Params pr;
+    for (int i = 0; i < MAX_DEPTH * DIV_SIZE; ++i) pr.hr[i] = hrec[i];
+    for (int i = 0; i < desc_len; ++i) pr.desc[i] = desc[i];
+    return LAUNCH[desc[D_LV]][max_heads(desc) > 1](
+        keys, mask, R, B, pr, rx, residual, hist, cold, (cudaStream_t)stream);
 }
 
 #else
 
-// Serial host twin of the kernel, same arguments minus the stream.
-extern "C" int sampled_hist_host(const i64* keys, const unsigned char* mask,
-                                 i64 R, i64 B, const i64* desc,
-                                 int desc_len, i64 h0, i64 h1, i64 h2,
-                                 const i64* rx, i64* residual, i64* hist,
-                                 i64* cold) {
-    if (desc_len > MAX_DESC || R < 1 || B < 1) return 1;
+template <int LV, int NHMAX>
+static void host_rows(const i64* keys, const unsigned char* mask, i64 R,
+                      i64 B, const i64* desc, const i64* hrec,
+                      const i64* rx, i64* residual, i64* hist, i64* cold) {
+    i64 nb[MAX_MEMBERS];
     for (i64 r = 0; r < R; ++r) {
         for (i64 b = 0; b < B; ++b) {
-            i64 i = r * B + b;
-            bool mk = mask == nullptr || mask[i] != 0;
-            int bin = sample_step(desc, keys[i], mk, h0, h1, h2, rx[r],
-                                  residual + i);
+            const i64 i = r * B + b;
+            const bool mk = mask == nullptr || mask[i] != 0;
+            const int bin = sample_step<LV, NHMAX>(desc, keys[i], mk, hrec,
+                                                   rx[r], nb, residual + i);
             if (bin == N_BINS) cold[r] += 1;
             else if (bin >= 0) hist[r * N_BINS + bin] += 1;
         }
     }
+}
+
+typedef void (*HostFn)(const i64*, const unsigned char*, i64, i64,
+                       const i64*, const i64*, const i64*, i64*, i64*, i64*);
+#define HOST_ROW(LV) {host_rows<LV, 1>, host_rows<LV, 3>}
+static const HostFn HOST[MAX_DEPTH][2] = {
+    HOST_ROW(0), HOST_ROW(1), HOST_ROW(2)};
+
+// Serial host twin of the kernel, same arguments minus the stream, and
+// through the same instantiation.
+extern "C" int sampled_hist_host(const i64* keys, const unsigned char* mask,
+                                 i64 R, i64 B, const i64* desc,
+                                 int desc_len, const i64* hrec,
+                                 const i64* rx, i64* residual, i64* hist,
+                                 i64* cold) {
+    if (desc_len < D_HEADER || desc_len > MAX_DESC || R < 1 || B < 1
+        || desc[D_LV] < 0 || desc[D_LV] >= MAX_DEPTH
+        || max_heads(desc) > MAX_DEPTH)
+        return 1;
+    HOST[desc[D_LV]][max_heads(desc) > 1](keys, mask, R, B, desc, hrec, rx,
+                                          residual, hist, cold);
     return 0;
+}
+
+// q = floor(a / d) and r = a - d * q for n numerators by one division
+// record, through the kernel's own routine.
+extern "C" void sampled_hist_divmod(const i64* a, i64 n, const i64* rec,
+                                    i64* q, i64* r) {
+    for (i64 i = 0; i < n; ++i) {
+        q[i] = floordiv_rec(a[i], rec);
+        r[i] = floormod_rec(a[i], q[i], rec);
+    }
 }
 
 #endif

@@ -22,7 +22,15 @@ fallback: a CUDA tensor under "auto"/"cuda" launches the kernel or
 raises, and "cuda" on CPU tensors raises.
 
 The kernel takes the classify's structure as a packed int64 descriptor
-(`build_descriptor`), so one build serves every rectangular signature.
+(`build_descriptor`), so one build serves every rectangular signature;
+every divisor the classify uses travels in it as a division record
+(`div_record`), and the key's radices as three more records passed at
+launch. The descriptor travels from the host as a kernel parameter (the
+card's constant bank), so the kernel keeps none of it in registers. The
+build holds one instantiation of the kernel per source-ref level
+(`desc[D_LV]`: 0, 1 or 2) and per head-count class (groups of at most
+one band-plan head, or up to three); the launch picks the one of its
+descriptor.
 """
 
 from __future__ import annotations
@@ -45,20 +53,62 @@ D_LV, D_DEPTH, D_NREFS, D_THREADS, D_CHUNK = 0, 1, 2, 3, 4
 D_S_START, D_S_STEP, D_DS, D_CLS, D_W = 5, 6, 7, 8, 9
 D_NPRE0, D_NPRE1, D_NGROUPS = 10, 11, 12
 D_ACC, D_TRIPS, D_STARTB, D_SC, D_LSTART, D_LSTEP = 13, 16, 19, 22, 25, 28
-D_OFF_LC, D_OFF_REFS, D_OFF_GROUPS, D_HEADER = 31, 32, 33, 34
+D_OFF_LC, D_OFF_REFS, D_OFF_GROUPS = 31, 32, 33
+# division records of chunk, threads, cls, acc[0..2] and each level's step
+D_DIV_CHUNK, D_DIV_THREADS, D_DIV_CLS, D_DIV_ACC, D_DIV_STEP = 34, 37, 40, 43, 52
+D_HEADER = 61
+DIV_SIZE, DIV_NEG = 3, 64  # divisor, multiplier, shift | DIV_NEG
 R_SIZE = 8  # off, coeff[3], const, thr, ratio, level
-G_FIXED = 7 + MAX_DEPTH * 5  # nmem, level, nheads, term, tlevel, tw, const, heads
+H_SIZE = 4 + DIV_SIZE  # level, n_u, cv's division record, rmin, rmax
+G_FIXED = 7 + MAX_DEPTH * H_SIZE  # nmem, level, nheads, term, tlevel, tw, const, heads
 TERM_CHECK, TERM_INTERVAL, TERM_WINDOW = 0, 1, 2
 MAX_DESC = 2048
 MAX_MEMBERS = 8
 
 
+def div_record(d: int) -> list[int]:
+    """The kernel's division record of divisor d != 0 (see the note at
+    DIV_D in csrc/sampled_hist.cu): [d, multiplier, shift | DIV_NEG if
+    d < 0], the multiplier as the int64 of its 64 bits. A power of two
+    |d| = 2^s is the shift s; any other |d|, with l = ceil(log2 |d|), is
+    the round-up multiplier ceil(2^(63+l) / |d|) < 2^64 and shift l - 1.
+    With it the kernel's floor division and modulo equal Python's // and
+    % for every int64 numerator (INT64_MIN by -1, whose quotient does
+    not fit, aside), so no numerator range needs asserting."""
+    d = int(d)
+    e = abs(d)
+    if e == 0 or e >= 1 << 63:
+        raise ValueError(f"no division record for divisor {d}")
+    if e & (e - 1) == 0:
+        mul, shift = 0, e.bit_length() - 1
+    else:
+        ell = e.bit_length()  # ceil(log2 e), e not a power of two
+        mul, shift = -(-(1 << (63 + ell)) // e), ell - 1
+        assert mul < 1 << 64
+    if mul >= 1 << 63:
+        mul -= 1 << 64
+    return [d, mul, shift | (DIV_NEG if d < 0 else 0)]
+
+
+def radix_records(highs) -> np.ndarray:
+    """The division records of the key's MAX_DEPTH radices (padded
+    highs), as the launch passes them: int64 [MAX_DEPTH * DIV_SIZE]."""
+    h = [int(x) for x in highs]
+    if len(h) != MAX_DEPTH or min(h) < 1:
+        raise ValueError(f"highs must be {MAX_DEPTH} positive ints: {h}")
+    return np.asarray(sum((div_record(x) for x in h), []), dtype=np.int64)
+
+
 def build_descriptor(nt, ref_idx: int) -> np.ndarray:
     """The classify of source ref `ref_idx` as the kernel's int64
-    descriptor: schedule and machine fields, loop tables, the per-ref
-    value tables (indexed by rx and by sink), and every sink group's
-    band plan (sampler/nextuse.py::band_plan) with its per-head
-    coefficient and residual span precomputed from the value overlay."""
+    descriptor: schedule and machine fields, loop tables, the division
+    records of every divisor, the per-ref value tables (indexed by rx and
+    by sink), and every sink group's band plan
+    (sampler/nextuse.py::band_plan) with its per-head coefficient (as a
+    division record) and residual span precomputed from the value
+    overlay. Raises where the kernel's arithmetic does not hold: a
+    non-positive schedule or machine divisor or body size (the level-2
+    reduction relies on acc[2] > 0)."""
     from ..sampler.nextuse import _ref_vars_static, band_plan
     from ..sampler.sampled import _sink_groups, check_packed_ratios
 
@@ -80,6 +130,13 @@ def build_descriptor(nt, ref_idx: int) -> np.ndarray:
     d[D_DS], d[D_CLS], d[D_W] = mach.ds, mach.cls, W
     d[D_NPRE0] = nt.npre[0]
     d[D_NPRE1] = nt.npre[1] if depth > 1 else 0
+    for name, x in (("chunk", sched.chunk), ("threads", sched.threads),
+                    ("cls", mach.cls)):
+        if int(x) < 1:
+            raise NotImplementedError(f"the CUDA classify needs {name} >= 1")
+    d[D_DIV_CHUNK:D_DIV_CHUNK + DIV_SIZE] = div_record(sched.chunk)
+    d[D_DIV_THREADS:D_DIV_THREADS + DIV_SIZE] = div_record(sched.threads)
+    d[D_DIV_CLS:D_DIV_CLS + DIV_SIZE] = div_record(mach.cls)
     for l in range(MAX_DEPTH):
         d[D_ACC + l] = int(v["acc"][l])
         d[D_TRIPS + l] = int(v["trips"][l])
@@ -87,6 +144,16 @@ def build_descriptor(nt, ref_idx: int) -> np.ndarray:
         d[D_SC + l] = int(t.start_coeffs[l])
         d[D_LSTART + l] = nt.nest.loops[l].start if l < depth else 0
         d[D_LSTEP + l] = nt.nest.loops[l].step if l < depth else 1
+        if l < depth and d[D_ACC + l] < 1:
+            raise NotImplementedError(
+                f"the CUDA classify needs positive body sizes, level {l} "
+                f"has {d[D_ACC + l]}"
+            )
+        # levels below the nest's depth are never divided by
+        acc_l, step_l = (d[D_ACC + l], d[D_LSTEP + l]) if l < depth else (1, 1)
+        a, s = D_DIV_ACC + l * DIV_SIZE, D_DIV_STEP + l * DIV_SIZE
+        d[a:a + DIV_SIZE] = div_record(acc_l)
+        d[s:s + DIV_SIZE] = div_record(step_l)
     d[D_OFF_LC] = len(d)
     d += [int(x) for x in v["lc"]]
     d[D_OFF_REFS] = len(d)
@@ -112,7 +179,7 @@ def build_descriptor(nt, ref_idx: int) -> np.ndarray:
             _, l, n_u, child = node
             rest = nz[len(heads) + 1:]
             heads.append([
-                l, n_u, coeff[l],
+                l, n_u, *div_record(coeff[l]),
                 sum(coeff[lr] * int(v["vlo"][lr]) for lr, _ in rest),
                 sum(coeff[lr] * int(v["vhi"][lr]) for lr, _ in rest),
             ])
@@ -126,7 +193,7 @@ def build_descriptor(nt, ref_idx: int) -> np.ndarray:
         rec = [len(sinks), int(t.ref_levels[s0]), len(heads), term, tlevel,
                tw, int(v["const"][s0])]
         for k in range(MAX_DEPTH):
-            rec += heads[k] if k < len(heads) else [0, 0, 1, 0, 0]
+            rec += heads[k] if k < len(heads) else [0, 0, *div_record(1), 0, 0]
         d += rec + list(sinks)
     if len(d) > MAX_DESC:
         raise NotImplementedError(
@@ -135,44 +202,196 @@ def build_descriptor(nt, ref_idx: int) -> np.ndarray:
     return np.asarray(d, dtype=np.int64)
 
 
-# int64 operations the kernel spends per call site, counted from
-# csrc/sampled_hist.cu; a floored division or modulo is one hardware
-# divide plus its sign fix-up
-_FDIV, _FMOD = 6, 5
-_SCHED = 2 * _FDIV + 2 * _FMOD + 4  # owner_tid + local_index
+def max_heads(desc: np.ndarray) -> int:
+    """The most band-plan heads of any sink group of the descriptor."""
+    nh, g = 0, int(desc[D_OFF_GROUPS])
+    for _ in range(int(desc[D_NGROUPS])):
+        nh = max(nh, int(desc[g + 2]))
+        g += G_FIXED + int(desc[g])
+    return nh
 
 
-def ops_per_sample(desc: np.ndarray) -> int:
-    """int64 operations the kernel's code path spends on one masked-in
-    sample of this descriptor: decode, geometry, every band candidate's
-    level box and every member sink's position reduction, and the share
-    test. A count of operations, not of instructions: each int64 add,
-    multiply, compare or select counts once."""
+def instantiation(desc: np.ndarray) -> tuple[int, int]:
+    """(LV, NHMAX) of the kernel instantiation that serves this
+    descriptor, as csrc/sampled_hist.cu's launch picks it: the source
+    ref's level, and 1 where no group has more than one head, else 3."""
+    return int(desc[D_LV]), 1 if max_heads(desc) <= 1 else 3
+
+
+# ops_per_sample's cost model, in 32-bit integer instruction issues: an
+# add, subtract, compare, min, max, select, logical op or shift costs one
+# per 32-bit word of its operands (_words); a multiply or multiply-add of
+# 32-bit factors costs one, also into a 64-bit sum (IMAD, IMAD.WIDE);
+# a multiply-high of 64-bit operands four (its 32x32 partial products).
+# Per level kind of a band candidate's box (nextuse.py::_LevelSpec):
+_MIN_GE = {"fixed": 3, "interval": 3, "free": 2}  # smallest element >= x
+_HAS = {"fixed": 2, "interval": 2, "free": 1}  # x in the box
+_MIN_VAL = {"fixed": 1, "interval": 2, "free": 0}  # smallest element
+
+
+def _words(lo: int, hi: int) -> int:
+    """32-bit words a value in [lo, hi] needs: 1 or 2."""
+    return 1 if -(1 << 31) <= lo and hi < 1 << 31 else 2
+
+
+def _div(d: int, w: int, signed: bool) -> int:
+    """Issues of floor(a / d) for an a of w words and a divisor d fixed
+    per launch (the division record's arithmetic): nothing for |d| = 1, a
+    shift for a power of two (an arithmetic shift is the floor for either
+    sign), else a multiply-high and a shift, plus the sign fold in and out
+    where a may be negative; a negative d adds the negation (and the
+    remainder test and correction of -ceil where |d| is no power of
+    two)."""
+    e = abs(int(d))
+    if e == 1:
+        ops = 0
+    elif e & (e - 1) == 0:
+        ops = w
+    else:
+        ops = (1 if w == 1 else 4) + w + (3 * w if signed else 0)
+    if d < 0:
+        ops += w if e & (e - 1) == 0 else 3 * w
+    return ops
+
+
+def _ranges(d: np.ndarray) -> tuple[int, int, bool]:
+    """(words of a position, words of a byte address, whether an address
+    may be negative) over the descriptor's loop bounds and refs."""
+    depth = int(d[D_DEPTH])
+    acc0 = int(d[D_ACC])
+    lc = d[int(d[D_OFF_LC]):int(d[D_OFF_LC]) + int(d[D_THREADS])]
+    pos_hi = (int(lc.max()) + 1) * acc0
+    vals = []
+    for l in range(depth):
+        a = int(d[D_LSTART + l])
+        b = a + (int(d[D_TRIPS + l]) - 1) * int(d[D_LSTEP + l])
+        vals.append((min(a, b), max(a, b)))
+    lo = hi = 0
+    refs = d[int(d[D_OFF_REFS]):int(d[D_OFF_GROUPS])].reshape(-1, R_SIZE)
+    for r in refs:
+        rl = rh = int(r[4])
+        for l in range(int(r[7]) + 1):
+            c = int(r[1 + l])
+            rl += min(c * vals[l][0], c * vals[l][1])
+            rh += max(c * vals[l][0], c * vals[l][1])
+        lo, hi = min(lo, rl), max(hi, rh)
+    ds = int(d[D_DS])
+    return _words(0, pos_hi), _words(lo * ds, hi * ds), lo < 0
+
+
+def _split_free(d: np.ndarray, lv: int) -> bool:
+    """Whether min_position_after's split of p0 (m0, r0, j0, rr0) follows
+    from the sample's own indices for every ref of level lv: m0 is its
+    parallel index and j0 its level-1 index (at lv >= 1) when its offset
+    keeps r0 in [0, acc0) and rr0 in [0, acc1); at lv 0, j0 and rr0 are
+    constants of the ref. Then no division is needed."""
+    acc = [int(x) for x in d[D_ACC:D_ACC + MAX_DEPTH]]
+    trips = [int(x) for x in d[D_TRIPS:D_TRIPS + MAX_DEPTH]]
+    npre = [int(d[D_NPRE0]), int(d[D_NPRE1])]
+    refs = d[int(d[D_OFF_REFS]):int(d[D_OFF_GROUPS])].reshape(-1, R_SIZE)
+    for r in refs:
+        if int(r[7]) != lv:
+            continue
+        rr_lo = int(r[0]) + (npre[1] if lv >= 2 else 0)
+        rr_hi = rr_lo + ((trips[2] - 1) * acc[2] if lv >= 2 else 0)
+        if lv >= 1 and not 0 <= rr_lo <= rr_hi < acc[1]:
+            return False
+        r0_lo = rr_lo + (npre[0] if lv >= 1 else 0)
+        r0_hi = rr_hi + (npre[0] + (trips[1] - 1) * acc[1] if lv >= 1 else 0)
+        if not 0 <= r0_lo <= r0_hi < acc[0]:
+            return False
+    return True
+
+
+def ops_per_sample(desc: np.ndarray, highs) -> int:
+    """32-bit integer instruction issues that the classify of one
+    masked-in sample of this descriptor and these (padded) radices needs,
+    as a lower bound for kernel B1 (the cost model above). Every value is
+    taken at the narrowest width it needs: positions, ri and a key above
+    2^31 are 64-bit where their range says so (`_ranges`); loop indices
+    and values, box bounds, head values and band starts are 32-bit.
+    Constants of the launch or of a ref (coefficient products with ds,
+    offsets plus npre) are folded on the host and cost nothing.
+
+    Per sample: the unsigned decode (keys lie in [0, prod(highs)), so the
+    outermost digit is the last quotient), the schedule's owner and local
+    index, the loop values, the line, p0 and its split (no division where
+    `_split_free`). Per sink group: the band start, each head's bounds
+    (two signed divisions) and values; per band candidate its level box
+    and the member-free parts of strategies A, B and C; per member the
+    end of the walk; last the share test, the packed key and the bin.
+    The per-member level-2 step of strategy C runs only where the
+    sample's own position lies in the candidate's box, which depends on
+    the data, so it is not counted, nor are loop control, loads and the
+    histogram's atomics. GEMM's four signatures at N=2048, ratio 0.1
+    (radices 2047) count 441 ({C0,C1}), 245 ({A0}), 227 ({B0}) and 452
+    ({C2,C3}) issues."""
     d = desc
     lv = int(d[D_LV])
-    ops = 3 * _FMOD + 2 * _FDIV  # decode
-    ops += _SCHED + 2 + 4 * (lv + 1) + 5 * (lv + 1) + 1 + _FDIV  # geometry
-    mpa = {0: _FDIV + 2 + 2 * 4 + 2 * 5 + 3,
-           1: 2 * _FDIV + 8 + 5 * 4 + 3 * 7 + 5,
-           2: 2 * _FDIV + 9 + 7 * 4 + 3 * 9 + 6}
+    h = [int(x) for x in highs]
+    P, aw, aneg = _ranges(d)
+    chunk, threads = int(d[D_DIV_CHUNK]), int(d[D_DIV_THREADS])
+    sched = _div(chunk, 1, False) + _div(threads, 1, False) + 3
+    span = h[0] * h[1] * h[2]
+    ops = 0
+    for k in (2, 1):  # the quotient and the digit
+        if h[k] > 1:
+            ops += _div(h[k], _words(0, span - 1), False) + 1
+        span //= h[k]
+    ops += sched + 2 * (1 + lv)  # owner, local, loop values, flat index
+    ops += _div(int(d[D_DIV_CLS]), aw, aneg)  # the line
+    ops += 1 + lv  # p0
+    if _split_free(d, lv):
+        ops += lv  # r0, rr0 as index sums
+    else:
+        ops += (_div(int(d[D_ACC]), P, False) + 1 + 1
+                + _div(int(d[D_ACC + 1]), 1, True) + 1)
     g = int(d[D_OFF_GROUPS])
+    groups = []
     for _ in range(int(d[D_NGROUPS])):
-        nm, level, nh, term = (int(x) for x in d[g:g + 4])
-        tw = int(d[g + 5])
+        groups.append(g)
+        g += G_FIXED + int(d[g])
+    inner = any(int(d[g + 1]) >= 1 for g in groups)
+    ops += 1 + P + (1 + P if inner else 0)  # m0 + 1, p0 - r0; j0 + 1, p0 - rr0
+    for g in groups:
+        nm, sl, nh, term, tl, tw = (int(x) for x in d[g:g + 6])
+        heads = [g + G_FIXED - MAX_DEPTH * H_SIZE + k * H_SIZE
+                 for k in range(nh)]
+        kinds = ["free"] * (sl + 1)
+        for hd in heads:
+            kinds[int(d[hd])] = "fixed"
+        if term == TERM_WINDOW:
+            kinds[tl] = "fixed"
+        elif term == TERM_INTERVAL:
+            kinds[tl] = "interval"
+        ops += 1  # the band start
         n_emit = 1
-        walk = 2
-        for k in range(nh):
-            walk += n_emit * (_FDIV + _FDIV + 6)  # head bounds
-            n_emit *= int(d[g + 7 + 5 * k + 1])
-            walk += n_emit * 4
+        for hd in heads:  # bounds, then per value: u, lo, the in-band test
+            ops += n_emit * (2 * _div(int(d[hd + 2]), 1, True) + 3)
+            n_emit *= int(d[hd + 1])
+            ops += n_emit * 4
         if term == TERM_WINDOW:
             n_emit *= tw
-        box = 0
-        for l in range(level + 1):
-            box += 2 * _FDIV + 6 + (_SCHED if l == 0 else 0)
-        ops += walk + n_emit * (box + nm * (mpa[level] + 1)) + 2 * nm
-        g += G_FIXED + nm
-    return ops + 12  # share test and packing
+        cand = {TERM_CHECK: 3, TERM_WINDOW: 1}.get(term, 0)
+        for l, kind in enumerate(kinds):
+            if kind == "fixed":  # normalize, on the grid, in range
+                step = int(d[D_LSTEP + l])
+                cand += 1 + _div(step, 1, True) + 2 + (abs(step) > 1) * 3
+                if l == 0:  # the owner is the sample's thread
+                    cand += sched + 2
+            elif kind == "interval":
+                cand += 5
+        cand += _MIN_GE[kinds[0]] + _HAS[kinds[0]]  # mA, mB
+        if sl == 0:
+            cand += (2 + P) + P + 1  # A's position, its minimum, C exists
+        else:
+            cand += (_MIN_VAL[kinds[2]] if sl == 2 else 0) + _MIN_VAL[kinds[1]]
+            cand += 3 * sl + 2 + P  # A's position
+            cand += _MIN_GE[kinds[1]] + 3 * sl - 1 + 2 * P  # B's, if mB
+            cand += 2 * P  # the two minima
+            cand += _HAS[kinds[1]] + 1 + (sl == 1)  # C exists
+        ops += n_emit * cand + nm * (6 * P + 3)
+    return ops + 9 * P + 11 + (3 if P == 2 else 1)
 
 
 def torch_vals(vals: dict, device) -> dict:
@@ -225,8 +444,7 @@ def sampled_hist_plain(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R):
 _ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
      ctypes.c_void_p, ctypes.c_int]
-    + [ctypes.c_longlong] * 3
-    + [ctypes.c_void_p] * 5
+    + [ctypes.c_void_p] * 6
 )
 
 
@@ -244,8 +462,9 @@ def sampled_hist_cuda(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
                       desc=None):
     """Launch csrc/sampled_hist.cu on the current stream; raises on any
     argument the kernel does not take or a launch error. `desc` is
-    build_descriptor's output as an int64 tensor on the keys' device
-    (built here when None)."""
+    build_descriptor's output, a host int64 array (built here when None);
+    the launch passes it by value and launches the instantiation of its
+    source-ref level desc[D_LV] and most heads per group."""
     global LAUNCHES
     from . import _build
 
@@ -257,12 +476,12 @@ def sampled_hist_cuda(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
     if mask_RB is not None:
         _check("mask", mask_RB, torch.bool, (R, B), dev)
     _check("rx", rx_R, torch.int64, (R,), dev)
-    h = [int(x) for x in highs]
-    if len(h) != MAX_DEPTH or min(h) < 1:
-        raise ValueError(f"highs must be {MAX_DEPTH} positive ints: {h}")
+    hrec = radix_records(highs)
     if desc is None:
-        desc = descriptor_tensor(nt, ref_idx, dev)
-    _check("desc", desc, torch.int64, (desc.shape[0],), dev)
+        desc = build_descriptor(nt, ref_idx)
+    if not (isinstance(desc, np.ndarray) and desc.dtype == np.int64
+            and desc.ndim == 1 and desc.flags.c_contiguous):
+        raise ValueError("desc: expected build_descriptor's int64 array")
     fn = _build.load("sampled_hist").sampled_hist_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
@@ -273,18 +492,13 @@ def sampled_hist_cuda(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
         stream = torch.cuda.current_stream(dev).cuda_stream
         mask_ptr = None if mask_RB is None else mask_RB.data_ptr()
         rc = fn(keys_RB.data_ptr(), mask_ptr, R, B,
-                desc.data_ptr(), desc.shape[0], *h, rx_R.data_ptr(),
-                residual.data_ptr(), hist.data_ptr(), cold.data_ptr(),
-                stream)
+                desc.ctypes.data, desc.shape[0], hrec.ctypes.data,
+                rx_R.data_ptr(), residual.data_ptr(), hist.data_ptr(),
+                cold.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"sampled_hist_launch failed: CUDA error {rc}")
         LAUNCHES += 1
     return residual, hist, cold
-
-
-def descriptor_tensor(nt, ref_idx: int, device) -> torch.Tensor:
-    """build_descriptor as an int64 tensor on `device`."""
-    return torch.from_numpy(build_descriptor(nt, ref_idx)).to(device)
 
 
 def sampled_hist(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,

@@ -497,7 +497,8 @@ def bucket_dispatch(nt, ref_idx, keys_RB, mask_RB, highs, rx_R,
     noshare_hist[R,64]) and a `reduce(capacity)` that redoes only the
     pair reduction (the kernel's outputs do not depend on capacity).
     `mask_RB` None means every lane is live. `desc` is the kernel's
-    descriptor tensor, built once per bucket."""
+    descriptor (ops/sampled_hist.py::build_descriptor), built once per
+    bucket."""
     from ..ops.sampled_hist import sampled_hist
 
     residual, hist, cold = sampled_hist(
@@ -537,7 +538,7 @@ class Dispatch(NamedTuple):
     keys_RB: torch.Tensor  # int64 [R, B] on the run's device
     highs: np.ndarray  # padded to MAX_DEPTH
     rx_R: torch.Tensor  # int64 [R]: each member's ref index
-    desc: torch.Tensor | None  # the kernel's descriptor (kernel routes)
+    desc: np.ndarray | None  # the kernel's descriptor (kernel routes)
 
 
 def plan_dispatches(trace: ProgramTrace, rows, cfg: SamplerConfig,
@@ -550,7 +551,7 @@ def plan_dispatches(trace: ProgramTrace, rows, cfg: SamplerConfig,
     short, never padded, so every lane of a dispatch is live. `spans`
     gathers the host seconds of the draw ("draw") and of stacking and
     copying keys to the device ("stage")."""
-    from ..ops.sampled_hist import descriptor_tensor
+    from ..ops.sampled_hist import build_descriptor
 
     for (k, _sig), members in _bucket_rows(trace, rows).items():
         nt = trace.nests[k]
@@ -569,7 +570,7 @@ def plan_dispatches(trace: ProgramTrace, rows, cfg: SamplerConfig,
                             device=dev)
         desc = None
         if dev.type == "cuda" and backend != "torch":
-            desc = descriptor_tensor(nt, ri0, dev)
+            desc = build_descriptor(nt, ri0)
         for gi in range(n_groups):
             lo = gi * span_len
             with _span(spans, "stage"):

@@ -4,8 +4,9 @@
   package's element by element on every rectangular registry model
   (adi's descending loops included), on numpy-drawn sample tuples;
 - the CUDA source csrc/sampled_hist.cu, built as plain C++ with g++ (its
-  host twin runs the same per-sample code serially), equals the plain
-  torch version on every rectangular model: this checks the kernel's
+  host twin runs the same per-sample code serially, through the same
+  per-level instantiation as the kernel), equals the plain torch
+  version on every rectangular model: this checks the kernel's
   descriptor walk on a machine without a card;
 - the plain version's hist-form outputs, through the exact pair
   reduction, equal the JAX package's Pallas kernel (interpret mode) on
@@ -22,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_made import made_program
 
 import pluss_sampler_optimization_torch as T
 import pluss_sampler_optimization_tpu as J
@@ -102,7 +104,7 @@ def host_twin(tmp_path_factory):
     )
     fn = ctypes.CDLL(str(out)).sampled_hist_host
     p, q = ctypes.c_void_p, ctypes.c_longlong
-    fn.argtypes = [p, p, q, q, p, ctypes.c_int, q, q, q, p, p, p, p]
+    fn.argtypes = [p, p, q, q, p, ctypes.c_int, p, p, p, p, p]
     fn.restype = ctypes.c_int
 
     def run(nt, ri0, keys, mask, highs, rx):
@@ -112,12 +114,15 @@ def host_twin(tmp_path_factory):
         hist = np.zeros((R, sh.N_BINS), np.int64)
         cold = np.zeros(R, np.int64)
         m8 = None if mask is None else mask.astype(np.uint8)
+        hrec = sh.radix_records(highs)
         rc = fn(keys.ctypes.data, None if m8 is None else m8.ctypes.data,
-                R, B, d.ctypes.data,
-                len(d), *[int(x) for x in highs], rx.ctypes.data,
-                res.ctypes.data, hist.ctypes.data, cold.ctypes.data)
+                R, B, d.ctypes.data, len(d), hrec.ctypes.data,
+                rx.ctypes.data, res.ctypes.data, hist.ctypes.data,
+                cold.ctypes.data)
         assert rc == 0
         return res, hist, cold
+
+    run.raw = fn
 
     return run
 
@@ -155,6 +160,74 @@ def test_kernel_source_host_twin_matches_plain(name, host_twin):
         )
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a, b.numpy())
+
+
+def test_host_twin_reaches_every_level_instantiation(host_twin):
+    """The kernel holds one instantiation per source-ref level, picked by
+    the descriptor's D_LV word: the 14 models' buckets reach all three,
+    so the host-twin tests run every one; a level the kernel has no
+    instantiation for is refused."""
+    levels = set()
+    for name in RECT:
+        trace, rows = TS._program_rows(T_MODELS[name](16), T.MachineConfig())
+        for (k, _), members in TS._bucket_rows(trace, rows).items():
+            d = sh.build_descriptor(trace.nests[k], members[0][1])
+            levels.add(int(d[sh.D_LV]))
+    assert levels == {0, 1, 2}
+    d[sh.D_LV] = 3
+    keys = np.zeros((1, 4), np.int64)
+    out = [np.zeros(n, np.int64) for n in (4, sh.N_BINS, 1)]
+    hrec, rx = sh.radix_records([1, 1, 1]), np.zeros(1, np.int64)
+    assert host_twin.raw(keys.ctypes.data, None, 1, 4, d.ctypes.data, len(d),
+                         hrec.ctypes.data, rx.ctypes.data,
+                         *(x.ctypes.data for x in out)) == 1
+
+
+def test_made_program_classify_matches_jax():
+    """The made program of tests/_torch_made.py (three-head, two-head,
+    constant and window groups, a descending level): the port's classify
+    equals the JAX package's on every ref."""
+    jprog = made_program(JLoop, JNest, JProgram, JRef)
+    tprog = made_program(TLoop, TNest, TProgram, TRef)
+    jnt = JTrace(jprog, J.MachineConfig()).nests[0]
+    tnt = TTrace(tprog, T.MachineConfig()).nests[0]
+    tv = tnt.with_vals(sh.torch_vals(tnt.vals, "cpu"))
+    rng = np.random.default_rng(5)
+    for ri in range(jnt.tables.n_refs):
+        s = _samples(jnt, ri, 96, rng)
+        want = JS.classify_samples(jnt, ri, jnp.asarray(s))
+        got = TS.classify_samples(tv, ri, torch.from_numpy(s))
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_host_twin_runs_every_instantiation(host_twin):
+    """Through the made program's buckets, the host twin runs all 6
+    instantiations (LV 0-2 by NHMAX 1 and 3), on groups of 0 to 3 heads,
+    and equals the plain version, with a mask and without."""
+    rng = np.random.default_rng(9)
+    cfg = T.SamplerConfig(ratio=0.6, seed=3)
+    prog = made_program(TLoop, TNest, TProgram, TRef)
+    trace, rows = TS._program_rows(prog, T.MachineConfig())
+    seen, heads = set(), set()
+    for (k, _), members in TS._bucket_rows(trace, rows).items():
+        nt = trace.nests[k]
+        ri0 = members[0][1]
+        d = sh.build_descriptor(nt, ri0)
+        seen.add(sh.instantiation(d))
+        heads.add((int(d[sh.D_LV]), sh.max_heads(d)))
+        keys, mask, ph, rx = _bucket_inputs(trace, members, nt, cfg, rng)
+        for m in (mask, None):
+            got = host_twin(nt, ri0, keys, m, ph, rx)
+            want = sh.sampled_hist_plain(
+                nt, ri0, torch.from_numpy(keys),
+                None if m is None else torch.from_numpy(m), ph,
+                torch.from_numpy(rx),
+            )
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b.numpy())
+    assert seen == {(lv, nh) for lv in range(3) for nh in (1, 3)}
+    assert heads == {(lv, nh) for lv in range(3) for nh in range(4)}
 
 
 @pytest.mark.parametrize("name", RECT)

@@ -16,8 +16,15 @@ import numpy as np
 import pytest
 import torch
 from _torch_dist import check_workers, run_workers
+from _torch_made import made_program
 
 import pluss_sampler_optimization_torch as T
+from pluss_sampler_optimization_torch.ir import (
+    Loop,
+    ParallelNest,
+    Program,
+    Ref,
+)
 from pluss_sampler_optimization_torch.models import REGISTRY
 from pluss_sampler_optimization_torch.ops import pow2_hist as p2
 from pluss_sampler_optimization_torch.ops import sampled_hist as sh
@@ -76,6 +83,25 @@ def test_kernel_matches_plain(name, cuda):
         torch.cuda.synchronize()
         for a, b in zip((*got, *got_live), (*want, *want_live)):
             assert torch.equal(a, b)
+
+
+def test_kernel_matches_plain_on_every_instantiation(cuda):
+    """The made program of tests/_torch_made.py launches all 6
+    instantiations (LV 0-2 by NHMAX 1 and 3), each equal to the plain
+    version."""
+    cfg = T.SamplerConfig(ratio=0.6, seed=3)
+    prog = made_program(Loop, ParallelNest, Program, Ref)
+    trace, rows = S._program_rows(prog, T.MachineConfig())
+    seen = set()
+    for d in S.plan_dispatches(trace, rows, cfg, cuda, 1 << 20, "cuda"):
+        seen.add(sh.instantiation(d.desc))
+        args = (d.keys_RB, None, d.highs, d.rx_R)
+        got = sh.sampled_hist(d.nt, d.ref_idx, *args, desc=d.desc)
+        want = sh.sampled_hist_plain(d.nt, d.ref_idx, *args)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert seen == {(lv, nh) for lv in range(3) for nh in (1, 3)}
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
