@@ -12,10 +12,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    seconds, and ptxas' registers, stack frame and spill bytes for every
    kernel instantiation (B1 has 6, sampled_hist_kernel<LV, NHMAX>:
    source-ref level 0-2 by most band-plan heads per sink group, 1 for
-   at most one, 3 for up to three);
+   at most one, 3 for up to three; B2 has 2, pow2_hist_kernel<BOOL_W>
+   for bool and int64 weights);
 3. B2 vs plain on made inputs: a numpy-seeded 2^20 input over all 64
    bins (0, negatives and 2^62-1 included) with bool and with int
-   weights, and a same-bin weight total of exactly 2^31; bit-equal;
+   weights, the same as misaligned views (values[1:], weights[3:]),
+   tiny inputs (1 and 17 elements), and a same-bin weight total of
+   exactly 2^31; bit-equal;
 4. B1 vs plain: every dispatch of the main path (the engine's own
    plan_dispatches, so the same host-drawn keys and shapes) through the
    CUDA kernel and through its plain torch version on the card;
@@ -37,9 +40,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    pow2 histogram the pow2 binning of its exact noshare pairs;
 7. B2 vs plain on the sharded path's own inputs (every launch's
    max(ri, 1) and bool weights, recorded during phase 6); bit-equal;
-   kernel, plain version and the torch.searchsorted + torch.bincount
-   yardstick timed per run, as device time from torch.profiler and as
-   CUDA events around the calls;
+   how many bins each launch fills; kernel, plain version and the
+   torch.searchsorted + torch.bincount yardstick timed per run, as
+   device time from torch.profiler and as CUDA events around the calls
+   (host-bound for the kernel: its wrapper's cost per call); the
+   kernel's trace must hold no device operation but the kernel;
 8. two shards on one card: run_sampled_sharded over
    build_mesh(devices=["cuda:0", "cuda:0"]) at GEMM N=512 must fold to
    run_sampled's PRIState and MRC bytes.
@@ -141,10 +146,12 @@ def _busy_us(intervals) -> float:
 
 
 def _device_ms(fn, reps: int):
-    """Mean device milliseconds of fn() per call: the summed durations of
-    the device activities a torch.profiler trace of reps calls records,
-    after a warm-up call. None where the trace records none."""
+    """(mean device milliseconds of fn() per call, names of the device
+    activities) from a torch.profiler trace of reps calls, after a
+    warm-up call: the summed durations of the device activities. The
+    time is None where the trace records none."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -155,9 +162,10 @@ def _device_ms(fn, reps: int):
             fn()
         torch.cuda.synchronize()
     iv = _device_intervals(prof)
+    names = [e.name for e in prof.events() if e.device_type != DeviceType.CPU]
     if not iv:
-        return None
-    return sum(b - a for a, b in iv) / reps / 1e3
+        return None, names
+    return sum(b - a for a, b in iv) / reps / 1e3, names
 
 
 def _spans_text(spans: dict, names=SPANS) -> str:
@@ -244,12 +252,24 @@ def phase_b2_made(dev) -> int:
     vals = torch.full((1024,), 1 << 10, dtype=torch.int64, device=dev)
     w = torch.zeros(1024, dtype=torch.int64, device=dev)
     w[0] = w[128] = 1 << 30
+    # misaligned views: values[1:] with weights[3:] (a scalar head that
+    # aligns both) and weights[2:] (the other parity: scalar weight loads
+    # in every tile)
+    for wo in (3, 2):
+        for name, wt in (("bool", wb), ("int", wi)):
+            err = max(err, _b2_compare(
+                f"values[1:], {name} weights[{wo}:]", v[1:n - 4],
+                wt[wo:n - 5 + wo])[1])
+    for k in (1, 17):
+        err = max(err, _b2_compare(f"{k} elements", v[5:5 + k],
+                                   wb[5:5 + k])[1])
     hist, e2 = _b2_compare("same-bin total 2^31", vals, w)
     hist = hist.cpu()
     if int(hist[10]) != 1 << 31 or int(hist.sum()) != 1 << 31:
         raise AssertionError(f"B2: same-bin total gave {hist.tolist()}")
     print("B2 vs plain: 2^20 made values over all 64 bins (bool and int "
-          "weights) and the 2^31 same-bin total: equal")
+          "weights), the misaligned views values[1:] with weights[3:] and "
+          "[2:], 1 and 17 elements, and the 2^31 same-bin total: equal")
     return max(err, e2)
 
 
@@ -553,13 +573,18 @@ def phase_b2_engine(inputs, max_err: int) -> dict:
                               w, minlength=64)
 
     nbytes = ops = 0
+    filled: dict = {}
     for i, (v, w) in enumerate(inputs):
         got, err = _b2_compare(f"sharded path input {i}", v, w)
         max_err = max(max_err, err)
         if not torch.equal(library(v, w).to(torch.int64), got):
             raise AssertionError(f"B2 yardstick: input {i} differs")
+        bins = int((got != 0).sum())
+        filled[bins] = filled.get(bins, 0) + 1
         nbytes += v.numel() * (8 + w.element_size()) + 64 * 8
         ops += v.numel() * B2_OPS_PER_ELEMENT
+    print("B2 inputs: launches by bins filled: "
+          + ", ".join(f"{b} bins: {c}" for b, c in sorted(filled.items())))
     times = {}
     for name, fn in (("kernel", pow2_hist), ("plain", pow2_hist_plain),
                      ("library", library)):
@@ -568,7 +593,21 @@ def phase_b2_engine(inputs, max_err: int) -> dict:
                 fn(v, w)
 
         call = _time_ms(run, B2_RUN_REPS)
-        dev = _device_ms(run, B2_RUN_REPS)
+        dev, names = _device_ms(run, B2_RUN_REPS)
+        if name == "kernel" and names:
+            # after each stream's first call, a call is the kernel alone:
+            # no other device operation may show. The trace may miss a
+            # few of the calls' kernels; the time per run is then the
+            # recorded kernels' mean times the calls.
+            calls = B2_RUN_REPS * len(inputs)
+            if len(names) > calls or any("pow2_hist_kernel" not in x
+                                         for x in names):
+                raise AssertionError(
+                    f"B2 trace: {calls} calls ran device operations other "
+                    f"than the kernel: {sorted(set(names))}")
+            print(f"B2 trace: {calls} calls, {len(names)} device "
+                  "operations recorded, each the kernel")
+            dev *= calls / len(names)
         times[name] = call if dev is None else dev
         print(f"B2 timing: {name} per run: CUDA events around the calls "
               f"{call:.4f} ms, profiler device time "

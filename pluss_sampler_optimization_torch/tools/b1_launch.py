@@ -1,6 +1,7 @@
-"""What one launch of kernel B1 costs beside its work, on one CUDA card.
+"""What one launch of kernel B1 (or B2) costs beside its work, on one CUDA card.
 
-    python3 -m pluss_sampler_optimization_torch.tools.b1_launch
+    python3 -m pluss_sampler_optimization_torch.tools.b1_launch        # B1
+    python3 -m pluss_sampler_optimization_torch.tools.b1_launch --b2   # B2
 
 B1 (csrc/sampled_hist.cu) takes its descriptor by value: a kernel
 parameter block of 8 * (9 + MAX_DESC) bytes, 16,456 B at the package's
@@ -22,10 +23,20 @@ and one block's 1 x 256), it times
 
 Both builds' outputs must equal the wrapper's. Prints the card line,
 one line per size, then one JSON object.
+
+With --b2 it times kernel B2 (csrc/pow2_hist.cu) at the sharded
+engine's two launch sizes (B2_SIZES: 2^20 and 41,944 elements,
+numpy-seeded values over two bins and bool weights): back-to-back raw
+launches through ctypes (two outputs allocated once, taken in turns,
+each launch zeroing the other) against the wrapper pow2_hist (its
+checks, the stream's chained outputs, one allocation), in turns raw, wrapper, wrapper, raw, each turn the mean of
+LAUNCHES calls; device ms per call between CUDA events and host us per
+call. The raw launch's output must equal the wrapper's.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -38,6 +49,7 @@ import numpy as np
 SHORT_MAX_DESC = 384
 LAUNCHES = 200  # timed launches per turn, after a warm-up
 SIZES = (("C0,C1", 2, 41944), ("A0", 1, 201327), ("C0,C1", 1, 256))
+B2_SIZES = (1 << 20, 41944)
 
 
 def _card_line() -> str:
@@ -85,16 +97,77 @@ def _time(fn, reps: int) -> tuple[float, float]:
     return start.elapsed_time(end) / reps, host / reps * 1e6
 
 
-def main() -> int:
+def b2_main() -> int:
+    import torch
+
+    from ..ops import _build
+    from ..ops import pow2_hist as p2
+
+    fn = ctypes.CDLL(_build.build("pow2_hist", True)[0]).pow2_hist_launch
+    fn.argtypes = p2._ARGTYPES
+    fn.restype = ctypes.c_int
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(0)
+    rows = []
+    for n in B2_SIZES:
+        v = torch.from_numpy(rng.integers(1 << 12, 1 << 14, size=n)).to(dev)
+        w = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+        want = p2.pow2_hist(v, w)
+        # two outputs that the raw launches take in turns, each launch
+        # zeroing the other for the next
+        bufs = [torch.zeros(64, dtype=torch.int64, device=dev),
+                torch.empty(64, dtype=torch.int64, device=dev)]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        calls = [(v.data_ptr(), w.data_ptr(), 1, n, a.data_ptr(),
+                  b.data_ptr(), dev.index, stream)
+                 for a, b in (bufs, bufs[::-1])]
+        if fn(*calls[0]) != 0:
+            raise RuntimeError("raw pow2_hist launch failed")
+        torch.cuda.synchronize()
+        if not torch.equal(bufs[0], want):
+            raise AssertionError(f"raw pow2_hist launch differs at {n}")
+        turn = [1]
+
+        def raw():
+            fn(*calls[turn[0]])
+            turn[0] ^= 1
+
+        def wrapper(v=v, w=w):
+            p2.pow2_hist(v, w)
+
+        turns = {"raw": [], "wrapper": []}
+        for name in ("raw", "wrapper", "wrapper", "raw"):
+            turns[name].append(_time(raw if name == "raw" else wrapper,
+                                     LAUNCHES))
+        row = {"n": n}
+        for name, t in turns.items():
+            row[f"{name}_ms"] = sum(x[0] for x in t) / len(t)
+            row[f"{name}_host_us"] = sum(x[1] for x in t) / len(t)
+        rows.append(row)
+        print(f"b1_launch: B2 {n} elements: raw launch {row['raw_ms']:.4f} "
+              f"ms ({row['raw_host_us']:.1f} us host); wrapper "
+              f"{row['wrapper_ms']:.4f} ms ({row['wrapper_host_us']:.1f} us "
+              "host)")
+    print(json.dumps({"b2_launch": rows}))
+    return 0
+
+
+def main(argv=None) -> int:
     import torch
 
     from ..ops import _build
     from ..ops import sampled_hist as sh
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--b2", action="store_true",
+                    help="time kernel B2 (pow2_hist) instead of B1")
+    opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("b1_launch: no CUDA device", file=sys.stderr)
         return 2
     print(f"card: {_card_line()}")
+    if opts.b2:
+        return b2_main()
     variants = {"16KB": (), "3KB": (f"MAX_DESC={SHORT_MAX_DESC}",)}
     with ThreadPoolExecutor(len(variants)) as ex:
         paths = dict(zip(variants, ex.map(

@@ -184,6 +184,71 @@ def test_pow2_hist_kernel_empty_and_rejects(cuda):
         p2.pow2_hist(v, torch.ones(8, dtype=torch.bool))
 
 
+def _b2_buffers(n, weights, cuda):
+    """n + 16 made values and weights on the card, for views at offsets."""
+    vals, rng = _b2_made_input(n + 16, n)
+    w = (rng.random(n + 16) < 0.7 if weights == "bool"
+         else rng.integers(-3, 1 << 40, size=n + 16))
+    return torch.from_numpy(vals).to(cuda), torch.from_numpy(w).to(cuda)
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 255, 4097, 1 << 16, 41944])
+@pytest.mark.parametrize("weights", ["bool", "int"])
+def test_pow2_hist_kernel_sizes_and_misaligned_views(n, weights, cuda):
+    """Every size against the plain version, at element offsets 0-15 of
+    values and of weights (misaligned views such as v[1:], w[3:] take the
+    scalar head and, where the offsets' parities differ, scalar weight
+    loads); each call launches once."""
+    v, w = _b2_buffers(n, weights, cuda)
+    for vo, wo in [(0, 0), (1, 3), (3, 1), (1, 1), (0, 5), (2, 2),
+                   (7, 15), (15, 0), (4, 12)]:
+        vv, ww = v[vo:vo + n], w[wo:wo + n]
+        n0 = p2.LAUNCHES
+        got = p2.pow2_hist(vv, ww)
+        assert p2.LAUNCHES == n0 + 1
+        assert torch.equal(got, p2.pow2_hist_plain(vv, ww)), (vo, wo)
+
+
+def test_pow2_hist_kernel_back_to_back_and_two_streams(cuda):
+    """Calls in a row on one stream, and calls on two streams whose
+    launches may overlap, each equal the plain version: every (device,
+    stream) chains its own outputs, each launch zeroing the next one's."""
+    v, w = _b2_buffers(1 << 20, "bool", cuda)
+    outs = [p2.pow2_hist(v[:-16], w[:-16]) for _ in range(3)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    for s in streams:
+        with torch.cuda.stream(s):
+            outs += [p2.pow2_hist(v[:-16], w[:-16]) for _ in range(4)]
+    torch.cuda.synchronize()
+    want = p2.pow2_hist_plain(v[:-16], w[:-16])
+    for got in outs:
+        assert torch.equal(got, want)
+    for s in (torch.cuda.current_stream(), *streams):
+        assert not p2._NEXT[(v.device.index, s.cuda_stream)].any()
+
+
+def test_pow2_hist_kernel_is_one_device_operation(cuda):
+    """After a stream's first call (which zeroes its output), a call is
+    the kernel alone: no fill, no memset, no copy. (The trace may miss
+    some of the calls' kernels, never add an operation.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    v, w = _b2_buffers(1 << 16, "bool", cuda)
+    p2.pow2_hist(v, w)
+    torch.cuda.synchronize()
+    calls = 20
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            p2.pow2_hist(v, w)
+        torch.cuda.synchronize()
+    dev = [e.name for e in prof.events() if e.device_type != DeviceType.CPU]
+    assert 0 < len(dev) <= calls, dev
+    assert all("pow2_hist_kernel" in x for x in dev), dev
+
+
 def test_two_shards_on_one_card_fold_like_run_sampled(cuda):
     prog, m = REGISTRY["gemm"](64), T.MachineConfig()
     cfg = T.SamplerConfig(ratio=0.2, seed=0)
