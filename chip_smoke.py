@@ -2,55 +2,76 @@
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py            # GEMM N=2048, ratio 0.1, seed 0
-    python3 chip_smoke.py --n 256    # a quicker check (no MRC baseline)
+    python3 chip_smoke.py --n 256    # a quicker check (no MRC baselines)
 
-Phases, each printing its own lines; any failure exits non-zero:
+SamplerConfig() resolves to the device draw on the card (threefry on
+kernel B3), as the JAX package's auto does on an accelerator. Phases,
+each printing its own lines; any failure exits non-zero:
 
 1. card: the name and power limit nvidia-smi reports;
-2. build: csrc/sampled_hist.cu (kernel B1) and csrc/pow2_hist.cu
-   (kernel B2) for sm_90a, one nvcc each, started together; build
-   seconds, and ptxas' registers, stack frame and spill bytes for every
-   kernel instantiation (B1 has 6, sampled_hist_kernel<LV, NHMAX>:
-   source-ref level 0-2 by most band-plan heads per sink group, 1 for
-   at most one, 3 for up to three; B2 has 2, pow2_hist_kernel<BOOL_W>
-   for bool and int64 weights);
+2. build: csrc/sampled_hist.cu (kernel B1), csrc/pow2_hist.cu (kernel
+   B2) and csrc/threefry_draw.cu (kernel B3) for sm_90a, one nvcc each,
+   started together; build seconds, and ptxas' registers, stack frame
+   and spill bytes for every kernel instantiation (B1 has 6,
+   sampled_hist_kernel<LV, NHMAX>: source-ref level 0-2 by most
+   band-plan heads per sink group, 1 for at most one, 3 for up to
+   three; B2 has 2, pow2_hist_kernel<BOOL_W> for bool and int64
+   weights; B3 has 2, randint_kernel and bits_kernel);
 3. B2 vs plain on made inputs: a numpy-seeded 2^20 input over all 64
    bins (0, negatives and 2^62-1 included) with bool and with int
    weights, the same as misaligned views (values[1:], weights[3:]),
    tiny inputs (1 and 17 elements), and a same-bin weight total of
    exactly 2^31; bit-equal;
-4. B1 vs plain: every dispatch of the main path (the engine's own
-   plan_dispatches, so the same host-drawn keys and shapes) through the
-   CUDA kernel and through its plain torch version on the card;
-   residual, hist, cold and the sorted pair outputs must be equal; both
-   are timed with CUDA events, and each dispatch's instantiation is
-   printed;
-5. main path: run_sampled -> cri_distribute -> aet_mrc on the card,
-   once with kernel_backend "cuda" and once with "torch", each with its
-   host seconds per stage. The "cuda" run must launch B1 once per
-   dispatch of phase 4, the "torch" run never, neither launches B2;
-   both folded PRIStates and MRC bytes must be equal, and the MRC's L1
-   error against baselines/gemm<N>.json.gz must be at most 0.01;
-6. sharded path: sampled_outputs_sharded over build_mesh() (every
-   visible card) and fold_results, which is run_sampled_sharded with
-   the psum'd pow2 histograms kept, with host seconds per stage and the
-   device's busy time from a torch.profiler trace of the run. B2
-   must launch once per shard per chunk and B1 never; the folded
-   PRIState and MRC bytes must equal the main path's, and each ref's
-   pow2 histogram the pow2 binning of its exact noshare pairs;
-7. B2 vs plain on the sharded path's own inputs (every launch's
-   max(ri, 1) and bool weights, recorded during phase 6); bit-equal;
+4. B3 vs plain on made inputs: both entries on made keys, 1 and 3 rows
+   of 1, 17, 2^14+3 and 2^20 elements, spans 1, 2, 3, 2^32-1, 2^32,
+   2^32+1 (randint's multiplier wraps to 0 past 2^32), 2^45-1, GEMM-2048's
+   depth-3 box and 2^46, bits with and without a valid mask; bit-equal;
+5. B1 vs plain: every dispatch of the main path (the engine's own
+   plan_dispatches: its device-drawn keys, chosen masks and column
+   spans) through the CUDA kernel and through its plain torch version
+   on the card; residual, hist, cold and the sorted pair outputs must be
+   equal; both are timed with CUDA events, and each dispatch's
+   instantiation is printed. The draws of that run are recorded;
+6. B3 vs plain on every draw of the main path (the engine's own keys,
+   B, R and span, and its valid masks); bit-equal; timed per run as
+   torch.profiler device time (CUDA events where the trace records
+   none) beside the plain version's CUDA-event time and the bound;
+7. main path, device draw: run_sampled -> cri_distribute -> aet_mrc on
+   the card, once with kernel_backend "cuda" (B3 + B1) and once with
+   "torch" (plain draw and classify), each with its host seconds per
+   stage (cri and aet included). The "cuda" run must launch B1 once per
+   dispatch of phase 5 and B3 as often as phase 5's draw, the "torch"
+   run neither, neither launches B2; both folded PRIStates and MRC bytes
+   must be equal, and the MRC's L1 error against
+   baselines/gemm<N>.json.gz must be at most 0.01;
+8. headline, device draw: one "cuda" run at GEMM N=2*--n (4096),
+   with wall, spans, launches and the MRC L1 error against
+   baselines/gemm4096.json.gz (at most 0.01);
+9. host-draw path: the same two runs at GEMM N=--n/2 (1024) with
+   device_draw=False: equal states and MRC bytes, L1 against
+   baselines/gemm1024.json.gz at most 0.01;
+10. sharded path, device draw: sampled_outputs_sharded over build_mesh()
+   (every visible card) and fold_results, with host seconds per stage
+   and the device's busy time from a torch.profiler trace of the run.
+   B2 must launch once per shard per batch step of each ref's drawn
+   buffer, B1 never; the folded PRIState and MRC bytes must equal the
+   main path's, and each ref's pow2 histogram the pow2 binning of its
+   exact noshare pairs;
+11. B2 vs plain on the sharded path's own inputs (every launch's
+   max(ri, 1) and bool weights, recorded during phase 10); bit-equal;
    how many bins each launch fills; kernel, plain version and the
    torch.searchsorted + torch.bincount yardstick timed per run, as
    device time from torch.profiler and as CUDA events around the calls
    (host-bound for the kernel: its wrapper's cost per call); the
    kernel's trace must hold no device operation but the kernel;
-8. two shards on one card: run_sampled_sharded over
-   build_mesh(devices=["cuda:0", "cuda:0"]) at GEMM N=512 must fold to
-   run_sampled's PRIState and MRC bytes.
+12. two shards on one card: run_sampled_sharded over
+   build_mesh(devices=["cuda:0", "cuda:0"]) at GEMM N=512, with the host
+   draw and with the device draw, must fold to run_sampled's PRIState
+   and MRC bytes under the same draw.
 
-Then one JSON line of kernel numbers, the nvidia-smi line, and last the
-result line {"ok": true, "device": {...}}. Imports nothing of JAX.
+Then one JSON line of kernel numbers (B1, B2, B3), the nvidia-smi line,
+and last the result line {"ok": true, "device": {...}}. Imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -81,12 +102,28 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # prints it at the one-pipe rate.
 INT32_ISSUES_PER_S = 128 * 132 * 1.98e9
 INT32_PIPE_PER_S = INT32_ISSUES_PER_S / 2
-# Bytes one sample costs the kernel on the main path: its 8 B key read
-# and its 8 B residual written (the engine passes no mask).
-BYTES_PER_SAMPLE = 8 + 8
+# Bytes B1 needs on the main path: each lane's 1 B mask read and 8 B
+# residual written, and the 8 B key of each chosen lane read (the kernel
+# reads no mask and every key on the host draw's dispatches).
+MASK_BYTES, KEY_BYTES, RESIDUAL_BYTES = 1, 8, 8
 REPLACES = "pluss_sampler_optimization_tpu/ops/pallas_sampled.py:126"
 SOURCE = "pluss_sampler_optimization_torch/csrc/sampled_hist.cu"
-SPANS = ("draw", "stage", "dispatch", "decode", "fold")
+SPANS = ("draw", "stage", "dispatch", "decode", "fold", "cri", "aet")
+# Kernel B3 (no Pallas original: the JAX package's XLA draw). Its bound
+# counts 32-bit issues per element, the script's assumptions: a
+# threefry2x32 block is 20 rounds of add, rotate (one funnel shift) and
+# xor (60) plus the key schedule's 2 + 5 x 2 adds (72); a 64-bit
+# remainder by the launch's span at least a multiply-high by a
+# reciprocal, a multiply back, a subtract and a correction (16);
+# randint is one block and one remainder where its multiplier is 0
+# (span > 2^32), else two blocks, three remainders and a 64-bit
+# multiply-add (5); bits is one block, the valid select and the sign
+# flip (3). Bytes: 8 B written per element, 1 B of mask read by bits.
+B3_REPLACES = "pluss_sampler_optimization_tpu/sampler/draw.py:144"
+B3_SOURCE = "pluss_sampler_optimization_torch/csrc/threefry_draw.cu"
+B3_BLOCK_ISSUES, B3_REM_ISSUES, B3_MULADD_ISSUES = 72, 16, 5
+B3_BITS_EXTRA = 3
+B3_RUN_REPS = 5  # timed passes over all of a run's B3 calls
 # Kernel B2: per element an 8 B value and a 1 B bool weight read (8 B
 # for int weights), the (64,) int64 output written once; 32-bit issues
 # per element: the weight test, the 64-bit zero test (2), the 64-bit clz
@@ -98,6 +135,8 @@ B2_RUN_REPS = 5  # timed passes over all of a run's B2 inputs
 SHARDED_SPANS = ("draw", "shard_put", "dispatch_psum", "gather_fetch",
                  "merge")
 TWO_SHARD_N = 512
+B3_MADE_SPANS = (1, 2, 3, (1 << 32) - 1, 1 << 32, (1 << 32) + 1,
+                 (1 << 45) - 1, 8_577_357_823, 1 << 46)
 
 
 def _card_line() -> str:
@@ -175,16 +214,18 @@ def _spans_text(spans: dict, names=SPANS) -> str:
 def _reset_launches() -> None:
     import pluss_sampler_optimization_torch.ops.pow2_hist as p2
     import pluss_sampler_optimization_torch.ops.sampled_hist as sh
+    import pluss_sampler_optimization_torch.ops.threefry_draw as td
 
-    sh.LAUNCHES = p2.LAUNCHES = 0
+    sh.LAUNCHES = p2.LAUNCHES = td.LAUNCHES = 0
 
 
-def _launches() -> tuple[int, int]:
-    """(B1 launches, B2 launches) since the last _reset_launches."""
+def _launches() -> tuple[int, int, int]:
+    """(B1, B2, B3 launches) since the last _reset_launches."""
     import pluss_sampler_optimization_torch.ops.pow2_hist as p2
     import pluss_sampler_optimization_torch.ops.sampled_hist as sh
+    import pluss_sampler_optimization_torch.ops.threefry_draw as td
 
-    return sh.LAUNCHES, p2.LAUNCHES
+    return sh.LAUNCHES, p2.LAUNCHES, td.LAUNCHES
 
 
 def phase_build() -> None:
@@ -197,7 +238,7 @@ def phase_build() -> None:
         path, log = _build.build(name, force=True)
         return path, log, time.perf_counter() - t0
 
-    names = ("sampled_hist", "pow2_hist")
+    names = ("sampled_hist", "pow2_hist", "threefry_draw")
     with ThreadPoolExecutor(len(names)) as ex:
         built = list(ex.map(one, names))
     for path, log, secs in built:
@@ -273,10 +314,87 @@ def phase_b2_made(dev) -> int:
     return max(err, e2)
 
 
+def _b3_run(call, plain: bool):
+    """One recorded B3 call through the kernel or its plain version."""
+    from pluss_sampler_optimization_torch.ops import threefry_draw as td
+
+    kind, keys, B, arg, dev = call
+    if kind == "randint":
+        fn = td.threefry_randint_plain if plain else td.threefry_randint_cuda
+        return fn(keys, B, arg, dev)
+    fn = td.threefry_bits_plain if plain else td.threefry_bits_cuda
+    return fn(keys, B, dev, arg)
+
+
+def _b3_compare(label: str, call) -> None:
+    """B3 and its plain version on one call: raises unless bit-equal."""
+    import torch
+
+    got, want = _b3_run(call, False), _b3_run(call, True)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"B3 vs plain: {label} differs in "
+            f"{int((got != want).sum())} of {got.numel()} elements"
+        )
+
+
+def phase_b3_made(dev) -> int:
+    """B3 vs plain on made keys and spans; returns the max abs error (0:
+    a difference raises)."""
+    import torch
+
+    rng = np.random.default_rng(11)
+    n_calls = 0
+    for R in (1, 3):
+        keys = [tuple(int(x) for x in rng.integers(0, 1 << 32, size=2))
+                for _ in range(R)]
+        for B in (1, 17, (1 << 14) + 3, 1 << 20):
+            for span in B3_MADE_SPANS:
+                _b3_compare(f"randint R={R} B={B} span={span}",
+                            ("randint", keys, B, span, dev))
+                n_calls += 1
+            valid = torch.from_numpy(rng.random((R, B)) < 0.6).to(dev)
+            for v in (None, valid):
+                _b3_compare(f"bits R={R} B={B}", ("bits", keys, B, v, dev))
+                n_calls += 1
+    print(f"B3 vs plain: {n_calls} made calls (1 and 3 rows of 1, 17, "
+          f"2^14+3 and 2^20 elements; randint spans "
+          f"{', '.join(str(x) for x in B3_MADE_SPANS)}; bits with and "
+          "without a valid mask): equal")
+    return 0
+
+
+def _b3_recording():
+    """Wrap sampler/draw.py's two B3 entry points so that every call is
+    recorded as (kind, keys, B, span or a copy of the valid mask,
+    device); returns (the list, a function restoring the originals)."""
+    from pluss_sampler_optimization_torch.sampler import draw
+
+    calls = []
+    randint, bits = draw.threefry_randint, draw.threefry_bits
+
+    def rec_randint(keys, B, span, device, backend="auto"):
+        calls.append(("randint", list(keys), B, span, device))
+        return randint(keys, B, span, device, backend)
+
+    def rec_bits(keys, B, device, valid=None, backend="auto"):
+        calls.append(("bits", list(keys), B,
+                      None if valid is None else valid.clone(), device))
+        return bits(keys, B, device, valid, backend)
+
+    draw.threefry_randint, draw.threefry_bits = rec_randint, rec_bits
+
+    def restore():
+        draw.threefry_randint, draw.threefry_bits = randint, bits
+
+    return calls, restore
+
+
 def phase_kernels(n: int, cfg, dev) -> dict:
     """Kernel vs plain on every dispatch of the main path; returns the
-    kernel's JSON entry (without launches), its bound's parts and the
-    number of dispatches."""
+    kernel's JSON entry (without launches), its bound's parts, the
+    number of dispatches, and the run's B3 calls and launches."""
     import torch
 
     from pluss_sampler_optimization_torch.config import MachineConfig
@@ -297,18 +415,25 @@ def phase_kernels(n: int, cfg, dev) -> dict:
     spans: dict = {}
     tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
     max_err = n_dispatches = 0
-    for d in S.plan_dispatches(trace, rows, cfg, dev, S.default_batch(dev),
-                               "cuda", spans):
+    b3_calls, restore = _b3_recording()
+    _reset_launches()
+    try:
+        dispatches = list(S.plan_dispatches(
+            trace, rows, cfg, dev, S.default_batch(dev), "cuda", spans))
+    finally:
+        restore()
+    b3_launches = _launches()[2]
+    for d in dispatches:
         label = "{" + ",".join(d.nt.tables.ref_names[ri]
                                for _, ri in d.members) + "}"
-        keys = d.keys_RB
+        keys, mask = d.keys_RB, d.mask_RB
 
         def kern():
-            return sampled_hist_cuda(d.nt, d.ref_idx, keys, None, d.highs,
+            return sampled_hist_cuda(d.nt, d.ref_idx, keys, mask, d.highs,
                                      d.rx_R, d.desc)
 
         def plain():
-            return sampled_hist_plain(d.nt, d.ref_idx, keys, None, d.highs,
+            return sampled_hist_plain(d.nt, d.ref_idx, keys, mask, d.highs,
                                       d.rx_R)
 
         got, want = kern(), plain()
@@ -331,9 +456,12 @@ def phase_kernels(n: int, cfg, dev) -> dict:
                     )
         ms = _time_ms(kern, KERNEL_REPS)
         plain_ms = _time_ms(plain, PLAIN_REPS)
-        ops = ops_per_sample(d.desc, d.highs) * keys.numel()
-        nbytes = BYTES_PER_SAMPLE * keys.numel() + 8 * got[1].numel() \
-            + 8 * got[2].numel()
+        # the classify's need: the chosen lanes (every lane without a mask)
+        live = keys.numel() if mask is None else int(mask.sum())
+        ops = ops_per_sample(d.desc, d.highs) * live
+        nbytes = (KEY_BYTES * live + RESIDUAL_BYTES * keys.numel()
+                  + (0 if mask is None else MASK_BYTES * keys.numel())
+                  + 8 * got[1].numel() + 8 * got[2].numel())
         tot["ms"] += ms
         tot["plain_ms"] += plain_ms
         tot["bytes"] += nbytes
@@ -341,10 +469,14 @@ def phase_kernels(n: int, cfg, dev) -> dict:
         n_dispatches += 1
         lv, nhmax = instantiation(d.desc)
         print(f"kernels: dispatch {n_dispatches} {label} R={keys.shape[0]} "
-              f"B={keys.shape[1]} sampled_hist_kernel<{lv}, {nhmax}> equal; "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"{ops // keys.numel()} int32 issues/sample")
-    print(f"kernels: {n_dispatches} dispatches; host {_spans_text(spans)}")
+              f"B={keys.shape[1]} ({live} chosen lanes) "
+              f"sampled_hist_kernel<{lv}, {nhmax}> equal; kernel {ms:.3f} ms,"
+              f" plain {plain_ms:.3f} ms, {ops // max(live, 1)} int32 "
+              "issues/sample")
+    del dispatches
+    print(f"kernels: {n_dispatches} dispatches; host "
+          f"{_spans_text(spans, ('draw', 'stage'))}; the draw made "
+          f"{len(b3_calls)} B3 calls, {b3_launches} launches")
     bytes_ms = tot["bytes"] / HBM_BYTES_PER_S * 1e3
     ops_ms = tot["ops"] / INT32_ISSUES_PER_S * 1e3
     return {
@@ -361,10 +493,89 @@ def phase_kernels(n: int, cfg, dev) -> dict:
         "ops_ms": ops_ms,
         "pipe_ms": tot["ops"] / INT32_PIPE_PER_S * 1e3,
         "dispatches": n_dispatches,
+        "b3_calls": b3_calls,
+        "b3_launches": b3_launches,
     }
 
 
-def _state_mrc(state, machine):
+def _b3_bound(call) -> tuple[int, int]:
+    """(bytes, 32-bit issues) one B3 call needs (see B3_BLOCK_ISSUES)."""
+    from pluss_sampler_optimization_torch.sampler.threefry import (
+        randint_multiplier,
+    )
+
+    kind, keys, B, arg, _ = call
+    n = len(keys) * B
+    if kind == "randint":
+        per = B3_BLOCK_ISSUES + B3_REM_ISSUES
+        if randint_multiplier(arg) != 0:
+            per = (2 * B3_BLOCK_ISSUES + 3 * B3_REM_ISSUES
+                   + B3_MULADD_ISSUES)
+        return 8 * n, per * n
+    return (8 + (0 if arg is None else 1)) * n, (
+        B3_BLOCK_ISSUES + B3_BITS_EXTRA) * n
+
+
+def phase_b3_engine(calls, max_err: int) -> dict:
+    """B3 vs plain on every draw of the main path, timed per run (all of
+    the run's calls, once each); returns B3's JSON entry (without
+    launches)."""
+    import torch
+
+    nbytes = ops = 0
+    for i, call in enumerate(calls):
+        kind, keys, B, arg, _ = call
+        _b3_compare(f"main-path call {i} ({kind}, R={len(keys)}, B={B})",
+                    call)
+        b, o = _b3_bound(call)
+        nbytes += b
+        ops += o
+        print(f"B3: call {i} {kind} R={len(keys)} B={B}"
+              + (f" span={arg}" if kind == "randint" else
+                 f" valid={'yes' if arg is not None else 'no'}")
+              + " equal")
+
+    def run(plain: bool):
+        for call in calls:
+            _b3_run(call, plain)
+
+    events = _time_ms(lambda: run(False), B3_RUN_REPS)
+    dev_ms, names = _device_ms(lambda: run(False), B3_RUN_REPS)
+    if dev_ms is not None:
+        # a call is one kernel; the trace may miss some of them, and the
+        # time per run is then the recorded kernels' mean times the calls
+        want = B3_RUN_REPS * len(calls)
+        kernels = [x for x in names if "randint_kernel" in x
+                   or "bits_kernel" in x]
+        if len(kernels) != len(names) or len(names) > want:
+            raise AssertionError(f"B3 trace: {want} calls ran other device "
+                                 f"operations: {sorted(set(names))}")
+        dev_ms *= want / len(names)
+        print(f"B3 trace: {want} calls, {len(names)} device operations "
+              "recorded, each a B3 kernel")
+    plain = _time_ms(lambda: run(True), 2)
+    ms = events if dev_ms is None else dev_ms
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_ISSUES_PER_S * 1e3
+    print(f"B3 vs plain: all {len(calls)} main-path calls equal; per run "
+          f"kernel {ms:.4f} ms (profiler device time "
+          + ("not recorded" if dev_ms is None else f"{dev_ms:.4f} ms")
+          + f", CUDA events {events:.4f} ms), plain {plain:.4f} ms; bound "
+          f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f} ms, int32 "
+          f"issues {ops_ms:.4f} ms; at the one-pipe rate "
+          f"{ops / INT32_PIPE_PER_S * 1e3:.4f} ms)")
+    return {
+        "name": "threefry_draw", "route": "cuda", "source": B3_SOURCE,
+        "replaces": B3_REPLACES, "launches": None, "max_abs_err": max_err,
+        "ms": ms, "plain_ms": plain, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }
+
+
+def _state_mrc(state, machine, spans: dict | None = None):
+    """(PRIState JSON, MRC); `spans` gets the host seconds of
+    cri_distribute ("cri") and aet_mrc ("aet")."""
     from pluss_sampler_optimization_torch.runtime.aet import aet_mrc
     from pluss_sampler_optimization_torch.runtime.baseline import (
         state_to_json,
@@ -372,13 +583,27 @@ def _state_mrc(state, machine):
     from pluss_sampler_optimization_torch.runtime.cri import cri_distribute
 
     T = machine.thread_num
-    return state_to_json(state), aet_mrc(cri_distribute(state, T, T),
-                                         machine)
+    t0 = time.perf_counter()
+    rih = cri_distribute(state, T, T)
+    t1 = time.perf_counter()
+    mrc = aet_mrc(rih, machine)
+    if spans is not None:
+        spans["cri"] = t1 - t0
+        spans["aet"] = time.perf_counter() - t1
+    return state_to_json(state), mrc
 
 
-def phase_main_path(n: int, cfg, dispatches: int):
-    """Main-path runs on the card in MAIN_PATH_ORDER; returns B1's
-    launches in the "cuda" run and the folded (PRIState JSON, MRC)."""
+def phase_main_path(label: str, n: int, cfg, backends, dispatches=None,
+                    b3_launches=None):
+    """run_sampled -> cri_distribute -> aet_mrc on the card once per
+    kernel backend; returns the "cuda" run's (B1, B3) launches and the
+    folded (PRIState JSON, MRC). Under "cuda" B1 must launch once per
+    dispatch (`dispatches`) and B3 `b3_launches` times where given (at
+    least once under the device draw, never under the host draw); under
+    "torch" no kernel launches; B2 never does. Every run's state and MRC
+    bytes must be equal, and the MRC's L1 error against
+    baselines/gemm<n>.json.gz at most MRC_L1_LIMIT (the file must exist
+    for n = 1024, 2048 and 4096)."""
     import torch
 
     from pluss_sampler_optimization_torch.config import MachineConfig
@@ -391,12 +616,16 @@ def phase_main_path(n: int, cfg, dispatches: int):
         load_baseline,
     )
     from pluss_sampler_optimization_torch.runtime.cri import cri_distribute
-    from pluss_sampler_optimization_torch.sampler.sampled import run_sampled
+    from pluss_sampler_optimization_torch.sampler.sampled import (
+        _use_device_draw,
+        run_sampled,
+    )
 
     machine = MachineConfig()
     T = machine.thread_num
+    dev_draw = _use_device_draw(cfg, "cuda")
     first = kernel_launches = None
-    for i, backend in enumerate(MAIN_PATH_ORDER, 1):
+    for i, backend in enumerate(backends, 1):
         c = dataclasses.replace(cfg, kernel_backend=backend)
         spans: dict = {}
         _reset_launches()
@@ -406,60 +635,95 @@ def phase_main_path(n: int, cfg, dispatches: int):
                                      spans=spans)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, b2 = _launches()
-        got = _state_mrc(state, machine)
+        b1, b2, b3 = _launches()
+        got = _state_mrc(state, machine, spans)
         samples = sum(r.n_samples for r in results)
-        print(f"main path: run {i} kernel_backend={backend} gemm({n}) "
-              f"{wall:.3f} s ({_spans_text(spans)}, rest "
-              f"{wall - sum(spans.values()):.3f} s), {samples} samples, "
-              f"{launches} B1 launches, {b2} B2 launches, MRC of "
-              f"{len(got[1])} points")
-        want = dispatches if backend == "cuda" else 0
-        if launches != want or b2 != 0:
-            raise AssertionError(
-                f"main path: {launches} B1 and {b2} B2 launches under "
-                f"kernel_backend={backend} (expected {want} and 0)"
-            )
+        rest = wall - sum(v for k, v in spans.items()
+                          if k not in ("cri", "aet"))
+        print(f"{label}: run {i} kernel_backend={backend} gemm({n}) "
+              f"{'device' if dev_draw else 'host'} draw {wall:.3f} s "
+              f"({_spans_text(spans, SPANS[:5])}, rest {rest:.3f} s), then "
+              f"cri {spans['cri']:.3f} s, aet {spans['aet']:.3f} s; "
+              f"{samples} samples, {b1} B1, {b2} B2 and {b3} B3 launches, "
+              f"MRC of {len(got[1])} points")
         if backend == "cuda":
-            kernel_launches = launches
+            ok = (b1 > 0 if dispatches is None else b1 == dispatches) and (
+                (b3 == 0) if not dev_draw else
+                (b3 > 0 if b3_launches is None else b3 == b3_launches))
+            kernel_launches = (b1, b3)
+        else:
+            ok = b1 == b3 == 0
+        if not ok or b2 != 0:
+            raise AssertionError(
+                f"{label}: {b1} B1, {b2} B2 and {b3} B3 launches under "
+                f"kernel_backend={backend} (expected B1 {dispatches}, B3 "
+                f"{b3_launches if dev_draw else 0} under cuda, none under "
+                "torch, never B2)")
         if first is None:
             first = got
         elif got[0] != first[0]:
-            raise AssertionError(f"main path: run {i}'s PRIState differs")
+            raise AssertionError(f"{label}: run {i}'s PRIState differs")
         elif got[1].tobytes() != first[1].tobytes():
-            raise AssertionError(f"main path: run {i}'s MRC bytes differ")
-    print("main path: all runs give equal PRIStates and MRC bytes")
+            raise AssertionError(f"{label}: run {i}'s MRC bytes differ")
+    if len(backends) > 1:
+        print(f"{label}: all runs give equal PRIStates and MRC bytes")
     mrc = first[1]
     if not (np.isfinite(mrc).all() and mrc[0] == 1.0
             and (np.diff(mrc) <= 0).all()):
-        raise AssertionError("main path: MRC not finite, 1 at 0 and "
+        raise AssertionError(f"{label}: MRC not finite, 1 at 0 and "
                              "non-increasing")
     base = load_baseline("gemm", n, machine)
     if base is None:
-        if n in (2048, 4096):
-            raise AssertionError(f"main path: baselines/gemm{n}.json.gz "
+        if n in (1024, 2048, 4096):
+            raise AssertionError(f"{label}: baselines/gemm{n}.json.gz "
                                  "is missing")
-        print(f"main path: no baseline for gemm{n}; MRC error not checked")
+        print(f"{label}: no baseline for gemm{n}; MRC error not checked")
         return kernel_launches, first
     mrc_b = aet_mrc(cri_distribute(base["state"], T, T), machine)
     err = mrc_l1_error(mrc, mrc_b)
-    print(f"main path: MRC L1 error vs baselines/gemm{n}.json.gz: {err!r}")
+    print(f"{label}: MRC L1 error vs baselines/gemm{n}.json.gz: {err!r}")
     if not err <= MRC_L1_LIMIT:
         raise AssertionError(
-            f"main path: MRC L1 error {err} above {MRC_L1_LIMIT}"
+            f"{label}: MRC L1 error {err} above {MRC_L1_LIMIT}"
         )
     return kernel_launches, first
 
 
-def _b2_launches_expected(results, mesh) -> int:
-    """One B2 launch per shard per chunk of every ref."""
+def _b2_launches_expected(results, mesh, buffers) -> int:
+    """One B2 launch per shard per step of every ref: a batch of its
+    device-drawn buffer (`buffers`: each ref's drawn B, None for the
+    host draw), or a padded chunk of its host-drawn keys."""
     from pluss_sampler_optimization_torch.sampler.sampled import (
         default_batch,
     )
 
     n_dev = mesh.size
-    step = max(n_dev, (default_batch(mesh.devices[0]) // n_dev) * n_dev)
-    return sum(-(-r.n_samples // step) for r in results) * n_dev
+    batch = default_batch(mesh.devices[0])
+    step = max(n_dev, (batch // n_dev) * n_dev)
+    return n_dev * sum(-(-r.n_samples // step) if B is None else B // batch
+                       for r, B in zip(results, buffers))
+
+
+def _draw_recording():
+    """Wrap the sharded engine's device draw so that each ref's drawn
+    buffer size is recorded (None where it takes the host draw); returns
+    (the list, a function restoring the original)."""
+    from pluss_sampler_optimization_torch.parallel import sharded
+
+    sizes = []
+    draw = sharded.draw_sample_keys_device
+
+    def recording(*args, **kw):
+        out = draw(*args, **kw)
+        sizes.append(None if out is None else int(out[0].shape[0]))
+        return out
+
+    sharded.draw_sample_keys_device = recording
+
+    def restore():
+        sharded.draw_sample_keys_device = draw
+
+    return sizes, restore
 
 
 def phase_sharded(n: int, cfg, main_path) -> tuple[int, list]:
@@ -477,9 +741,7 @@ def phase_sharded(n: int, cfg, main_path) -> tuple[int, list]:
         sharded,
     )
     from pluss_sampler_optimization_torch.runtime.hist import pow2_floor
-    from pluss_sampler_optimization_torch.sampler.sampled import (
-        fold_results,
-    )
+    from pluss_sampler_optimization_torch.sampler import sampled as S
 
     machine = MachineConfig()
     mesh = build_mesh()
@@ -492,6 +754,7 @@ def phase_sharded(n: int, cfg, main_path) -> tuple[int, list]:
 
     spans: dict = {}
     sharded.pow2_hist_auto = recording
+    sizes, restore = _draw_recording()
     try:
         _reset_launches()
         torch.cuda.synchronize()
@@ -501,12 +764,17 @@ def phase_sharded(n: int, cfg, main_path) -> tuple[int, list]:
             results, dense = sharded.sampled_outputs_sharded(
                 gemm(n), machine, cfg, mesh=mesh, spans=spans
             )
-            state = fold_results(results, machine.thread_num)
+            state = S.fold_results(results, machine.thread_num)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        b1, launches = _launches()
+        b1, launches, b3 = _launches()
     finally:
         sharded.pow2_hist_auto = hist_fn
+        restore()
+    if len(sizes) != len(results) or None in sizes or b3 == 0:
+        raise AssertionError(f"sharded path: not every ref was drawn on "
+                             f"the device (buffers {sizes}, {b3} B3 "
+                             "launches)")
     iv = _device_intervals(prof)
     b2_iv = [(e.time_range.start, e.time_range.end) for e in prof.events()
              if "pow2_hist_kernel" in e.name]
@@ -519,13 +787,16 @@ def phase_sharded(n: int, cfg, main_path) -> tuple[int, list]:
     else:
         print("sharded path: profiler: no device activity recorded; "
               "device busy time not measured")
-    want = _b2_launches_expected(results, mesh)
-    print(f"sharded path: gemm({n}) {wall:.3f} s "
+    want = _b2_launches_expected(results, mesh, sizes)
+    steps = " + ".join(f"{mesh.size} x {B // S.default_batch(mesh.devices[0])}"
+                       for B in sizes)
+    print(f"sharded path: gemm({n}) device draw {wall:.3f} s "
           f"({_spans_text(spans, SHARDED_SPANS)}, rest "
           f"{wall - sum(spans.values()):.3f} s), "
-          f"{sum(r.n_samples for r in results)} samples, {launches} B2 "
-          f"launches (expected {want}: one per shard per chunk), {b1} B1 "
-          f"launches, over {mesh.size} shard(s)")
+          f"{sum(r.n_samples for r in results)} samples in buffers of "
+          f"{sizes}, {launches} B2 launches (expected {steps} = {want}: "
+          f"one per shard per batch step), {b1} B1 and {b3} B3 launches, "
+          f"over {mesh.size} shard(s)")
     if launches != want or b1 != 0:
         raise AssertionError(
             f"sharded path: {launches} B2 and {b1} B1 launches (expected "
@@ -632,7 +903,8 @@ def phase_b2_engine(inputs, max_err: int) -> dict:
 
 
 def phase_two_shards(cfg) -> None:
-    """Two shards on one card fold to run_sampled's state and MRC."""
+    """Two shards on one card fold to run_sampled's state and MRC, with
+    the host draw and with the device draw."""
     from pluss_sampler_optimization_torch.config import MachineConfig
     from pluss_sampler_optimization_torch.models import gemm
     from pluss_sampler_optimization_torch.parallel import (
@@ -643,25 +915,38 @@ def phase_two_shards(cfg) -> None:
 
     machine = MachineConfig()
     n = TWO_SHARD_N
-    want = _state_mrc(run_sampled(gemm(n), machine, cfg)[0], machine)
     mesh = build_mesh(devices=["cuda:0", "cuda:0"])
-    _reset_launches()
-    state, results = run_sampled_sharded(gemm(n), machine, cfg, mesh=mesh)
-    _, b2 = _launches()
-    got = _state_mrc(state, machine)
-    if got[0] != want[0] or got[1].tobytes() != want[1].tobytes():
-        raise AssertionError(f"two shards: gemm({n}) differs from "
-                             "run_sampled")
-    if b2 != _b2_launches_expected(results, mesh):
-        raise AssertionError(f"two shards: {b2} B2 launches, expected "
-                             f"{_b2_launches_expected(results, mesh)}")
-    print(f"two shards on cuda:0: gemm({n}) PRIState and MRC bytes equal "
-          f"run_sampled's; {b2} B2 launches")
+    for dev_draw in (False, True):
+        c = dataclasses.replace(cfg, device_draw=dev_draw)
+        want = _state_mrc(run_sampled(gemm(n), machine, c)[0], machine)
+        sizes, restore = _draw_recording()
+        try:
+            _reset_launches()
+            state, results = run_sampled_sharded(gemm(n), machine, c,
+                                                 mesh=mesh)
+            _, b2, b3 = _launches()
+        finally:
+            restore()
+        if not dev_draw:
+            sizes = [None] * len(results)
+        got = _state_mrc(state, machine)
+        draw = "device" if dev_draw else "host"
+        if got[0] != want[0] or got[1].tobytes() != want[1].tobytes():
+            raise AssertionError(f"two shards: gemm({n}) {draw} draw "
+                                 "differs from run_sampled")
+        want_b2 = _b2_launches_expected(results, mesh, sizes)
+        if b2 != want_b2 or (b3 > 0) != dev_draw:
+            raise AssertionError(f"two shards: {draw} draw: {b2} B2 and "
+                                 f"{b3} B3 launches, expected {want_b2} B2")
+        print(f"two shards on cuda:0: gemm({n}) {draw} draw: PRIState and "
+              f"MRC bytes equal run_sampled's; {b2} B2 and {b3} B3 launches")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n", type=int, default=2048)
+    ap.add_argument("--n", type=int, default=2048,
+                    help="GEMM size of the main and sharded paths; the "
+                    "headline runs at 2n and the host draw at n/2")
     args = ap.parse_args(argv)
 
     import torch
@@ -676,7 +961,8 @@ def main(argv=None) -> int:
     print(f"card: {card}")
     phase_build()
     b2_err = phase_b2_made(dev)
-    cfg = SamplerConfig(ratio=0.1, seed=0)
+    b3_err = phase_b3_made(dev)
+    cfg = SamplerConfig(ratio=0.1, seed=0)  # auto: the device draw here
     k = phase_kernels(args.n, cfg, dev)
     print(f"kernels: all {k['dispatches']} dispatches: kernel "
           f"{k['entry']['ms']:.3f} ms, plain {k['entry']['plain_ms']:.3f} ms, "
@@ -684,14 +970,20 @@ def main(argv=None) -> int:
           f"{k['entry']['bound_by']} (bytes {k['bytes_ms']:.4f} ms, "
           f"int32 issues {k['ops_ms']:.4f} ms; at the one-pipe rate "
           f"{k['pipe_ms']:.4f} ms)")
-    k["entry"]["launches"], main_path = phase_main_path(
-        args.n, cfg, k["dispatches"])
+    b3 = phase_b3_engine(k.pop("b3_calls"), b3_err)
+    (k["entry"]["launches"], b3["launches"]), main_path = phase_main_path(
+        "main path", args.n, cfg, MAIN_PATH_ORDER, k["dispatches"],
+        k["b3_launches"])
+    phase_main_path("headline", 2 * args.n, cfg, ("cuda",))
+    phase_main_path("host draw", args.n // 2,
+                    dataclasses.replace(cfg, device_draw=False),
+                    MAIN_PATH_ORDER)
     b2_launches, inputs = phase_sharded(args.n, cfg, main_path)
     b2 = phase_b2_engine(inputs, b2_err)
     b2["launches"] = b2_launches
     del inputs
     phase_two_shards(cfg)
-    print(json.dumps({"kernels": [k["entry"], b2]}))
+    print(json.dumps({"kernels": [k["entry"], b2, b3]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

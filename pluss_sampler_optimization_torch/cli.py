@@ -6,7 +6,9 @@
 
 `--engine sharded` runs the mesh-sharded engine over every visible card
 (one CPU device with `--device cpu`); its lines equal `--engine
-sampled`'s.
+sampled`'s. `--device-draw/--no-device-draw` picks the draw (default
+auto: the device draw on CUDA, the host draw on the CPU), as the JAX
+CLI's flag does for its sampled and sharded engines.
 
 Prints the lines the JAX package's `sample` mode prints, in its order:
 one line per tracked ref, the noshare and share private-reuse dumps, the
@@ -37,6 +39,12 @@ def _parser() -> argparse.ArgumentParser:
                     choices=["sampled", "sharded"],
                     help="sampled (default) or sharded (the mesh-sharded "
                     "engine over every visible card)")
+    ap.add_argument("--device-draw", default=None,
+                    action=argparse.BooleanOptionalAction,
+                    help="draw sample keys on the device with the threefry "
+                    "PRNG (kernel B3 on the card) instead of numpy on the "
+                    "host (default: auto, on for a CUDA device and off on "
+                    "the CPU, as the JAX package's auto per backend)")
     ap.add_argument("--kernel-backend", default=None, choices=KERNEL_BACKENDS,
                     help="kernel implementation (default auto: the CUDA "
                     "kernels on the card, plain torch on the CPU)")
@@ -79,7 +87,8 @@ def main(argv=None) -> int:
     machine = MachineConfig(thread_num=args.threads, chunk_size=args.chunk)
     program = build(args.model, args.n)
     cfg = SamplerConfig(
-        ratio=args.ratio, seed=args.seed, kernel_backend=args.kernel_backend
+        ratio=args.ratio, seed=args.seed, device_draw=args.device_draw,
+        kernel_backend=args.kernel_backend,
     )
     report.emit(sample_lines(program, machine, cfg, args.device,
                              args.engine))

@@ -81,18 +81,23 @@ class SamplerConfig:
     ratio: float = 0.1
     seed: int = 0
     exclude_last_iteration: bool = True
-    # Draw sample keys on the device instead of with numpy on the host.
-    # None and False take the host numpy stream, whose sample sets are
-    # bit-identical to the JAX package's host stream; True is not
-    # ported yet and raises (ROADMAP A3).
+    # Draw sample keys on the device (sampler/draw.py: jax.random's
+    # threefry streams, on kernel B3) instead of with numpy on the host.
+    # None = auto, as in the JAX package: the device draw on a CUDA
+    # device, the host draw on the CPU. True and False force one. Each
+    # draw's sample sets are bit-identical to the JAX package's same
+    # draw; the two draws give different (statistically equivalent)
+    # sample sets, and the device draw's depend on the batch.
     device_draw: bool | None = None
     # Which kernels the sampled engines run: "cuda" (the hand-written
     # kernels: csrc/sampled_hist.cu for run_sampled's classify+histogram,
-    # csrc/pow2_hist.cu for the sharded engine's pow2 histogram),
-    # "torch" (plain tensor code: sampled_hist_plain, and exp_hist in
-    # the sharded engine), or None/"auto": "cuda" for tensors on a CUDA
-    # device, "torch" on the CPU. Every backend folds to bit-identical
-    # PRIStates/MRCs. In the sharded engine this is the JAX package's
+    # csrc/pow2_hist.cu for the sharded engine's pow2 histogram,
+    # csrc/threefry_draw.cu for the device draw's streams in both),
+    # "torch" (plain tensor code: sampled_hist_plain, exp_hist in the
+    # sharded engine, sampler/threefry.py's streams), or None/"auto":
+    # "cuda" on a CUDA device, "torch" on the CPU. Every backend draws
+    # the same sample sets and folds to bit-identical PRIStates/MRCs. In
+    # the sharded engine's histogram this is the JAX package's
     # use_pallas_hist: "torch" is use_pallas_hist=False (exp_hist), and
     # "auto"/"cuda" launch the kernel on CUDA tensors.
     kernel_backend: str | None = None

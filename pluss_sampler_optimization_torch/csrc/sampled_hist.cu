@@ -654,7 +654,7 @@ struct Params {
 template <int LV, int NHMAX>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM(NHMAX))
 sampled_hist_kernel(const i64* __restrict__ keys,
-                    const unsigned char* __restrict__ mask, i64 B,
+                    const unsigned char* __restrict__ mask, i64 B, i64 ld,
                     const __grid_constant__ Params pr,
                     const i64* __restrict__ rx, i64* __restrict__ residual,
                     u64* __restrict__ hist, u64* __restrict__ cold) {
@@ -664,7 +664,8 @@ sampled_hist_kernel(const i64* __restrict__ keys,
     __syncthreads();
     const i64 r = blockIdx.y;
     const i64 rxv = rx[r];
-    const i64 base = r * B;
+    const i64 in = r * ld;   // row r of keys and mask
+    const i64 base = r * B;  // row r of residual
     const i64 stride = (i64)gridDim.x * blockDim.x;
     // b0 is the same for every thread of the block, so every lane of a
     // warp runs every iteration and __match_any_sync sees the full warp
@@ -672,8 +673,8 @@ sampled_hist_kernel(const i64* __restrict__ keys,
         const i64 b = b0 + threadIdx.x;
         int bin = -1;
         if (b < B) {
-            const bool mk = mask == nullptr || mask[base + b] != 0;
-            bin = sample_step<LV, NHMAX>(pr.desc, keys[base + b], mk, pr.hr,
+            const bool mk = mask == nullptr || mask[in + b] != 0;
+            bin = sample_step<LV, NHMAX>(pr.desc, keys[in + b], mk, pr.hr,
                                          rxv, s_nb + threadIdx.x,
                                          residual + base + b);
         }
@@ -688,13 +689,14 @@ sampled_hist_kernel(const i64* __restrict__ keys,
         atomicAdd(&cold[r], s_hist[N_BINS]);
 }
 
-typedef int (*LaunchFn)(const void*, const void*, i64, i64, const Params&,
-                        const void*, void*, void*, void*, cudaStream_t);
+typedef int (*LaunchFn)(const void*, const void*, i64, i64, i64,
+                        const Params&, const void*, void*, void*, void*,
+                        cudaStream_t);
 
 #define MAX_DEVICES 64
 
 template <int LV, int NHMAX>
-static int launch(const void* keys, const void* mask, i64 R, i64 B,
+static int launch(const void* keys, const void* mask, i64 R, i64 B, i64 ld,
                   const Params& pr, const void* rx, void* residual,
                   void* hist, void* cold, cudaStream_t stream) {
     // as many blocks as the card holds at once, split over the R rows;
@@ -723,7 +725,7 @@ static int launch(const void* keys, const void* mask, i64 R, i64 B,
     if (bx < 1) bx = 1;
     dim3 grid((unsigned)bx, (unsigned)R);
     sampled_hist_kernel<LV, NHMAX><<<grid, THREADS, 0, stream>>>(
-        (const i64*)keys, (const unsigned char*)mask, B, pr, (const i64*)rx,
+        (const i64*)keys, (const unsigned char*)mask, B, ld, pr, (const i64*)rx,
         (i64*)residual, (u64*)hist, (u64*)cold);
     return (int)cudaGetLastError();
 }
@@ -733,8 +735,10 @@ static int launch(const void* keys, const void* mask, i64 R, i64 B,
 static const LaunchFn LAUNCH[MAX_DEPTH][2] = {
     LAUNCH_ROW(0), LAUNCH_ROW(1), LAUNCH_ROW(2)};
 
-// keys/residual: int64 [R, B] on the card; mask: uint8 [R, B], or null
-// when every lane is live; desc: the HOST's int64 [desc_len]
+// keys: int64 [R, B] on the card, row r at keys + r * ld (ld >= B: a
+// column span of a wider buffer); mask: uint8 [R, B] with the same row
+// stride, or null when every lane is live; residual: int64 [R, B],
+// contiguous; desc: the HOST's int64 [desc_len]
 // (build_descriptor); hrec: the host's int64 [9], the division records
 // of the three radices; rx: int64 [R]; hist: int64 [R, 64] and cold:
 // int64 [R], both zeroed by the caller. Launches the instantiation of
@@ -742,19 +746,20 @@ static const LaunchFn LAUNCH[MAX_DEPTH][2] = {
 // group on `stream`, allocates nothing, returns cudaGetLastError() (or
 // cudaErrorInvalidValue for arguments the kernel does not take).
 extern "C" int sampled_hist_launch(const void* keys, const void* mask,
-                                   i64 R, i64 B, const i64* desc,
+                                   i64 R, i64 B, i64 ld, const i64* desc,
                                    int desc_len, const i64* hrec,
                                    const void* rx, void* residual,
                                    void* hist, void* cold, void* stream) {
     if (desc_len < D_HEADER || desc_len > MAX_DESC || R < 1 || R > 65535
-        || B < 1 || desc[D_LV] < 0 || desc[D_LV] >= MAX_DEPTH
+        || B < 1 || ld < B || desc[D_LV] < 0 || desc[D_LV] >= MAX_DEPTH
         || max_heads(desc) > MAX_DEPTH)
         return (int)cudaErrorInvalidValue;
     Params pr;
     for (int i = 0; i < MAX_DEPTH * DIV_SIZE; ++i) pr.hr[i] = hrec[i];
     for (int i = 0; i < desc_len; ++i) pr.desc[i] = desc[i];
     return LAUNCH[desc[D_LV]][max_heads(desc) > 1](
-        keys, mask, R, B, pr, rx, residual, hist, cold, (cudaStream_t)stream);
+        keys, mask, R, B, ld, pr, rx, residual, hist, cold,
+        (cudaStream_t)stream);
 }
 
 #else

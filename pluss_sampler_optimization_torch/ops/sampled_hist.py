@@ -11,9 +11,12 @@ buffer of B mixed-radix sample keys — it returns
                     (bin floor(log2 ri); bin 63 is always empty);
     cold[R]         masked-in samples whose line is never touched again.
 
-`mask_RB` (bool [R, B]) switches lanes off; None means every lane is
-live, which is what the engine's dispatches pass (they are never
-padded), so the kernel then reads no mask at all.
+`mask_RB` (bool [R, B]) switches lanes off: the engine passes the
+device draw's `chosen` mask. None means every lane is live, which is
+what the host draw's dispatches pass (they are never padded), so the
+kernel then reads no mask at all. A masked-off lane is never classified;
+the plain version decodes it as key 0, so a triangular buffer's sentinel
+(int64 max) cannot reach an index.
 
 `sampled_hist` picks the implementation: the hand-written CUDA kernel
 (csrc/sampled_hist.cu) for CUDA tensors, the plain torch version for
@@ -427,7 +430,10 @@ def sampled_hist_plain(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R):
     hist = torch.zeros((R, N_BINS), dtype=torch.int64, device=dev)
     cold = torch.zeros(R, dtype=torch.int64, device=dev)
     for r in range(R):
-        samples = decode_sample_keys(keys_RB[r], highs)
+        keys = keys_RB[r]
+        if mask_RB is not None:
+            keys = torch.where(mask_RB[r], keys, 0)
+        samples = decode_sample_keys(keys, highs)
         packed, ri, is_share, found = classify_samples(
             tnt, ref_idx, samples, rx_R[r]
         )
@@ -443,25 +449,36 @@ def sampled_hist_plain(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R):
 
 _ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-     ctypes.c_void_p, ctypes.c_int]
+     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int]
     + [ctypes.c_void_p] * 6
 )
 
 
-def _check(name, x, dtype, shape, dev):
+def _check(name, x, dtype, shape, dev, ld=None):
+    """Raise unless x is `dtype` of `shape` on `dev`, contiguous, or with
+    `ld` given, rows of contiguous lanes `ld` elements apart."""
     if x.dtype != dtype or tuple(x.shape) != tuple(shape):
         raise ValueError(
             f"{name}: expected {dtype} {tuple(shape)}, got {x.dtype} "
             f"{tuple(x.shape)}"
         )
-    if x.device != dev or not x.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous on {dev}")
+    if x.device != dev:
+        raise ValueError(f"{name}: must be on {dev}, got {x.device}")
+    if ld is None:
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous")
+    elif x.shape[1] > 1 and x.stride(1) != 1 or (
+            x.shape[0] > 1 and x.stride(0) != ld):
+        raise ValueError(f"{name}: rows must be contiguous and {ld} "
+                         f"elements apart, got strides {x.stride()}")
 
 
 def sampled_hist_cuda(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
                       desc=None):
     """Launch csrc/sampled_hist.cu on the current stream; raises on any
-    argument the kernel does not take or a launch error. `desc` is
+    argument the kernel does not take or a launch error. keys_RB (and
+    mask_RB, with the same strides) may be a column span of a wider
+    [R, B'] buffer: rows of contiguous lanes, a fixed stride apart. `desc` is
     build_descriptor's output, a host int64 array (built here when None);
     the launch passes it by value and launches the instantiation of its
     source-ref level desc[D_LV] and most heads per group."""
@@ -472,9 +489,11 @@ def sampled_hist_cuda(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
     if dev.type != "cuda":
         raise ValueError(f"sampled_hist_cuda needs CUDA tensors, got {dev}")
     R, B = keys_RB.shape
-    _check("keys", keys_RB, torch.int64, (R, B), dev)
+    # rows may be a column span of a wider buffer (the device draw's)
+    ld = keys_RB.stride(0) if R > 1 else B
+    _check("keys", keys_RB, torch.int64, (R, B), dev, ld)
     if mask_RB is not None:
-        _check("mask", mask_RB, torch.bool, (R, B), dev)
+        _check("mask", mask_RB, torch.bool, (R, B), dev, ld)
     _check("rx", rx_R, torch.int64, (R,), dev)
     hrec = radix_records(highs)
     if desc is None:
@@ -491,7 +510,7 @@ def sampled_hist_cuda(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
         cold = torch.zeros(R, dtype=torch.int64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         mask_ptr = None if mask_RB is None else mask_RB.data_ptr()
-        rc = fn(keys_RB.data_ptr(), mask_ptr, R, B,
+        rc = fn(keys_RB.data_ptr(), mask_ptr, R, B, ld,
                 desc.ctypes.data, desc.shape[0], hrec.ctypes.data,
                 rx_R.data_ptr(), residual.data_ptr(), hist.data_ptr(),
                 cold.data_ptr(), stream)

@@ -1,5 +1,7 @@
-"""The sampled engine on PyTorch (sampler/sampled.py)."""
+"""The sampled engine on PyTorch (sampler/sampled.py) and its device draw
+(sampler/draw.py, on the threefry streams of sampler/threefry.py)."""
 
+from .draw import draw_sample_keys_device
 from .sampled import run_sampled, sampled_outputs
 
-__all__ = ["run_sampled", "sampled_outputs"]
+__all__ = ["draw_sample_keys_device", "run_sampled", "sampled_outputs"]

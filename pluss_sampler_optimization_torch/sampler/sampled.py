@@ -1,13 +1,28 @@
 """Random-start sampled engine — the r10 equivalent — on PyTorch.
 
 Port of the JAX package's sampler/sampled.py along its fused
-classify+histogram route (kernel_backend="pallas" with the host numpy
-draw there): every tracked reference draws a dedup'd uniform sample
-set with numpy (bit-identical to the JAX package's host stream), refs
-sharing a kernel signature stack into one bucket dispatch, and each
-dispatch runs the fused decode + classify + pow2 histogram
-(ops/sampled_hist.py: the CUDA kernel on the card, its plain torch
-version on the CPU). Share samples and sub-1 noshare samples come back
+classify+histogram route (kernel_backend="pallas" there): every tracked
+reference draws a dedup'd uniform sample set, refs sharing a kernel
+signature stack into one bucket dispatch, and each dispatch runs the
+fused decode + classify + pow2 histogram (ops/sampled_hist.py: the CUDA
+kernel on the card, its plain torch version on the CPU).
+
+The draw is the JAX package's, chosen as there by
+SamplerConfig.device_draw (None: auto, the device draw on a CUDA device
+and the host draw on the CPU, as the JAX package's auto picks the device
+draw on every backend but the CPU):
+
+- the device draw (sampler/draw.py, threefry on kernel B3): a bucket's
+  members draw one [R, B] buffer of sorted candidate keys and the
+  `chosen` mask of exactly s of them, on the device; the bucket
+  dispatches it in column spans of at most _FUSED_HOST_CHUNKS batches
+  (views of the buffer and the mask). A member the device draw declines
+  (a box past 2^46 or a buffer past 2^28 slots) joins the host stream;
+- the host draw (`draw_sample_keys`, numpy, bit-identical to the JAX
+  package's host stream): keys copied to the device in chunk groups,
+  every lane live.
+
+Share samples and sub-1 noshare samples come back
 as exact (packed key, count) pairs through sorted_k_unique; the pow2
 bins fold as {2^e: count}, which hist_update's binning leaves unchanged,
 so the folded PRIState is bit-identical to every route of the JAX
@@ -20,8 +35,7 @@ line is never touched again flush as -1 (cold); share samples are
 classified at the sink reference's carried threshold.
 
 Not in this slice (each raises NotImplementedError naming its ROADMAP
-item): triangular nests, runtime-v2 raw-noshare states, and the device
-draw.
+item): triangular nests and runtime-v2 raw-noshare states.
 """
 
 from __future__ import annotations
@@ -74,6 +88,15 @@ def resolve_device(device=None) -> torch.device:
 
 def default_batch(device: torch.device) -> int:
     return DEFAULT_BATCH if device.type == "cuda" else CPU_BATCH
+
+
+def _use_device_draw(cfg: SamplerConfig, device) -> bool:
+    """Resolve cfg.device_draw (None = auto): the device draw on a CUDA
+    device, the host numpy draw on the CPU — the JAX package's auto,
+    which picks the device draw on every backend but the CPU."""
+    if cfg.device_draw is None:
+        return torch.device(device).type == "cuda"
+    return bool(cfg.device_draw)
 
 
 @dataclasses.dataclass
@@ -536,6 +559,9 @@ class Dispatch(NamedTuple):
     members: list  # [(row index, ref index), ...]
     n_samples: list  # samples drawn per member
     keys_RB: torch.Tensor  # int64 [R, B] on the run's device
+    # bool [R, B]: the device draw's chosen lanes (keys_RB and mask_RB
+    # are then column spans of the drawn buffers); None: every lane live
+    mask_RB: torch.Tensor | None
     highs: np.ndarray  # padded to MAX_DEPTH
     rx_R: torch.Tensor  # int64 [R]: each member's ref index
     desc: np.ndarray | None  # the kernel's descriptor (kernel routes)
@@ -545,40 +571,79 @@ def plan_dispatches(trace: ProgramTrace, rows, cfg: SamplerConfig,
                     dev: torch.device, batch: int, backend: str,
                     spans: dict | None = None):
     """Yield every bucket dispatch of a run, in order. Each bucket's
-    members draw their whole streams (seeds cfg.seed * 1000003 + row
-    index) before its first dispatch; a dispatch stacks one chunk group
-    of every member along a leading ref axis. The last group is cut
-    short, never padded, so every lane of a dispatch is live. `spans`
-    gathers the host seconds of the draw ("draw") and of stacking and
-    copying keys to the device ("stage")."""
-    from ..ops.sampled_hist import build_descriptor
+    members draw their whole sample sets (seeds cfg.seed * 1000003 + row
+    index) before its first dispatch; a dispatch stacks one span of
+    every member along a leading ref axis.
 
+    Device-drawn members (see the module docstring) come in groups of
+    one buffer size B (draw.BucketDraw: consecutive members of the
+    bucket's [R, B] draw, or one member whose retry grew its buffer),
+    and each group dispatches its buffer in column spans of at most
+    _FUSED_HOST_CHUNKS * batch lanes with the chosen mask. Host-drawn
+    members dispatch chunk groups of their key streams; the last group is
+    cut short, never padded, so every lane is live. `spans` gathers the
+    host seconds of the draw ("draw", which ends in the device draw's
+    host read of its counts) and of stacking and copying host keys to
+    the device ("stage")."""
+    from ..ops.sampled_hist import build_descriptor
+    from .draw import draw_bucket_keys_device
+
+    use_dev = _use_device_draw(cfg, dev)
     for (k, _sig), members in _bucket_rows(trace, rows).items():
         nt = trace.nests[k]
         ri0 = members[0][1]
         highs, _ = _sample_highs(nt, ri0, cfg)
+        ph = _pad_highs(highs)
+        desc = None
+        if dev.type == "cuda" and backend != "torch":
+            desc = build_descriptor(nt, ri0)
+
+        def rx(mem):
+            return torch.tensor([ri for _, ri in mem], dtype=torch.int64,
+                                device=dev)
+
+        host_members = members
+        if use_dev:
+            with _span(spans, "draw"):
+                groups = draw_bucket_keys_device(
+                    nt, [ri for _, ri in members], cfg,
+                    [cfg.seed * 1000003 + idx for idx, _ in members],
+                    batch, dev,
+                )
+            drawn = {p for g in groups for p in g.positions}
+            host_members = [m for p, m in enumerate(members)
+                            if p not in drawn]
+            # each group is one buffer size B: a run of the bucket's
+            # [R, B] draw, or one member whose retry grew its buffer
+            for g in groups:
+                mem = [members[p] for p in g.positions]
+                B = g.keys.shape[1]
+                span_len = min(B, _FUSED_HOST_CHUNKS * batch)
+                rx_R = rx(mem)
+                for lo in range(0, B, span_len):
+                    yield Dispatch(nt, ri0, mem, [g.s] * len(mem),
+                                   g.keys[:, lo:lo + span_len],
+                                   g.chosen[:, lo:lo + span_len], ph, rx_R,
+                                   desc)
+        if not host_members:
+            continue
         with _span(spans, "draw"):
             keys_list = [
                 draw_sample_keys(nt, ri, cfg, seed=cfg.seed * 1000003 + idx)[0]
-                for idx, ri in members
+                for idx, ri in host_members
             ]
         n_samples = [len(ka) for ka in keys_list]
         g, n_groups = _host_fuse_plan(n_samples[0], batch)
         span_len = g * batch
-        ph = _pad_highs(highs)
-        rx_R = torch.tensor([ri for _, ri in members], dtype=torch.int64,
-                            device=dev)
-        desc = None
-        if dev.type == "cuda" and backend != "torch":
-            desc = build_descriptor(nt, ri0)
+        rx_R = rx(host_members)
         for gi in range(n_groups):
             lo = gi * span_len
             with _span(spans, "stage"):
                 keys_RB = torch.from_numpy(
                     np.stack([ka[lo:lo + span_len] for ka in keys_list])
                 ).to(dev)
-            yield Dispatch(nt, ri0, members, n_samples, keys_RB, ph, rx_R,
-                           desc)
+            yield Dispatch(nt, ri0, host_members, n_samples, keys_RB, None,
+                           ph, rx_R, desc)
 
 
 def sampled_outputs(
@@ -594,7 +659,7 @@ def sampled_outputs(
     """Run the sampled engine; one SampledRefResult per reference.
 
     Refs sharing a kernel-signature bucket classify together, one fused
-    dispatch per chunk group (plan_dispatches). Each dispatch is drained
+    dispatch per span (plan_dispatches). Each dispatch is drained
     before the next: a member that saw more distinct (reuse, class)
     pairs than `capacity` regrows it 4x for the whole bucket (sticky for
     later dispatches) and reduces again. `spans`, when given, gathers
@@ -603,11 +668,6 @@ def sampled_outputs(
     if raw_noshare:
         raise NotImplementedError(
             "runtime-v2 raw-noshare states are not ported yet (ROADMAP A2)"
-        )
-    if cfg.device_draw:
-        raise NotImplementedError(
-            "the device draw is not ported yet (ROADMAP A3); "
-            "device_draw=None/False takes the host numpy draw"
         )
     dev = resolve_device(device)
     backend = cfg.kernel_backend or "auto"  # validated by SamplerConfig
@@ -623,7 +683,7 @@ def sampled_outputs(
     for d in plan_dispatches(trace, rows, cfg, dev, batch, backend, spans):
         with _span(spans, "dispatch"):
             out, reduce = bucket_dispatch(
-                d.nt, d.ref_idx, d.keys_RB, None, d.highs, d.rx_R, cap,
+                d.nt, d.ref_idx, d.keys_RB, d.mask_RB, d.highs, d.rx_R, cap,
                 backend, d.desc,
             )
             mk, mc, max_nu, cold, nh = (x.cpu().numpy() for x in out)

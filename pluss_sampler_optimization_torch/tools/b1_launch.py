@@ -199,7 +199,7 @@ def main(argv=None) -> int:
                    torch.zeros((R, sh.N_BINS), dtype=torch.int64,
                                device=dev),
                    torch.zeros(R, dtype=torch.int64, device=dev))
-            args = (keys.data_ptr(), None, R, B, desc.ctypes.data,
+            args = (keys.data_ptr(), None, R, B, B, desc.ctypes.data,
                     desc.shape[0], hrec.ctypes.data, rx.data_ptr(),
                     *(t.data_ptr() for t in out), stream)
             if fn(*args) != 0:

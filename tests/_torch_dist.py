@@ -5,7 +5,11 @@ localhost (gloo for device "cpu", NCCL for "cuda", one card per rank),
 each running `initialize_distributed` -> `build_global_mesh` ->
 `run_sampled_sharded` on GEMM N=`n`, and returns what each rank printed.
 `expected(device)` is the single-process answer the ranks must give.
-Imports no JAX, so the tests on a machine with cards can use it.
+The host draw by default; `cfg=DEVICE_DRAW, runs=DEVICE_RUNS` takes
+the device draw, which every rank replays on its own device (its
+sample sets depend on the batch, so each run is held against the
+single-process engines at its own batch). Imports no JAX, so the tests
+on a machine with cards can use it.
 """
 
 import dataclasses
@@ -21,10 +25,14 @@ from pluss_sampler_optimization_torch.parallel import run_sampled_sharded
 from pluss_sampler_optimization_torch.runtime.baseline import state_to_json
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
-CFG = {"ratio": 0.3, "seed": 0}
+CFG = {"ratio": 0.3, "seed": 0, "device_draw": False}
 # the default chunking, and small chunks with 1 pair slot so padding and
 # capacity regrows happen across ranks
 RUNS = ({}, {"batch": 40, "capacity": 1})
+# the device draw: batches that divide over 2 and 4 ranks, the second
+# with many steps per ref and 1 pair slot
+DEVICE_DRAW = {"ratio": 0.3, "seed": 0, "device_draw": True}
+DEVICE_RUNS = ({"batch": 1 << 10}, {"batch": 64, "capacity": 1})
 
 WORKER = r"""
 import dataclasses, json, sys
@@ -70,13 +78,14 @@ def _free_port() -> int:
 
 
 def run_workers(world: int, device: str, n: int = 16,
-                timeout: float = 180) -> list:
+                timeout: float = 180, cfg: dict = CFG,
+                runs: tuple = RUNS) -> list:
     """Each rank's printed dict, in rank order; raises if one fails."""
     addr = f"localhost:{_free_port()}"
     procs = [
         subprocess.Popen(
             [sys.executable, "-c", WORKER, addr, str(world), str(rank),
-             device, str(n), json.dumps(CFG), json.dumps(RUNS)],
+             device, str(n), json.dumps(cfg), json.dumps(runs)],
             cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True,
         )
@@ -97,25 +106,32 @@ def run_workers(world: int, device: str, n: int = 16,
     return outs
 
 
-def expected(device: str, n: int = 16) -> tuple:
+def expected(device: str, n: int = 16, cfg: dict = CFG,
+             batch: int | None = None) -> tuple:
     """(run_sampled's state, the one-device sharded results), as the
     workers print them."""
-    prog, m, cfg = gemm(n), T.MachineConfig(), T.SamplerConfig(**CFG)
-    state, _ = T.run_sampled(prog, m, cfg, device=device)
-    _, single = run_sampled_sharded(prog, m, cfg, device=device)
+    prog, m, cfg = gemm(n), T.MachineConfig(), T.SamplerConfig(**cfg)
+    state, _ = T.run_sampled(prog, m, cfg, device=device, batch=batch)
+    _, single = run_sampled_sharded(prog, m, cfg, device=device,
+                                    batch=batch)
     return json.loads(json.dumps(
         (state_to_json(state), [dataclasses.asdict(r) for r in single])))
 
 
-def check_workers(outs: list, device: str, n: int = 16) -> None:
-    """Every rank printed the same runs, each equal to `expected`."""
+def check_workers(outs: list, device: str, n: int = 16, cfg: dict = CFG,
+                  runs: tuple = RUNS) -> None:
+    """Every rank printed the same runs, each equal to `expected` (at
+    the run's batch under the device draw, whose sample sets depend on
+    it)."""
     assert all(o == outs[0] for o in outs)
     got = outs[0]
     assert len(got["mesh"]) == len(outs)
     assert got["conflict"] == "ValueError"
     assert got["jax"] == []
-    want_state, want_results = expected(device, n)
-    assert len(got["runs"]) == len(RUNS)
-    for run in got["runs"]:
-        assert run["state"] == want_state
-        assert run["results"] == want_results
+    assert len(got["runs"]) == len(runs)
+    want = expected(device, n, cfg)
+    for kw, run in zip(runs, got["runs"]):
+        if cfg.get("device_draw") and "batch" in kw:
+            want = expected(device, n, cfg, kw["batch"])
+        assert run["state"] == want[0]
+        assert run["results"] == want[1]

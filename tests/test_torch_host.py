@@ -184,9 +184,6 @@ def test_run_sampled_needs_cuda_unless_cpu_is_asked(monkeypatch):
 def test_unported_routes_raise():
     prog, m = T_MODELS["gemm"](8), T.MachineConfig()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.run_sampled(prog, m, T.SamplerConfig(device_draw=True),
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.run_sampled(prog, m, T.SamplerConfig(), v2=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.run_sampled(T_MODELS["trmm"](8), m, T.SamplerConfig(),
@@ -194,6 +191,11 @@ def test_unported_routes_raise():
     # the kernel backend on CPU tensors is an error, not the plain path
     with pytest.raises(ValueError, match="CUDA tensors"):
         T.run_sampled(prog, m, T.SamplerConfig(kernel_backend="cuda"),
+                      device="cpu")
+    # and so is the device draw's kernel on the CPU
+    with pytest.raises(ValueError, match="CUDA device"):
+        T.run_sampled(prog, m, T.SamplerConfig(kernel_backend="cuda",
+                                               device_draw=True),
                       device="cpu")
     with pytest.raises(ValueError, match="kernel_backend"):
         T.SamplerConfig(kernel_backend="pallas")

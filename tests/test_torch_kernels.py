@@ -28,11 +28,13 @@ from pluss_sampler_optimization_torch.ir import (
 from pluss_sampler_optimization_torch.models import REGISTRY
 from pluss_sampler_optimization_torch.ops import pow2_hist as p2
 from pluss_sampler_optimization_torch.ops import sampled_hist as sh
+from pluss_sampler_optimization_torch.ops import threefry_draw as td
 from pluss_sampler_optimization_torch.parallel import (
     build_mesh,
     run_sampled_sharded,
 )
 from pluss_sampler_optimization_torch.runtime.baseline import state_to_json
+from pluss_sampler_optimization_torch.sampler import draw as D
 from pluss_sampler_optimization_torch.sampler import sampled as S
 
 pytestmark = pytest.mark.gpu
@@ -95,7 +97,7 @@ def test_kernel_matches_plain_on_every_instantiation(cuda):
     seen = set()
     for d in S.plan_dispatches(trace, rows, cfg, cuda, 1 << 20, "cuda"):
         seen.add(sh.instantiation(d.desc))
-        args = (d.keys_RB, None, d.highs, d.rx_R)
+        args = (d.keys_RB, d.mask_RB, d.highs, d.rx_R)
         got = sh.sampled_hist(d.nt, d.ref_idx, *args, desc=d.desc)
         want = sh.sampled_hist_plain(d.nt, d.ref_idx, *args)
         torch.cuda.synchronize()
@@ -120,14 +122,18 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 
 @pytest.mark.parametrize("name", ["gemm", "jacobi-2d"])
 def test_run_sampled_kernel_equals_plain_on_card(name, cuda):
+    """The default on the card (device draw on B3, classify on B1), the
+    plain route on the card, and the device draw on the CPU at the
+    card's batch."""
     prog, m = REGISTRY[name](64), T.MachineConfig()
     cfg = T.SamplerConfig(ratio=0.2, seed=0)
-    n0 = sh.LAUNCHES
+    n0, n3 = sh.LAUNCHES, td.LAUNCHES
     st_k, res_k = T.run_sampled(prog, m, cfg)
-    assert sh.LAUNCHES > n0
+    assert sh.LAUNCHES > n0 and td.LAUNCHES > n3
     st_t, res_t = T.run_sampled(
         prog, m, dataclasses.replace(cfg, kernel_backend="torch"))
-    st_c, _ = T.run_sampled(prog, m, cfg, device="cpu")
+    st_c, _ = T.run_sampled(prog, m, dataclasses.replace(
+        cfg, device_draw=True), device="cpu", batch=S.DEFAULT_BATCH)
     assert state_to_json(st_k) == state_to_json(st_t) == state_to_json(st_c)
     assert [dataclasses.asdict(r) for r in res_k] == [
         dataclasses.asdict(r) for r in res_t
@@ -250,8 +256,9 @@ def test_pow2_hist_kernel_is_one_device_operation(cuda):
 
 
 def test_two_shards_on_one_card_fold_like_run_sampled(cuda):
+    """The host draw: any batch gives the same sample sets."""
     prog, m = REGISTRY["gemm"](64), T.MachineConfig()
-    cfg = T.SamplerConfig(ratio=0.2, seed=0)
+    cfg = T.SamplerConfig(ratio=0.2, seed=0, device_draw=False)
     n0 = p2.LAUNCHES
     st_s, res = run_sampled_sharded(
         prog, m, cfg, build_mesh(devices=["cuda:0", "cuda:0"]), batch=512)
@@ -272,18 +279,22 @@ def cards(cuda):
     return n
 
 
-def test_sharded_over_every_card_folds_like_run_sampled(cards):
+@pytest.mark.parametrize("device_draw", [False, True])
+def test_sharded_over_every_card_folds_like_run_sampled(device_draw, cards):
     """One process, one shard per card: the reduction gathers onto
-    cuda:0 across cards."""
+    cuda:0 across cards. The device draw runs on cuda:0 and each shard
+    takes its rows on its own card; its sample sets depend on the batch,
+    so every run here takes the same one, which the mesh divides."""
     prog, m = REGISTRY["gemm"](256), T.MachineConfig()
-    cfg = T.SamplerConfig(ratio=0.2, seed=0)
-    mesh = build_mesh()
+    cfg = T.SamplerConfig(ratio=0.2, seed=0, device_draw=device_draw)
+    mesh, batch = build_mesh(), 1024 * cards
     assert mesh.size == cards
-    n0 = p2.LAUNCHES
-    st_s, res = run_sampled_sharded(prog, m, cfg, mesh, batch=4096)
+    n0, b3 = p2.LAUNCHES, td.LAUNCHES
+    st_s, res = run_sampled_sharded(prog, m, cfg, mesh, batch=batch)
     assert p2.LAUNCHES > n0
-    st, _ = T.run_sampled(prog, m, cfg)
-    _, res_1 = run_sampled_sharded(prog, m, cfg, build_mesh(1))
+    assert (td.LAUNCHES > b3) == device_draw
+    st, _ = T.run_sampled(prog, m, cfg, batch=batch)
+    _, res_1 = run_sampled_sharded(prog, m, cfg, build_mesh(1), batch=batch)
     assert state_to_json(st_s) == state_to_json(st)
     assert [dataclasses.asdict(r) for r in res] == [
         dataclasses.asdict(r) for r in res_1
@@ -296,3 +307,125 @@ def test_nccl_processes_match_the_single_process_engine(cards):
     outs = run_workers(cards, "cuda", n=64, timeout=600)
     assert outs[0]["mesh"] == [f"cuda:{i}" for i in range(cards)]
     check_workers(outs, "cuda", n=64)
+
+
+def test_two_shards_on_one_card_device_draw(cuda):
+    """The device draw at one batch: two shards, run_sampled and the CPU
+    all draw the same sample sets; B2 launches once per shard per batch
+    step of every ref's buffer."""
+    prog, m = REGISTRY["gemm"](64), T.MachineConfig()
+    cfg = T.SamplerConfig(ratio=0.2, seed=0, device_draw=True)
+    mesh = build_mesh(devices=["cuda:0", "cuda:0"])
+    n0, n3 = p2.LAUNCHES, td.LAUNCHES
+    st_s, res = run_sampled_sharded(prog, m, cfg, mesh, batch=512)
+    assert td.LAUNCHES > n3
+    steps = 0
+    trace, rows = S._program_rows(prog, m)
+    for idx, (k, ri, _) in enumerate(rows):
+        B = D.plan_draw(trace.nests[k], ri, cfg, 512)[0]
+        steps += B // 512
+    assert p2.LAUNCHES == n0 + 2 * steps
+    st, _ = T.run_sampled(prog, m, cfg, batch=512)
+    st_c, res_c = run_sampled_sharded(prog, m, cfg, device="cpu", batch=512)
+    assert state_to_json(st_s) == state_to_json(st) == state_to_json(st_c)
+    assert [dataclasses.asdict(r) for r in res] == [
+        dataclasses.asdict(r) for r in res_c
+    ]
+
+
+def test_nccl_processes_device_draw(cards):
+    """Every rank replays the device draw on its own card and keeps its
+    rows; the results equal the single-process engines' at each batch."""
+    from _torch_dist import DEVICE_DRAW, DEVICE_RUNS
+
+    outs = run_workers(cards, "cuda", n=64, timeout=600, cfg=DEVICE_DRAW,
+                       runs=DEVICE_RUNS)
+    check_workers(outs, "cuda", n=64, cfg=DEVICE_DRAW, runs=DEVICE_RUNS)
+
+
+# --- kernel B3: the device draw's threefry streams --------------------
+
+B3_SPANS = [1, 2, 3, (1 << 32) - 1, 1 << 32, (1 << 32) + 1, (1 << 45) - 1,
+            8_577_357_823, 1 << 46]
+
+
+def _b3_keys(R, seed):
+    rng = np.random.default_rng(seed)
+    return [tuple(int(x) for x in rng.integers(0, 1 << 32, size=2))
+            for _ in range(R)]
+
+
+@pytest.mark.parametrize("B", [1, 17, (1 << 14) + 3, 1 << 20])
+def test_threefry_kernel_matches_plain(B, cuda):
+    """Both entries, bit-equal to the plain versions for every span
+    (span > 2^32 wraps randint's multiplier to 0), with and without the
+    valid mask; one launch per call."""
+    keys = _b3_keys(3, B)
+    for span in B3_SPANS:
+        n0 = td.LAUNCHES
+        got = td.threefry_randint(keys, B, span, cuda)
+        assert td.LAUNCHES == n0 + 1
+        want = td.threefry_randint_plain(keys, B, span, cuda)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), span
+        assert int(got.min()) >= 0 and int(got.max()) < span
+    valid = torch.from_numpy(
+        np.random.default_rng(B).random((3, B)) < 0.7).to(cuda)
+    for v in (None, valid, valid.to(torch.uint8)):
+        n0 = td.LAUNCHES
+        got = td.threefry_bits(keys, B, cuda, v)
+        assert td.LAUNCHES == n0 + 1
+        assert torch.equal(got, td.threefry_bits_plain(keys, B, cuda, v))
+
+
+def test_threefry_kernel_many_rows(cuda):
+    """More rows than one launch holds: one launch per MAX_ROWS rows."""
+    R = td.MAX_ROWS + 5
+    keys = _b3_keys(R, 1)
+    n0 = td.LAUNCHES
+    got = td.threefry_randint(keys, 1000, 12345, cuda)
+    valid = torch.ones((R, 1000), dtype=torch.bool, device=cuda)
+    bits = td.threefry_bits(keys, 1000, cuda, valid)
+    assert td.LAUNCHES == n0 + 4
+    assert torch.equal(got, td.threefry_randint_plain(keys, 1000, 12345,
+                                                      cuda))
+    assert torch.equal(bits, td.threefry_bits_plain(keys, 1000, cuda))
+
+
+def test_threefry_kernel_rejects_what_it_does_not_take(cuda):
+    keys = _b3_keys(2, 0)
+    valid = torch.ones((2, 8), dtype=torch.bool, device=cuda)
+    for bad in (valid.long(), valid[:, :4], valid.cpu(), valid[:1],
+                torch.ones((2, 16), dtype=torch.bool,
+                           device=cuda)[:, ::2]):
+        with pytest.raises(ValueError):
+            td.threefry_bits_cuda(keys, 8, cuda, bad)
+    for args in ((keys, 8, 0), (keys, 8, (1 << 46) + 1), (keys, 0, 5),
+                 ([(1 << 32, 0)], 8, 5), ([], 8, 5)):
+        with pytest.raises(ValueError):
+            td.threefry_randint_cuda(*args, cuda)
+    with pytest.raises(ValueError, match="CUDA device"):
+        td.threefry_randint_cuda(keys, 8, 5, "cpu")
+
+
+@pytest.mark.parametrize("name", ["gemm", "2mm"])
+def test_device_draw_on_card_equals_cpu(name, cuda):
+    """Each bucket's draw on the card equals the CPU's: keys, chosen
+    mask, s and highs; a bucket is one launch per stream."""
+    cfg = T.SamplerConfig(ratio=0.2, seed=5)
+    trace, rows = S._program_rows(REGISTRY[name](48), T.MachineConfig())
+    for (k, _), members in S._bucket_rows(trace, rows).items():
+        nt = trace.nests[k]
+        args = (nt, [ri for _, ri in members], cfg,
+                [cfg.seed * 1000003 + idx for idx, _ in members], 1 << 12)
+        n0 = td.LAUNCHES
+        got = D.draw_bucket_keys_device(*args)  # CUDA by default
+        assert td.LAUNCHES == n0 + 2  # no member of these retries
+        want = D.draw_bucket_keys_device(*args, "cpu")
+        assert len(got) == len(want) == 1  # the bucket's one buffer
+        g, w = got[0], want[0]
+        assert g.keys.is_cuda and g.positions == w.positions
+        assert torch.equal(g.keys.cpu(), w.keys)
+        assert torch.equal(g.chosen.cpu(), w.chosen)
+        assert (g.s, g.highs) == (w.s, w.highs)
+        assert (g.chosen.sum(dim=1) == g.s).all()

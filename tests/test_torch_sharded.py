@@ -332,9 +332,10 @@ def test_sharded_unported_routes_and_meshes_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP A1"):
         t_run_sharded(T_MODELS["trmm"](8), m, T.SamplerConfig(),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    with pytest.raises(ValueError, match="mesh size dividing"):
         t_run_sharded(T_MODELS["gemm"](8), m,
-                      T.SamplerConfig(device_draw=True), device="cpu")
+                      T.SamplerConfig(device_draw=True), _cpu_mesh(3),
+                      batch=40)
     with pytest.raises(ValueError, match="requested 3 devices, have 2"):
         t_build_mesh(3, devices=["cpu", "cpu"])
     with pytest.raises(ValueError, match="disagrees"):
