@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py            # GEMM N=2048, ratio 0.1, seed 0
-    python3 chip_smoke.py --n 256    # a quicker check (no MRC baselines)
+    python3 chip_smoke.py --n 256 --tri-n 256   # quicker (no baselines)
 
 SamplerConfig() resolves to the device draw on the card (threefry on
 kernel B3), as the JAX package's auto does on an accelerator. Phases,
@@ -12,10 +12,10 @@ each printing its own lines; any failure exits non-zero:
 2. build: csrc/sampled_hist.cu (kernel B1), csrc/pow2_hist.cu (kernel
    B2) and csrc/threefry_draw.cu (kernel B3) for sm_90a, one nvcc each,
    started together; build seconds, and ptxas' registers, stack frame
-   and spill bytes for every kernel instantiation (B1 has 6,
-   sampled_hist_kernel<LV, NHMAX>: source-ref level 0-2 by most
+   and spill bytes for every kernel instantiation (B1 has 12,
+   sampled_hist_kernel<LV, NHMAX, TRI>: source-ref level 0-2 by most
    band-plan heads per sink group, 1 for at most one, 3 for up to
-   three; B2 has 2, pow2_hist_kernel<BOOL_W> for bool and int64
+   three, by rectangular or triangular nest; B2 has 2, pow2_hist_kernel<BOOL_W> for bool and int64
    weights; B3 has 2, randint_kernel and bits_kernel);
 3. B2 vs plain on made inputs: a numpy-seeded 2^20 input over all 64
    bins (0, negatives and 2^62-1 included) with bool and with int
@@ -67,9 +67,22 @@ each printing its own lines; any failure exits non-zero:
 12. two shards on one card: run_sampled_sharded over
    build_mesh(devices=["cuda:0", "cuda:0"]) at GEMM N=512, with the host
    draw and with the device draw, must fold to run_sampled's PRIState
-   and MRC bytes under the same draw.
+   and MRC bytes under the same draw;
+13. B1's triangular walk vs plain: every dispatch of syrk-tri at
+   --tri-n (1536) with the device draw (B3's triangular draw), as phase
+   5, each dispatch's bound from its own data (band_hits, tri_issues);
+14. triangular path: run_sampled of syrk-tri(--tri-n) with "cuda" and
+   "torch", as phase 7: B1 once per dispatch of phase 13, equal states
+   and MRC bytes, MRC L1 error against baselines/syrk-tri1536.json.gz
+   at most 0.01;
+15. the other triangular models at PolyBench LARGE, trmm(1000, 1200),
+   trisolv(2000) and covariance(1200, 1400), with "cuda" and "torch":
+   B1 and B3 launched, equal states and MRC bytes;
+16. two shards on one card, as phase 12, on trmm(256).
 
-Then one JSON line of kernel numbers (B1, B2, B3), the nvidia-smi line,
+Then one JSON line of kernel numbers (B1 over the dispatches of phases 5
+and 13 and the launches of phases 7, 14 and 15; B2; B3 over the launches
+of phases 7, 14 and 15), the nvidia-smi line,
 and last the result line {"ok": true, "device": {...}}. Imports nothing
 of JAX.
 """
@@ -135,6 +148,15 @@ B2_RUN_REPS = 5  # timed passes over all of a run's B2 inputs
 SHARDED_SPANS = ("draw", "shard_put", "dispatch_psum", "gather_fetch",
                  "merge")
 TWO_SHARD_N = 512
+# The serial-walk baselines the main paths must find (model, args).
+BASELINES = (("gemm", (1024,)), ("gemm", (2048,)), ("gemm", (4096,)),
+             ("syrk-tri", (1536,)))
+# The triangular phase: syrk-tri at --tri-n (its baseline's 1536 by
+# default) through the kernels, then these PolyBench LARGE sizes of the
+# other triangular models, and trmm at a small size on two shards.
+TRI_MODELS = (("trmm", (1000, 1200)), ("trisolv", (2000,)),
+              ("covariance", (1200, 1400)))
+TWO_SHARD_TRI = ("trmm", (256,))
 B3_MADE_SPANS = (1, 2, 3, (1 << 32) - 1, 1 << 32, (1 << 32) + 1,
                  (1 << 45) - 1, 8_577_357_823, 1 << 46)
 
@@ -391,27 +413,30 @@ def _b3_recording():
     return calls, restore
 
 
-def phase_kernels(n: int, cfg, dev) -> dict:
-    """Kernel vs plain on every dispatch of the main path; returns the
-    kernel's JSON entry (without launches), its bound's parts, the
-    number of dispatches, and the run's B3 calls and launches."""
+def phase_kernels(prog, cfg, dev, label="kernels") -> dict:
+    """Kernel vs plain on every dispatch of a main path (the program
+    `prog`); returns B1's totals over them (kernel and plain ms, bytes,
+    32-bit issues, max abs error), the number of dispatches, and the
+    run's B3 calls and launches. A triangular dispatch's issues depend on
+    its data (ops/sampled_hist.py::band_hits, tri_issues)."""
     import torch
 
     from pluss_sampler_optimization_torch.config import MachineConfig
-    from pluss_sampler_optimization_torch.models import gemm
     from pluss_sampler_optimization_torch.ops.histogram import (
         SENTINEL,
         sorted_k_unique,
     )
     from pluss_sampler_optimization_torch.ops.sampled_hist import (
+        band_hits,
         instantiation,
         ops_per_sample,
         sampled_hist_cuda,
         sampled_hist_plain,
+        tri_issues,
     )
     from pluss_sampler_optimization_torch.sampler import sampled as S
 
-    trace, rows = S._program_rows(gemm(n), MachineConfig())
+    trace, rows = S._program_rows(prog, MachineConfig())
     spans: dict = {}
     tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
     max_err = n_dispatches = 0
@@ -424,13 +449,13 @@ def phase_kernels(n: int, cfg, dev) -> dict:
         restore()
     b3_launches = _launches()[2]
     for d in dispatches:
-        label = "{" + ",".join(d.nt.tables.ref_names[ri]
-                               for _, ri in d.members) + "}"
+        name_of = "{" + ",".join(d.nt.tables.ref_names[ri]
+                                 for _, ri in d.members) + "}"
         keys, mask = d.keys_RB, d.mask_RB
 
         def kern():
             return sampled_hist_cuda(d.nt, d.ref_idx, keys, mask, d.highs,
-                                     d.rx_R, d.desc)
+                                     d.rx_R, d.desc, d.tri_base)
 
         def plain():
             return sampled_hist_plain(d.nt, d.ref_idx, keys, mask, d.highs,
@@ -443,7 +468,7 @@ def phase_kernels(n: int, cfg, dev) -> dict:
             max_err = max(max_err, err)
             if not torch.equal(a, b):
                 raise AssertionError(
-                    f"kernel vs plain: {label} {name} differs "
+                    f"{label}: kernel vs plain: {name_of} {name} differs "
                     f"(max abs err {err})"
                 )
         for j in range(keys.shape[0]):
@@ -452,13 +477,19 @@ def phase_kernels(n: int, cfg, dev) -> dict:
             for a, b in zip(*pk):
                 if not torch.equal(a, b):
                     raise AssertionError(
-                        f"kernel vs plain: {label} sorted_k_unique differs"
+                        f"{label}: kernel vs plain: {name_of} "
+                        "sorted_k_unique differs"
                     )
         ms = _time_ms(kern, KERNEL_REPS)
         plain_ms = _time_ms(plain, PLAIN_REPS)
         # the classify's need: the chosen lanes (every lane without a mask)
         live = keys.numel() if mask is None else int(mask.sum())
-        ops = ops_per_sample(d.desc, d.highs) * live
+        if d.nt.tri:
+            ops = sum(tri_issues(d.nt, d.desc, d.highs, live, band_hits(
+                d.nt, d.ref_idx, keys[j], None if mask is None else mask[j],
+                d.highs)) for j in range(keys.shape[0]))
+        else:
+            ops = ops_per_sample(d.desc, d.highs) * live
         nbytes = (KEY_BYTES * live + RESIDUAL_BYTES * keys.numel()
                   + (0 if mask is None else MASK_BYTES * keys.numel())
                   + 8 * got[1].numel() + 8 * got[2].numel())
@@ -467,34 +498,46 @@ def phase_kernels(n: int, cfg, dev) -> dict:
         tot["bytes"] += nbytes
         tot["ops"] += ops
         n_dispatches += 1
-        lv, nhmax = instantiation(d.desc)
-        print(f"kernels: dispatch {n_dispatches} {label} R={keys.shape[0]} "
+        lv, nhmax, tri = instantiation(d.desc)
+        print(f"{label}: dispatch {n_dispatches} {name_of} R={keys.shape[0]} "
               f"B={keys.shape[1]} ({live} chosen lanes) "
-              f"sampled_hist_kernel<{lv}, {nhmax}> equal; kernel {ms:.3f} ms,"
-              f" plain {plain_ms:.3f} ms, {ops // max(live, 1)} int32 "
-              "issues/sample")
+              f"sampled_hist_kernel<{lv}, {nhmax}, {str(tri).lower()}> "
+              f"equal; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"{ops // max(live, 1)} int32 issues/sample")
     del dispatches
-    print(f"kernels: {n_dispatches} dispatches; host "
+    print(f"{label}: {n_dispatches} dispatches; host "
           f"{_spans_text(spans, ('draw', 'stage'))}; the draw made "
           f"{len(b3_calls)} B3 calls, {b3_launches} launches")
+    return {**tot, "max_abs_err": max_err, "dispatches": n_dispatches,
+            "b3_calls": b3_calls, "b3_launches": b3_launches}
+
+
+def _b1_summary(label: str, tot: dict) -> None:
+    """Print B1's totals over one path's dispatches against its bound."""
     bytes_ms = tot["bytes"] / HBM_BYTES_PER_S * 1e3
     ops_ms = tot["ops"] / INT32_ISSUES_PER_S * 1e3
+    print(f"{label}: all {tot['dispatches']} dispatches: kernel "
+          f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, bound "
+          f"{max(bytes_ms, ops_ms):.3f} ms by "
+          f"{'bytes' if bytes_ms >= ops_ms else 'operations'} (bytes "
+          f"{bytes_ms:.4f} ms, int32 issues {ops_ms:.4f} ms; at the "
+          f"one-pipe rate {tot['ops'] / INT32_PIPE_PER_S * 1e3:.4f} ms)")
+
+
+def _b1_entry(tots) -> dict:
+    """B1's JSON entry (without launches) over the dispatches of every
+    path in `tots`: times, bytes and issues summed."""
+    t = {k: sum(x[k] for x in tots) for k in ("ms", "plain_ms", "bytes",
+                                                 "ops")}
+    bytes_ms = t["bytes"] / HBM_BYTES_PER_S * 1e3
+    ops_ms = t["ops"] / INT32_ISSUES_PER_S * 1e3
     return {
-        "entry": {
-            "name": "sampled_hist", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES, "launches": None,
-            "max_abs_err": max_err, "ms": tot["ms"],
-            "plain_ms": tot["plain_ms"],
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,
-        },
-        "bytes_ms": bytes_ms,
-        "ops_ms": ops_ms,
-        "pipe_ms": tot["ops"] / INT32_PIPE_PER_S * 1e3,
-        "dispatches": n_dispatches,
-        "b3_calls": b3_calls,
-        "b3_launches": b3_launches,
+        "name": "sampled_hist", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES, "launches": None,
+        "max_abs_err": max(x["max_abs_err"] for x in tots), "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
     }
 
 
@@ -594,20 +637,21 @@ def _state_mrc(state, machine, spans: dict | None = None):
 
 
 def phase_main_path(label: str, n: int, cfg, backends, dispatches=None,
-                    b3_launches=None):
-    """run_sampled -> cri_distribute -> aet_mrc on the card once per
+                    b3_launches=None, model: str = "gemm", args=None):
+    """run_sampled -> cri_distribute -> aet_mrc of `model` (the registry's
+    constructor, called with `args`, by default (n,)) on the card once per
     kernel backend; returns the "cuda" run's (B1, B3) launches and the
     folded (PRIState JSON, MRC). Under "cuda" B1 must launch once per
     dispatch (`dispatches`) and B3 `b3_launches` times where given (at
     least once under the device draw, never under the host draw); under
     "torch" no kernel launches; B2 never does. Every run's state and MRC
     bytes must be equal, and the MRC's L1 error against
-    baselines/gemm<n>.json.gz at most MRC_L1_LIMIT (the file must exist
-    for n = 1024, 2048 and 4096)."""
+    baselines/<model><n>.json.gz, where the file exists, at most
+    MRC_L1_LIMIT (it must exist in BASELINES)."""
     import torch
 
     from pluss_sampler_optimization_torch.config import MachineConfig
-    from pluss_sampler_optimization_torch.models import gemm
+    from pluss_sampler_optimization_torch.models import REGISTRY
     from pluss_sampler_optimization_torch.runtime.aet import (
         aet_mrc,
         mrc_l1_error,
@@ -623,6 +667,8 @@ def phase_main_path(label: str, n: int, cfg, backends, dispatches=None,
 
     machine = MachineConfig()
     T = machine.thread_num
+    args = (n,) if args is None else args
+    what = f"{model}({', '.join(str(a) for a in args)})"
     dev_draw = _use_device_draw(cfg, "cuda")
     first = kernel_launches = None
     for i, backend in enumerate(backends, 1):
@@ -631,8 +677,8 @@ def phase_main_path(label: str, n: int, cfg, backends, dispatches=None,
         _reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, results = run_sampled(gemm(n), machine, c, device="cuda",
-                                     spans=spans)
+        state, results = run_sampled(REGISTRY[model](*args), machine, c,
+                                     device="cuda", spans=spans)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         b1, b2, b3 = _launches()
@@ -640,7 +686,7 @@ def phase_main_path(label: str, n: int, cfg, backends, dispatches=None,
         samples = sum(r.n_samples for r in results)
         rest = wall - sum(v for k, v in spans.items()
                           if k not in ("cri", "aet"))
-        print(f"{label}: run {i} kernel_backend={backend} gemm({n}) "
+        print(f"{label}: run {i} kernel_backend={backend} {what} "
               f"{'device' if dev_draw else 'host'} draw {wall:.3f} s "
               f"({_spans_text(spans, SPANS[:5])}, rest {rest:.3f} s), then "
               f"cri {spans['cri']:.3f} s, aet {spans['aet']:.3f} s; "
@@ -672,16 +718,17 @@ def phase_main_path(label: str, n: int, cfg, backends, dispatches=None,
             and (np.diff(mrc) <= 0).all()):
         raise AssertionError(f"{label}: MRC not finite, 1 at 0 and "
                              "non-increasing")
-    base = load_baseline("gemm", n, machine)
+    base = load_baseline(model, n, machine) if args == (n,) else None
     if base is None:
-        if n in (1024, 2048, 4096):
-            raise AssertionError(f"{label}: baselines/gemm{n}.json.gz "
+        if (model, args) in BASELINES:
+            raise AssertionError(f"{label}: baselines/{model}{n}.json.gz "
                                  "is missing")
-        print(f"{label}: no baseline for gemm{n}; MRC error not checked")
+        print(f"{label}: no baseline for {what}; MRC error not checked")
         return kernel_launches, first
     mrc_b = aet_mrc(cri_distribute(base["state"], T, T), machine)
     err = mrc_l1_error(mrc, mrc_b)
-    print(f"{label}: MRC L1 error vs baselines/gemm{n}.json.gz: {err!r}")
+    print(f"{label}: MRC L1 error vs baselines/{model}{n}.json.gz: "
+          f"{err!r}")
     if not err <= MRC_L1_LIMIT:
         raise AssertionError(
             f"{label}: MRC L1 error {err} above {MRC_L1_LIMIT}"
@@ -902,11 +949,12 @@ def phase_b2_engine(inputs, max_err: int) -> dict:
     }
 
 
-def phase_two_shards(cfg) -> None:
+def phase_two_shards(cfg, model: str = "gemm",
+                     args: tuple = (TWO_SHARD_N,)) -> None:
     """Two shards on one card fold to run_sampled's state and MRC, with
     the host draw and with the device draw."""
     from pluss_sampler_optimization_torch.config import MachineConfig
-    from pluss_sampler_optimization_torch.models import gemm
+    from pluss_sampler_optimization_torch.models import REGISTRY
     from pluss_sampler_optimization_torch.parallel import (
         build_mesh,
         run_sampled_sharded,
@@ -914,15 +962,16 @@ def phase_two_shards(cfg) -> None:
     from pluss_sampler_optimization_torch.sampler.sampled import run_sampled
 
     machine = MachineConfig()
-    n = TWO_SHARD_N
+    prog = REGISTRY[model](*args)
+    what = f"{model}({', '.join(str(a) for a in args)})"
     mesh = build_mesh(devices=["cuda:0", "cuda:0"])
     for dev_draw in (False, True):
         c = dataclasses.replace(cfg, device_draw=dev_draw)
-        want = _state_mrc(run_sampled(gemm(n), machine, c)[0], machine)
+        want = _state_mrc(run_sampled(prog, machine, c)[0], machine)
         sizes, restore = _draw_recording()
         try:
             _reset_launches()
-            state, results = run_sampled_sharded(gemm(n), machine, c,
+            state, results = run_sampled_sharded(prog, machine, c,
                                                  mesh=mesh)
             _, b2, b3 = _launches()
         finally:
@@ -932,13 +981,13 @@ def phase_two_shards(cfg) -> None:
         got = _state_mrc(state, machine)
         draw = "device" if dev_draw else "host"
         if got[0] != want[0] or got[1].tobytes() != want[1].tobytes():
-            raise AssertionError(f"two shards: gemm({n}) {draw} draw "
+            raise AssertionError(f"two shards: {what} {draw} draw "
                                  "differs from run_sampled")
         want_b2 = _b2_launches_expected(results, mesh, sizes)
         if b2 != want_b2 or (b3 > 0) != dev_draw:
             raise AssertionError(f"two shards: {draw} draw: {b2} B2 and "
                                  f"{b3} B3 launches, expected {want_b2} B2")
-        print(f"two shards on cuda:0: gemm({n}) {draw} draw: PRIState and "
+        print(f"two shards on cuda:0: {what} {draw} draw: PRIState and "
               f"MRC bytes equal run_sampled's; {b2} B2 and {b3} B3 launches")
 
 
@@ -947,6 +996,9 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=2048,
                     help="GEMM size of the main and sharded paths; the "
                     "headline runs at 2n and the host draw at n/2")
+    ap.add_argument("--tri-n", type=int, default=1536,
+                    help="syrk-tri size of the triangular path (the "
+                    "size of its serial-walk baseline by default)")
     args = ap.parse_args(argv)
 
     import torch
@@ -963,15 +1015,12 @@ def main(argv=None) -> int:
     b2_err = phase_b2_made(dev)
     b3_err = phase_b3_made(dev)
     cfg = SamplerConfig(ratio=0.1, seed=0)  # auto: the device draw here
-    k = phase_kernels(args.n, cfg, dev)
-    print(f"kernels: all {k['dispatches']} dispatches: kernel "
-          f"{k['entry']['ms']:.3f} ms, plain {k['entry']['plain_ms']:.3f} ms, "
-          f"bound {k['entry']['bound_ms']:.3f} ms by "
-          f"{k['entry']['bound_by']} (bytes {k['bytes_ms']:.4f} ms, "
-          f"int32 issues {k['ops_ms']:.4f} ms; at the one-pipe rate "
-          f"{k['pipe_ms']:.4f} ms)")
+    from pluss_sampler_optimization_torch.models import gemm, syrk_tri
+
+    k = phase_kernels(gemm(args.n), cfg, dev)
+    _b1_summary("kernels", k)
     b3 = phase_b3_engine(k.pop("b3_calls"), b3_err)
-    (k["entry"]["launches"], b3["launches"]), main_path = phase_main_path(
+    (b1_launches, b3["launches"]), main_path = phase_main_path(
         "main path", args.n, cfg, MAIN_PATH_ORDER, k["dispatches"],
         k["b3_launches"])
     phase_main_path("headline", 2 * args.n, cfg, ("cuda",))
@@ -983,7 +1032,25 @@ def main(argv=None) -> int:
     b2["launches"] = b2_launches
     del inputs
     phase_two_shards(cfg)
-    print(json.dumps({"kernels": [k["entry"], b2, b3]}))
+    # the triangular path: syrk-tri through B3's tri draw and B1's
+    # triangular walk, its dispatches held against the plain version
+    kt = phase_kernels(syrk_tri(args.tri_n), cfg, dev, "tri kernels")
+    _b1_summary("tri kernels", kt)
+    (tri_b1, tri_b3), _ = phase_main_path(
+        "tri path", args.tri_n, cfg, MAIN_PATH_ORDER, kt["dispatches"],
+        kt["b3_launches"], model="syrk-tri")
+    b1_launches += tri_b1
+    b3["launches"] += tri_b3
+    for model, margs in TRI_MODELS:
+        (tri_b1, tri_b3), _ = phase_main_path(
+            "tri path", margs[0], cfg, MAIN_PATH_ORDER, model=model,
+            args=margs)
+        b1_launches += tri_b1
+        b3["launches"] += tri_b3
+    phase_two_shards(cfg, *TWO_SHARD_TRI)
+    b1 = _b1_entry([k, kt])
+    b1["launches"] = b1_launches
+    print(json.dumps({"kernels": [b1, b2, b3]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -58,6 +58,26 @@
 // No TMA, no wgmma and no shared-memory tiling: the kernel moves 16 B
 // per sample, so there is nothing for them to feed.
 //
+// Triangular nests (inner bounds affine in the parallel value v0; the
+// descriptor's D_TRI word) take a third template parameter, TRI, so the
+// rectangular instantiations are the code they were. There positions
+// start from a per-thread prefix-sum base table (core/trace.py::tri_base,
+// [threads, lmax + 1] int64), a device tensor of its own read through the
+// read-only cache rather than part of the descriptor, and the level-1 body
+// size body_at(1, v0) varies per parallel value, so a walk divides by it
+// with the compiler's int64 routine: once per sample for the sample's own
+// iteration and once per other iteration a candidate visits (a floor of
+// C's truncating quotient, as the numerators may be negative). The three
+// arms of nextuse.py::next_use_candidates_tri_group become:
+//   - the sample's own iteration and a level-0 value a head or window
+//     fixes: min_inner_pos per member, in the per-member slots nb;
+//   - the earliest later iteration whose inner domains are nonempty:
+//     each domain bound is a halfspace a*v0 + b >= 0 with a a trip or
+//     start coefficient of the descriptor (a division record each), then
+//     count_below and a gather of the base table.
+// A candidate that is not in the band contributes nothing there, so it
+// is skipped whole.
+//
 // The same file compiles as plain C++ (no __CUDACC__): it then exports
 // sampled_hist_host, a serial loop over the same per-sample code (every
 // instantiation), and sampled_hist_divmod, the floor division and
@@ -120,7 +140,9 @@ HD int clz64(i64 x) {
 // up to 124 registers and would spill at 80 (ptxas, sm_90a). A finer
 // split of NHMAX gains nothing: 0 and 1 heads fit 3 blocks alike, 2 and 3
 // heads 2 blocks alike.
-#define BLOCKS_PER_SM(NHMAX) ((NHMAX) <= 1 ? 3 : 2)
+// The triangular walk keeps more per sample (its iteration's base, body
+// size and split) and per candidate (each level's domain): 2 blocks.
+#define BLOCKS_PER_SM(NHMAX, TRI) ((TRI) ? 2 : (NHMAX) <= 1 ? 3 : 2)
 
 // A division record: three int64 words, the divisor d != 0, a multiplier
 // and info = shift | DIV_NEG when d < 0. With e = |d|:
@@ -200,14 +222,27 @@ HD i64 max_i64(i64 a, i64 b) { return a > b ? a : b; }
 #define D_OFF_LC 31
 #define D_OFF_REFS 32
 #define D_OFF_GROUPS 33
+// triangular nests (D_TRI 1): per level its trip coefficient and the refs
+// of its own body (npre + npost), the base table's last column lmax and
+// the offset of the per-ref post-slot flags
+#define D_TRI 34
+#define D_TC 35
+#define D_BODYC 38
+#define D_LMAX 41
+#define D_OFF_POST 42
 // division records: chunk, threads, cls, acc[0..2], each level's step
-// (n / (chunk * threads) is (n / chunk) / threads: no record of its own)
-#define D_DIV_CHUNK 34
-#define D_DIV_THREADS 37
-#define D_DIV_CLS 40
-#define D_DIV_ACC 43
-#define D_DIV_STEP 52
-#define D_HEADER 61
+// (n / (chunk * threads) is (n / chunk) / threads: no record of its own),
+// then the triangular walk's: the deepest body size a2 and per inner
+// level l (1, 2) |tc|, |sc| and |tc + sc| (at D_DIV_HS + (3 * (l - 1) +
+// k) * DIV_SIZE, k = 0, 1, 2); records of 1 in a rectangular descriptor
+#define D_DIV_CHUNK 43
+#define D_DIV_THREADS 46
+#define D_DIV_CLS 49
+#define D_DIV_ACC 52
+#define D_DIV_STEP 61
+#define D_DIV_A2 70
+#define D_DIV_HS 73
+#define D_HEADER 91
 // per-ref record
 #define R_OFF 0
 #define R_COEFF 1
@@ -281,6 +316,10 @@ struct Sample {
     i64 tid, p0;
     i64 m0, r0;   // p0 = m0 * acc0 + r0
     i64 j0, rr0;  // r0 = npre0 + j0 * acc1 + rr0
+    // triangular: m0 is the thread-local parallel index, and the sample's
+    // own iteration has value v0, base base0 and level-1 body b1 (at least
+    // 1); p0 - base0 - npre0 = cq * b1 + cr, 0 <= cr < b1
+    i64 v0, base0, b1, cq, cr;
 };
 
 // The static schedule's owner thread and thread-local index of a
@@ -363,6 +402,7 @@ struct Group {
     const i64* g;
     int hk[MAX_DEPTH];
     i64* nb;
+    const i64* tri;  // the triangular base table (triangular walks only)
 };
 
 // The values of the first NH heads in a candidate: scalars, not an array,
@@ -441,11 +481,23 @@ HD void candidate(const Group& G, const Sample& s, const HeadValues& u,
     }
 }
 
+template <int SL, int NH>
+HD void candidate_tri(const Group& G, const Sample& s, const HeadValues& u,
+                      i64 lo, i64 kw, bool ok);
+
+// One band candidate of either walk.
+template <int SL, int NH, bool TRI>
+HD void visit(const Group& G, const Sample& s, const HeadValues& u, i64 lo,
+              i64 kw, bool ok, Acc& acc) {
+    if constexpr (TRI) candidate_tri<SL, NH>(G, s, u, lo, kw, ok);
+    else candidate<SL, NH>(G, s, u, lo, kw, ok, acc);
+}
+
 // The band plan (_band_candidates) from head K on: head K's values, each
 // narrowing the band for the heads after it, then the terminal. One
 // nested loop per head, unrolled by the template, so that every head's
 // state sits in registers.
-template <int SL, int NH, int K>
+template <int SL, int NH, int K, bool TRI>
 HD void band(const Group& G, const Sample& s, i64 lo, bool ok,
              HeadValues& u, Acc& acc) {
     const i64* d = G.d;
@@ -459,8 +511,8 @@ HD void band(const Group& G, const Sample& s, i64 lo, bool ok,
             if constexpr (K == 0) u.u0 = uk;
             if constexpr (K == 1) u.u1 = uk;
             if constexpr (K == 2) u.u2 = uk;
-            band<SL, NH, K + 1>(G, s, lo - h[H_CV + DIV_D] * uk,
-                                ok && uk <= umax, u, acc);
+            band<SL, NH, K + 1, TRI>(G, s, lo - h[H_CV + DIV_D] * uk,
+                                     ok && uk <= umax, u, acc);
         }
     } else {
         const int term = (int)G.g[G_TERM];
@@ -469,11 +521,11 @@ HD void band(const Group& G, const Sample& s, i64 lo, bool ok,
             const bool okc = ok && lo <= 0 && lo > -W;
             // a constant ref (no head, no unit-stride terminal): no spec
             // carries the validity, so an invalid band is no candidate
-            if (NH > 0 || okc) candidate<SL, NH>(G, s, u, lo, 0, okc, acc);
+            if (NH > 0 || okc) visit<SL, NH, TRI>(G, s, u, lo, 0, okc, acc);
         } else {
             const i64 nw = term == TERM_WINDOW ? G.g[G_TW] : 1;
             for (i64 kw = 0; kw < nw; ++kw)
-                candidate<SL, NH>(G, s, u, lo, kw, ok, acc);
+                visit<SL, NH, TRI>(G, s, u, lo, kw, ok, acc);
         }
     }
 }
@@ -496,14 +548,14 @@ template <int SL, int NH>
 HD void walk_group(const i64* d, const i64* g, const Sample& s, i64 line, i64* nb,
                    i64* best, i64* best_sink) {
     const Group G{d, g, {head_at<NH>(g, 0), head_at<NH>(g, 1),
-                         head_at<NH>(g, 2)}, nb};
+                         head_at<NH>(g, 2)}, nb, nullptr};
     const int nm = (int)g[G_NMEM];
     if constexpr (SL == 2) {
         for (int jj = 0; jj < nm; ++jj) nb[jj * NB_STRIDE] = INF_I64;
     }
     Acc acc{INF_I64, false};
     HeadValues u{0, 0, 0};
-    band<SL, NH, 0>(G, s, line * d[D_W] - g[G_CONST], true, u, acc);
+    band<SL, NH, 0, false>(G, s, line * d[D_W] - g[G_CONST], true, u, acc);
     // the members, in order, each with its own body offset
     const i64* refs = d + d[D_OFF_REFS];
     for (int jj = 0; jj < nm; ++jj) {
@@ -530,27 +582,313 @@ HD void walk_group(const i64* d, const i64* g, const Sample& s, i64 line, i64* n
     }
 }
 
+// ---- triangular nests (TRI): nextuse.py::next_use_candidates_tri_group
+
+// floor(a / b) for b >= 1 that varies per sample or candidate (no record):
+// C's quotient truncates toward zero, so a negative a with a remainder
+// steps down by one.
+HD i64 floordiv_var(i64 a, i64 b) {
+    const i64 q = a / b;
+    return q - (i64)((a - q * b != 0) & (a < 0));
+}
+
+// A base-table entry: through the read-only cache on the card.
+HD i64 tri_load(const i64* p) {
+#ifdef __CUDA_ARCH__
+    return __ldg(p);
+#else
+    return *p;
+#endif
+}
+
+// core/trace.py's trip_at and start_at of level l at parallel value v.
+HD i64 trip_at(const i64* d, int l, i64 v) {
+    const i64 tc = d[D_TC + l];
+    return tc == 0 ? d[D_TRIPS + l] : max_i64(d[D_TRIPS + l] + tc * v, 0);
+}
+
+HD i64 start_at(const i64* d, int l, i64 v) {
+    return d[D_STARTB + l] + d[D_SC + l] * v;
+}
+
+// body_at(1, v): the accesses of one level-1 iteration.
+HD i64 body1_at(const i64* d, i64 v) {
+    i64 b = d[D_BODYC + 1];
+    if (d[D_DEPTH] > 2) b += trip_at(d, 2, v) * d[D_BODYC + 2];
+    return b;
+}
+
+// The accesses of a level-SL iteration's subloop, which a post-slot ref of
+// level SL follows (ref_offset_at's inner term).
+template <int SL>
+HD i64 inner_at(const i64* d, i64 v) {
+    if (SL + 1 >= d[D_DEPTH]) return 0;
+    if constexpr (SL == 0) return trip_at(d, 1, v) * body1_at(d, v);
+    else return trip_at(d, 2, v) * d[D_BODYC + 2];
+}
+
+// ref_offset_at(j, v): ref j's offset within its level's iteration.
+template <int SL>
+HD i64 offset_at(const i64* d, i64 j, i64 v) {
+    const i64 off = d[d[D_OFF_REFS] + j * R_SIZE + R_OFF];
+    return d[d[D_OFF_POST] + j] ? off + inner_at<SL>(d, v) : off;
+}
+
+// count_below(tid, n) for n >= 0: thread tid's iterations with a
+// normalized index below n (n / (chunk * threads) as in schedule_of).
+HD i64 count_below(const i64* d, i64 tid, i64 n) {
+    const i64 ch = d[D_DIV_CHUNK + DIV_D];
+    const i64 th = d[D_DIV_THREADS + DIV_D];
+    const i64 q = (i64)udiv_rec(udiv_rec((u64)n, d + D_DIV_CHUNK),
+                                d + D_DIV_THREADS);
+    return q * ch + min_i64(max_i64(n - q * ch * th - tid * ch, 0), ch);
+}
+
+// local_to_value(tid, m) for m >= 0.
+HD i64 local_to_value(const i64* d, i64 tid, i64 m) {
+    const i64 ch = d[D_DIV_CHUNK + DIV_D];
+    const i64 cid = (i64)udiv_rec((u64)m, d + D_DIV_CHUNK);
+    const i64 n = (cid * d[D_DIV_THREADS + DIV_D] + tid) * ch + (m - cid * ch);
+    return d[D_S_START] + n * d[D_S_STEP];
+}
+
+// One level's domain in a triangular candidate, in loop VALUES: free,
+// fixed to a (SPEC_FIXED) or the interval [a, b) (SPEC_INTERVAL).
+struct Dom {
+    int kind;
+    i64 a, b;
+};
+
+// dom_bounds: the index interval [lo, hi) of level l's domain at v.
+HD void dom_bounds(const i64* d, int l, const Dom& dm, i64 v, i64* lo,
+                   i64* hi) {
+    const i64 tripv = trip_at(d, l, v);
+    if (dm.kind == SPEC_FREE) {
+        *lo = 0;
+        *hi = tripv;
+        return;
+    }
+    const i64 st = start_at(d, l, v);
+    if (dm.kind == SPEC_FIXED) {
+        const i64 n = dm.a - st;
+        *lo = n;
+        *hi = (n >= 0 && n < tripv) ? n + 1 : n;
+        return;
+    }
+    const i64 lo_i = max_i64(dm.a - st, 0);
+    *lo = lo_i;
+    *hi = max_i64(min_i64(dm.b - st, tripv), lo_i);
+}
+
+// later_m_context's constraint a * v0 + b >= 0; rec is |a|'s record.
+HD void halfspace(i64 a, i64 b, const i64* rec, i64* vlo, i64* vhi,
+                  bool* ok) {
+    if (a > 0) *vlo = max_i64(*vlo, -floordiv_rec(b, rec));  // ceil(-b/a)
+    else if (a < 0) *vhi = min_i64(*vhi, floordiv_rec(b, rec));
+    else *ok = *ok && b >= 0;
+}
+
+// later_m_context: the value and base of the earliest iteration m' > m0
+// of the sample's thread whose inner domains are all nonempty; false
+// where there is none.
+template <int SL>
+HD bool later_context(const Group& G, const Sample& s, const Dom* dm,
+                      i64* v0a, i64* base_a) {
+    const i64* d = G.d;
+    const i64 start0 = d[D_S_START], trip0 = d[D_TRIPS];
+    i64 vlo = start0, vhi = start0 + trip0 - 1;
+    bool ok = true;
+    UNROLL
+    for (int l = 1; l <= SL; ++l) {
+        const i64 st = d[D_STARTB + l], sc = d[D_SC + l];
+        const i64 tr = d[D_TRIPS + l], tc = d[D_TC + l];
+        const i64* rec = d + D_DIV_HS + 3 * (l - 1) * DIV_SIZE;
+        if (dm[l].kind == SPEC_FREE) {
+            halfspace(tc, tr - 1, rec, &vlo, &vhi, &ok);  // trip >= 1
+        } else if (dm[l].kind == SPEC_FIXED) {
+            const i64 u = dm[l].a;
+            halfspace(-sc, u - st, rec + DIV_SIZE, &vlo, &vhi, &ok);
+            halfspace(tc + sc, tr - u + st - 1, rec + 2 * DIV_SIZE, &vlo,
+                      &vhi, &ok);
+        } else {
+            halfspace(tc, tr - 1, rec, &vlo, &vhi, &ok);
+            halfspace(-sc, dm[l].b - st - 1, rec + DIV_SIZE, &vlo, &vhi,
+                      &ok);
+            halfspace(tc + sc, tr - dm[l].a + st - 1, rec + 2 * DIV_SIZE,
+                      &vlo, &vhi, &ok);
+        }
+    }
+    const i64 n_lo = min_i64(max_i64(vlo - start0, 0), trip0);
+    const i64 m_a = max_i64(s.m0 + 1, count_below(d, s.tid, n_lo));
+    ok = ok && m_a < d[d[D_OFF_LC] + s.tid];
+    const i64 lmax = d[D_LMAX];
+    const i64 m_ac = min_i64(max_i64(m_a, 0), lmax);
+    *v0a = local_to_value(d, s.tid, m_ac);
+    *base_a = tri_load(G.tri + s.tid * (lmax + 1) + m_ac);
+    return ok && *v0a >= vlo && *v0a <= vhi;
+}
+
+// min_inner_pos of every member in the iteration with value v and base
+// `base`, each kept as the member's minimum in nb. `own`: the sample's own
+// iteration, whose split of p0 the sample holds. A member's offset lies
+// in [0, b1) at SL 1 (it is inside one level-1 iteration), so with
+// p0 - base - npre0 = q * b1 + rr, 0 <= rr < b1, the floor of
+// (p0 - base - npre0 - off) / b1 is q when rr >= off, else q - 1.
+template <int SL>
+HD void inner_positions(const Group& G, const Sample& s, const Dom* dm,
+                        i64 v, i64 base, bool own) {
+    const i64* d = G.d;
+    const int nm = (int)G.g[G_NMEM];
+    if constexpr (SL == 0) {
+        for (int jj = 0; jj < nm; ++jj) {
+            const i64 pos = base + offset_at<0>(d, G.g[G_MEMBERS + jj], v);
+            i64* slot = G.nb + jj * NB_STRIDE;
+            if (pos > s.p0) *slot = min_i64(*slot, pos);
+        }
+    } else {
+        i64 b1 = s.b1, q = s.cq, rr = s.cr;
+        if (!own) {
+            b1 = max_i64(body1_at(d, v), 1);
+            const i64 r = s.p0 - base - d[D_NPRE0];
+            q = floordiv_var(r, b1);
+            rr = r - q * b1;
+        }
+        i64 d1lo, d1hi;
+        dom_bounds(d, 1, dm[1], v, &d1lo, &d1hi);
+        const i64 at1 = base + d[D_NPRE0];
+        if constexpr (SL == 1) {
+            for (int jj = 0; jj < nm; ++jj) {
+                const i64 off = offset_at<1>(d, G.g[G_MEMBERS + jj], v);
+                const i64 n1 = max_i64(d1lo, q + (rr >= off ? 1 : 0));
+                i64* slot = G.nb + jj * NB_STRIDE;
+                if (n1 < d1hi) *slot = min_i64(*slot, at1 + n1 * b1 + off);
+            }
+        } else {
+            i64 d2lo, d2hi;
+            dom_bounds(d, 2, dm[2], v, &d2lo, &d2hi);
+            const i64 a2 = d[D_DIV_A2 + DIV_D];
+            const i64 n1a = max_i64(d1lo, q + 1);
+            const i64 pa = n1a < d1hi && d2lo < d2hi
+                               ? at1 + n1a * b1 + d[D_NPRE1] + d2lo * a2
+                               : INF_I64;
+            const bool jb = q >= d1lo && q < d1hi;
+            const i64 at2 = at1 + q * b1 + d[D_NPRE1];
+            for (int jj = 0; jj < nm; ++jj) {
+                const i64 off = offset_at<2>(d, G.g[G_MEMBERS + jj], v);
+                i64 p = pa < INF_I64 ? pa + off : INF_I64;
+                const i64 n2 = max_i64(
+                    d2lo,
+                    floordiv_rec(rr - d[D_NPRE1] - off, d + D_DIV_A2) + 1);
+                if (jb && n2 < d2hi) p = min_i64(p, at2 + n2 * a2 + off);
+                i64* slot = G.nb + jj * NB_STRIDE;
+                *slot = min_i64(*slot, p);
+            }
+        }
+    }
+}
+
+// One band candidate of a triangular walk (the tri group's emit): each
+// level's domain in values, then a level-0 value the candidate fixes, or
+// the sample's own iteration and the earliest later one.
+template <int SL, int NH>
+HD void candidate_tri(const Group& G, const Sample& s, const HeadValues& u,
+                      i64 lo, i64 kw, bool ok) {
+    if (!ok) return;  // every position of the candidate would be INF
+    const i64* d = G.d;
+    const int term = (int)G.g[G_TERM];
+    const int tl = (int)G.g[G_TLEVEL];
+    Dom dm[SL + 1];
+    UNROLL
+    for (int l = 0; l <= SL; ++l) {
+        dm[l].b = 0;
+        if (G.hk[l] >= 0) {
+            dm[l].kind = SPEC_FIXED;
+            dm[l].a = G.hk[l] == 0 ? u.u0 : G.hk[l] == 1 ? u.u1 : u.u2;
+        } else if (term == TERM_WINDOW && tl == l) {
+            dm[l].kind = SPEC_FIXED;
+            dm[l].a = lo + kw;
+        } else if (term == TERM_INTERVAL && tl == l) {
+            dm[l].kind = SPEC_INTERVAL;  // never level 0 (band_plan)
+            dm[l].a = lo;
+            dm[l].b = lo + d[D_W];
+        } else {
+            dm[l].kind = SPEC_FREE;
+            dm[l].a = 0;
+        }
+    }
+    if (dm[0].kind != SPEC_FREE) {
+        const i64 n0 = dm[0].a - d[D_S_START];  // unit steps
+        if (n0 < 0 || n0 >= d[D_TRIPS]) return;
+        i64 owner, m;
+        schedule_of(d, n0, &owner, &m);
+        if (owner != s.tid) return;
+        const i64 base =
+            tri_load(G.tri + s.tid * (d[D_LMAX] + 1) + min_i64(m, d[D_LMAX]));
+        inner_positions<SL>(G, s, dm, dm[0].a, base, false);
+        return;
+    }
+    inner_positions<SL>(G, s, dm, s.v0, s.base0, true);
+    i64 v0a, base_a;
+    if (later_context<SL>(G, s, dm, &v0a, &base_a))
+        inner_positions<SL>(G, s, dm, v0a, base_a, false);
+}
+
+// next_use_candidates_tri_group for one sink group at sink level SL with
+// NH heads, then _best_sink's in-order update over its members.
+template <int SL, int NH>
+HD void walk_group_tri(const i64* d, const i64* g, const i64* tri,
+                       const Sample& s, i64 line, i64* nb, i64* best,
+                       i64* best_sink) {
+    const Group G{d, g, {head_at<NH>(g, 0), head_at<NH>(g, 1),
+                         head_at<NH>(g, 2)}, nb, tri};
+    const int nm = (int)g[G_NMEM];
+    for (int jj = 0; jj < nm; ++jj) nb[jj * NB_STRIDE] = INF_I64;
+    Acc acc{INF_I64, false};  // unused by the triangular candidates
+    HeadValues u{0, 0, 0};
+    band<SL, NH, 0, true>(G, s, line * d[D_W] - g[G_CONST], true, u, acc);
+    for (int jj = 0; jj < nm; ++jj) {
+        const i64 p = nb[jj * NB_STRIDE];
+        if (p < *best) {
+            *best = p;
+            *best_sink = g[G_MEMBERS + jj];
+        }
+    }
+}
+
 // walk_group with the group's head count nh <= NHMAX as a template
 // argument.
-template <int SL, int NH, int NHMAX>
-HD void walk_nh(int nh, const i64* d, const i64* g, const Sample& s, i64 line, i64* nb,
-                i64* best, i64* best_sink) {
+template <int SL, int NH, bool TRI>
+HD void walk_one(const i64* d, const i64* g, const i64* tri, const Sample& s,
+                 i64 line, i64* nb, i64* best, i64* best_sink) {
+    if constexpr (TRI)
+        walk_group_tri<SL, NH>(d, g, tri, s, line, nb, best, best_sink);
+    else
+        walk_group<SL, NH>(d, g, s, line, nb, best, best_sink);
+}
+
+template <int SL, int NH, int NHMAX, bool TRI>
+HD void walk_nh(int nh, const i64* d, const i64* g, const i64* tri,
+                const Sample& s, i64 line, i64* nb, i64* best,
+                i64* best_sink) {
     if constexpr (NH == NHMAX) {
-        walk_group<SL, NH>(d, g, s, line, nb, best, best_sink);
+        walk_one<SL, NH, TRI>(d, g, tri, s, line, nb, best, best_sink);
     } else if (nh == NH) {
-        walk_group<SL, NH>(d, g, s, line, nb, best, best_sink);
+        walk_one<SL, NH, TRI>(d, g, tri, s, line, nb, best, best_sink);
     } else {
-        walk_nh<SL, NH + 1, NHMAX>(nh, d, g, s, line, nb, best, best_sink);
+        walk_nh<SL, NH + 1, NHMAX, TRI>(nh, d, g, tri, s, line, nb, best,
+                                        best_sink);
     }
 }
 
 // sampled.py::classify_samples for one sample of a source ref at level
-// LV whose groups have at most NHMAX heads: decode, geometry, the best
-// sink over every group, and the share test. hr: the division records of
-// the key's three radices.
-template <int LV, int NHMAX>
-HD void classify_one(const i64* d, i64 key, const i64* hr, i64 rx, i64* nb,
-                     i64* packed, i64* ri_out, bool* share, bool* found) {
+// LV whose groups have at most NHMAX heads, of a triangular nest where
+// TRI: decode, geometry, the best sink over every group, and the share
+// test. hr: the division records of the key's three radices; tri: the
+// base table (TRI only).
+template <int LV, int NHMAX, bool TRI>
+HD void classify_one(const i64* d, const i64* tri, i64 key, const i64* hr,
+                     i64 rx, i64* nb, i64* packed, i64* ri_out, bool* share,
+                     bool* found) {
     // decode_sample_keys: innermost level first; a padded radix is 1
     i64 n[MAX_DEPTH];
     i64 q = floordiv_rec(key, hr + 2 * DIV_SIZE);
@@ -567,9 +905,28 @@ HD void classify_one(const i64* d, i64 key, const i64* hr, i64 rx, i64* nb,
     const i64 v0 = d[D_S_START] + n[0] * d[D_S_STEP];
     const i64* refs = d + d[D_OFF_REFS];
     const i64* rr = refs + rx * R_SIZE;
-    s.p0 = m * d[D_ACC] + rr[R_OFF];
-    if constexpr (LV >= 1) s.p0 += d[D_NPRE0] + n[1] * d[D_ACC + 1];
-    if constexpr (LV >= 2) s.p0 += d[D_NPRE1] + n[2] * d[D_ACC + 2];
+    if constexpr (TRI) {
+        // tri_position: the iteration's base, the ref's offset at v0, and
+        // the inner indices by body_at(1, v0) and body_at(2, v0) = a2
+        s.m0 = m;
+        s.v0 = v0;
+        s.base0 = tri_load(tri + s.tid * (d[D_LMAX] + 1)
+                           + min_i64(m, d[D_LMAX]));
+        const i64 body1 = d[D_DEPTH] > 1 ? body1_at(d, v0) : 0;
+        s.p0 = s.base0 + offset_at<LV>(d, rx, v0);
+        if constexpr (LV >= 1) s.p0 += d[D_NPRE0] + n[1] * body1;
+        if constexpr (LV >= 2)
+            s.p0 += d[D_NPRE1] + n[2] * d[D_DIV_A2 + DIV_D];
+        // the split of p0 in its own iteration, shared by every candidate
+        s.b1 = max_i64(body1, 1);
+        const i64 r = s.p0 - s.base0 - d[D_NPRE0];
+        s.cq = d[D_DEPTH] > 1 ? floordiv_var(r, s.b1) : 0;
+        s.cr = r - s.cq * s.b1;
+    } else {
+        s.p0 = m * d[D_ACC] + rr[R_OFF];
+        if constexpr (LV >= 1) s.p0 += d[D_NPRE0] + n[1] * d[D_ACC + 1];
+        if constexpr (LV >= 2) s.p0 += d[D_NPRE1] + n[2] * d[D_ACC + 2];
+    }
     i64 flat = rr[R_CONST] + v0 * rr[R_COEFF];
     UNROLL
     for (int l = 1; l <= LV; ++l) {
@@ -578,10 +935,12 @@ HD void classify_one(const i64* d, i64 key, const i64* hr, i64 rx, i64* nb,
         flat += vl * rr[R_COEFF + l];
     }
     const i64 line = floordiv_rec(flat * d[D_DS], d + D_DIV_CLS);
-    s.m0 = floordiv_rec(s.p0, d + D_DIV_ACC);
-    s.r0 = s.p0 - s.m0 * d[D_ACC];
-    s.j0 = floordiv_rec(s.r0 - d[D_NPRE0], d + D_DIV_ACC + DIV_SIZE);
-    s.rr0 = s.r0 - d[D_NPRE0] - s.j0 * d[D_ACC + 1];
+    if constexpr (!TRI) {
+        s.m0 = floordiv_rec(s.p0, d + D_DIV_ACC);
+        s.r0 = s.p0 - s.m0 * d[D_ACC];
+        s.j0 = floordiv_rec(s.r0 - d[D_NPRE0], d + D_DIV_ACC + DIV_SIZE);
+        s.rr0 = s.r0 - d[D_NPRE0] - s.j0 * d[D_ACC + 1];
+    }
     // _best_sink: groups in order, members in order, first minimum wins
     i64 best = INF_I64, best_sink = 0;
     const i64* g = d + d[D_OFF_GROUPS];
@@ -589,11 +948,14 @@ HD void classify_one(const i64* d, i64 key, const i64* hr, i64 rx, i64* nb,
     for (int gi = 0; gi < ng; ++gi) {
         const int level = (int)g[G_LEVEL], nh = (int)g[G_NHEADS];
         if (level == 0)
-            walk_nh<0, 0, NHMAX>(nh, d, g, s, line, nb, &best, &best_sink);
+            walk_nh<0, 0, NHMAX, TRI>(nh, d, g, tri, s, line, nb, &best,
+                                      &best_sink);
         else if (level == 1)
-            walk_nh<1, 0, NHMAX>(nh, d, g, s, line, nb, &best, &best_sink);
+            walk_nh<1, 0, NHMAX, TRI>(nh, d, g, tri, s, line, nb, &best,
+                                      &best_sink);
         else
-            walk_nh<2, 0, NHMAX>(nh, d, g, s, line, nb, &best, &best_sink);
+            walk_nh<2, 0, NHMAX, TRI>(nh, d, g, tri, s, line, nb, &best,
+                                      &best_sink);
         g += G_MEMBERS + g[G_NMEM];
     }
     const bool fnd = best < INF_I64;
@@ -612,16 +974,17 @@ HD void classify_one(const i64* d, i64 key, const i64* hr, i64 rx, i64* nb,
 // One sample's contribution: residual lane, histogram bin, cold count.
 // Returns the bin (0..63) of a noshare ri >= 1 sample, 64 for a cold
 // sample, -1 otherwise.
-template <int LV, int NHMAX>
-HD int sample_step(const i64* d, i64 key, bool mk, const i64* hr, i64 rx, i64* nb,
-                   i64* residual) {
+template <int LV, int NHMAX, bool TRI>
+HD int sample_step(const i64* d, const i64* tri, i64 key, bool mk,
+                   const i64* hr, i64 rx, i64* nb, i64* residual) {
     if (!mk) {  // masked-out lane: nothing but the sentinel
         *residual = SENTINEL;
         return -1;
     }
     i64 packed, ri;
     bool shr, fnd;
-    classify_one<LV, NHMAX>(d, key, hr, rx, nb, &packed, &ri, &shr, &fnd);
+    classify_one<LV, NHMAX, TRI>(d, tri, key, hr, rx, nb, &packed, &ri, &shr,
+                                 &fnd);
     const bool nosh = fnd && !shr && ri >= 1;
     *residual = (fnd && !nosh) ? packed : SENTINEL;
     if (nosh) return 63 - clz64(ri);
@@ -651,12 +1014,13 @@ struct Params {
     i64 desc[MAX_DESC];            // build_descriptor's words
 };
 
-template <int LV, int NHMAX>
-__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM(NHMAX))
+template <int LV, int NHMAX, bool TRI>
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM(NHMAX, TRI))
 sampled_hist_kernel(const i64* __restrict__ keys,
                     const unsigned char* __restrict__ mask, i64 B, i64 ld,
                     const __grid_constant__ Params pr,
-                    const i64* __restrict__ rx, i64* __restrict__ residual,
+                    const i64* __restrict__ rx,
+                    const i64* __restrict__ tri, i64* __restrict__ residual,
                     u64* __restrict__ hist, u64* __restrict__ cold) {
     __shared__ i64 s_nb[MAX_MEMBERS * THREADS];  // walk_group's nb
     __shared__ u64 s_hist[N_BINS + 1];  // + cold
@@ -674,9 +1038,9 @@ sampled_hist_kernel(const i64* __restrict__ keys,
         int bin = -1;
         if (b < B) {
             const bool mk = mask == nullptr || mask[in + b] != 0;
-            bin = sample_step<LV, NHMAX>(pr.desc, keys[in + b], mk, pr.hr,
-                                         rxv, s_nb + threadIdx.x,
-                                         residual + base + b);
+            bin = sample_step<LV, NHMAX, TRI>(pr.desc, tri, keys[in + b], mk,
+                                              pr.hr, rxv, s_nb + threadIdx.x,
+                                              residual + base + b);
         }
         const unsigned peers = __match_any_sync(0xffffffffu, bin);
         if (bin >= 0 && (int)(threadIdx.x & 31) == __ffs(peers) - 1)
@@ -690,15 +1054,16 @@ sampled_hist_kernel(const i64* __restrict__ keys,
 }
 
 typedef int (*LaunchFn)(const void*, const void*, i64, i64, i64,
-                        const Params&, const void*, void*, void*, void*,
-                        cudaStream_t);
+                        const Params&, const void*, const void*, void*, void*,
+                        void*, cudaStream_t);
 
 #define MAX_DEVICES 64
 
-template <int LV, int NHMAX>
+template <int LV, int NHMAX, bool TRI>
 static int launch(const void* keys, const void* mask, i64 R, i64 B, i64 ld,
-                  const Params& pr, const void* rx, void* residual,
-                  void* hist, void* cold, cudaStream_t stream) {
+                  const Params& pr, const void* rx, const void* tri,
+                  void* residual, void* hist, void* cold,
+                  cudaStream_t stream) {
     // as many blocks as the card holds at once, split over the R rows;
     // the card's SM count times this instantiation's blocks per SM, asked
     // once per device (0: not asked yet; every thread that asks gets the
@@ -714,7 +1079,7 @@ static int launch(const void* keys, const void* mask, i64 R, i64 B, i64 ld,
         e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
         if (e == cudaSuccess)
             e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &per_sm, sampled_hist_kernel<LV, NHMAX>, THREADS, 0);
+                &per_sm, sampled_hist_kernel<LV, NHMAX, TRI>, THREADS, 0);
         if (e != cudaSuccess) return (int)e;
         slots = per_sm * sms > 0 ? per_sm * sms : 1;
         resident[dev].store(slots, std::memory_order_relaxed);
@@ -724,57 +1089,63 @@ static int launch(const void* keys, const void* mask, i64 R, i64 B, i64 ld,
     if (bx > need) bx = need;
     if (bx < 1) bx = 1;
     dim3 grid((unsigned)bx, (unsigned)R);
-    sampled_hist_kernel<LV, NHMAX><<<grid, THREADS, 0, stream>>>(
+    sampled_hist_kernel<LV, NHMAX, TRI><<<grid, THREADS, 0, stream>>>(
         (const i64*)keys, (const unsigned char*)mask, B, ld, pr, (const i64*)rx,
-        (i64*)residual, (u64*)hist, (u64*)cold);
+        (const i64*)tri, (i64*)residual, (u64*)hist, (u64*)cold);
     return (int)cudaGetLastError();
 }
 
-// [LV][0]: NHMAX 1 (groups of at most one head), [LV][1]: NHMAX 3
-#define LAUNCH_ROW(LV) {launch<LV, 1>, launch<LV, 3>}
-static const LaunchFn LAUNCH[MAX_DEPTH][2] = {
-    LAUNCH_ROW(0), LAUNCH_ROW(1), LAUNCH_ROW(2)};
+// [TRI][LV][0]: NHMAX 1 (groups of at most one head), [TRI][LV][1]:
+// NHMAX 3
+#define LAUNCH_ROW(LV, TRI) {launch<LV, 1, TRI>, launch<LV, 3, TRI>}
+static const LaunchFn LAUNCH[2][MAX_DEPTH][2] = {
+    {LAUNCH_ROW(0, false), LAUNCH_ROW(1, false), LAUNCH_ROW(2, false)},
+    {LAUNCH_ROW(0, true), LAUNCH_ROW(1, true), LAUNCH_ROW(2, true)}};
 
 // keys: int64 [R, B] on the card, row r at keys + r * ld (ld >= B: a
 // column span of a wider buffer); mask: uint8 [R, B] with the same row
 // stride, or null when every lane is live; residual: int64 [R, B],
 // contiguous; desc: the HOST's int64 [desc_len]
 // (build_descriptor); hrec: the host's int64 [9], the division records
-// of the three radices; rx: int64 [R]; hist: int64 [R, 64] and cold:
-// int64 [R], both zeroed by the caller. Launches the instantiation of
-// the descriptor's source-ref level (desc[D_LV]) and most heads per
-// group on `stream`, allocates nothing, returns cudaGetLastError() (or
+// of the three radices; rx: int64 [R]; tri: for a triangular descriptor
+// the base table, int64 [threads, lmax + 1] on the card (null
+// otherwise); hist: int64 [R, 64] and cold: int64 [R], both zeroed by the
+// caller. Launches the instantiation of the descriptor's source-ref level
+// (desc[D_LV]), most heads per group and nest kind on `stream`,
+// allocates nothing, returns cudaGetLastError() (or
 // cudaErrorInvalidValue for arguments the kernel does not take).
 extern "C" int sampled_hist_launch(const void* keys, const void* mask,
                                    i64 R, i64 B, i64 ld, const i64* desc,
                                    int desc_len, const i64* hrec,
-                                   const void* rx, void* residual,
-                                   void* hist, void* cold, void* stream) {
+                                   const void* rx, const void* tri,
+                                   void* residual, void* hist, void* cold,
+                                   void* stream) {
     if (desc_len < D_HEADER || desc_len > MAX_DESC || R < 1 || R > 65535
         || B < 1 || ld < B || desc[D_LV] < 0 || desc[D_LV] >= MAX_DEPTH
-        || max_heads(desc) > MAX_DEPTH)
+        || max_heads(desc) > MAX_DEPTH || (desc[D_TRI] != 0) != (tri != 0))
         return (int)cudaErrorInvalidValue;
     Params pr;
     for (int i = 0; i < MAX_DEPTH * DIV_SIZE; ++i) pr.hr[i] = hrec[i];
     for (int i = 0; i < desc_len; ++i) pr.desc[i] = desc[i];
-    return LAUNCH[desc[D_LV]][max_heads(desc) > 1](
-        keys, mask, R, B, ld, pr, rx, residual, hist, cold,
+    return LAUNCH[desc[D_TRI] != 0][desc[D_LV]][max_heads(desc) > 1](
+        keys, mask, R, B, ld, pr, rx, tri, residual, hist, cold,
         (cudaStream_t)stream);
 }
 
 #else
 
-template <int LV, int NHMAX>
+template <int LV, int NHMAX, bool TRI>
 static void host_rows(const i64* keys, const unsigned char* mask, i64 R,
                       i64 B, const i64* desc, const i64* hrec,
-                      const i64* rx, i64* residual, i64* hist, i64* cold) {
+                      const i64* rx, const i64* tri, i64* residual,
+                      i64* hist, i64* cold) {
     i64 nb[MAX_MEMBERS];
     for (i64 r = 0; r < R; ++r) {
         for (i64 b = 0; b < B; ++b) {
             const i64 i = r * B + b;
             const bool mk = mask == nullptr || mask[i] != 0;
-            const int bin = sample_step<LV, NHMAX>(desc, keys[i], mk, hrec,
-                                                   rx[r], nb, residual + i);
+            const int bin = sample_step<LV, NHMAX, TRI>(
+                desc, tri, keys[i], mk, hrec, rx[r], nb, residual + i);
             if (bin == N_BINS) cold[r] += 1;
             else if (bin >= 0) hist[r * N_BINS + bin] += 1;
         }
@@ -782,24 +1153,26 @@ static void host_rows(const i64* keys, const unsigned char* mask, i64 R,
 }
 
 typedef void (*HostFn)(const i64*, const unsigned char*, i64, i64,
-                       const i64*, const i64*, const i64*, i64*, i64*, i64*);
-#define HOST_ROW(LV) {host_rows<LV, 1>, host_rows<LV, 3>}
-static const HostFn HOST[MAX_DEPTH][2] = {
-    HOST_ROW(0), HOST_ROW(1), HOST_ROW(2)};
+                       const i64*, const i64*, const i64*, const i64*, i64*,
+                       i64*, i64*);
+#define HOST_ROW(LV, TRI) {host_rows<LV, 1, TRI>, host_rows<LV, 3, TRI>}
+static const HostFn HOST[2][MAX_DEPTH][2] = {
+    {HOST_ROW(0, false), HOST_ROW(1, false), HOST_ROW(2, false)},
+    {HOST_ROW(0, true), HOST_ROW(1, true), HOST_ROW(2, true)}};
 
-// Serial host twin of the kernel, same arguments minus the stream, and
-// through the same instantiation.
+// Serial host twin of the kernel, same arguments minus the row stride and
+// the stream (tri on the host), and through the same instantiation.
 extern "C" int sampled_hist_host(const i64* keys, const unsigned char* mask,
                                  i64 R, i64 B, const i64* desc,
                                  int desc_len, const i64* hrec,
-                                 const i64* rx, i64* residual, i64* hist,
-                                 i64* cold) {
+                                 const i64* rx, const i64* tri,
+                                 i64* residual, i64* hist, i64* cold) {
     if (desc_len < D_HEADER || desc_len > MAX_DESC || R < 1 || B < 1
         || desc[D_LV] < 0 || desc[D_LV] >= MAX_DEPTH
-        || max_heads(desc) > MAX_DEPTH)
+        || max_heads(desc) > MAX_DEPTH || (desc[D_TRI] != 0) != (tri != 0))
         return 1;
-    HOST[desc[D_LV]][max_heads(desc) > 1](keys, mask, R, B, desc, hrec, rx,
-                                          residual, hist, cold);
+    HOST[desc[D_TRI] != 0][desc[D_LV]][max_heads(desc) > 1](
+        keys, mask, R, B, desc, hrec, rx, tri, residual, hist, cold);
     return 0;
 }
 

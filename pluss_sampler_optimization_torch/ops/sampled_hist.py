@@ -25,15 +25,17 @@ fallback: a CUDA tensor under "auto"/"cuda" launches the kernel or
 raises, and "cuda" on CPU tensors raises.
 
 The kernel takes the classify's structure as a packed int64 descriptor
-(`build_descriptor`), so one build serves every rectangular signature;
+(`build_descriptor`), so one build serves every signature;
 every divisor the classify uses travels in it as a division record
 (`div_record`), and the key's radices as three more records passed at
 launch. The descriptor travels from the host as a kernel parameter (the
 card's constant bank), so the kernel keeps none of it in registers. The
 build holds one instantiation of the kernel per source-ref level
-(`desc[D_LV]`: 0, 1 or 2) and per head-count class (groups of at most
-one band-plan head, or up to three); the launch picks the one of its
-descriptor.
+(`desc[D_LV]`: 0, 1 or 2), per head-count class (groups of at most
+one band-plan head, or up to three) and per nest kind (rectangular or
+triangular, `desc[D_TRI]`); the launch picks the one of its descriptor.
+A triangular nest's per-thread base table (core/trace.py::tri_base)
+goes to the kernel as a device tensor of its own (`tri_table`).
 """
 
 from __future__ import annotations
@@ -57,9 +59,15 @@ D_S_START, D_S_STEP, D_DS, D_CLS, D_W = 5, 6, 7, 8, 9
 D_NPRE0, D_NPRE1, D_NGROUPS = 10, 11, 12
 D_ACC, D_TRIPS, D_STARTB, D_SC, D_LSTART, D_LSTEP = 13, 16, 19, 22, 25, 28
 D_OFF_LC, D_OFF_REFS, D_OFF_GROUPS = 31, 32, 33
-# division records of chunk, threads, cls, acc[0..2] and each level's step
-D_DIV_CHUNK, D_DIV_THREADS, D_DIV_CLS, D_DIV_ACC, D_DIV_STEP = 34, 37, 40, 43, 52
-D_HEADER = 61
+# triangular nests: the flag, per level the trip coefficient and npre+npost,
+# the base table's last column, the offset of the per-ref post-slot flags
+D_TRI, D_TC, D_BODYC, D_LMAX, D_OFF_POST = 34, 35, 38, 41, 42
+# division records, D_DIV_CHUNK up to D_HEADER: chunk, threads, cls,
+# acc[0..2] and each level's step, then the triangular walk's, a2 and per
+# inner level |tc|, |sc| and |tc+sc| (records of 1 when rectangular)
+D_DIV_CHUNK, D_DIV_THREADS, D_DIV_CLS, D_DIV_ACC, D_DIV_STEP = 43, 46, 49, 52, 61
+D_DIV_A2, D_DIV_HS = 70, 73
+D_HEADER = 91
 DIV_SIZE, DIV_NEG = 3, 64  # divisor, multiplier, shift | DIV_NEG
 R_SIZE = 8  # off, coeff[3], const, thr, ratio, level
 H_SIZE = 4 + DIV_SIZE  # level, n_u, cv's division record, rmin, rmax
@@ -102,6 +110,42 @@ def radix_records(highs) -> np.ndarray:
     return np.asarray(sum((div_record(x) for x in h), []), dtype=np.int64)
 
 
+def _tri_header(nt, d: list) -> None:
+    """The triangular fields of the descriptor's header (D_TRI on);
+    raises for a non-unit step, which the closed form does not cover."""
+    nest = nt.nest
+    depth = nest.depth
+    if any(lp.step != 1 for lp in nest.loops):
+        raise NotImplementedError(
+            "the closed-form next-use supports triangular nests with unit "
+            "steps only"
+        )
+    d[D_TRI] = 1
+    for l in range(MAX_DEPTH):
+        d[D_TC + l] = int(nt.tables.trip_coeffs[l])
+        d[D_BODYC + l] = nt.npre[l] + nt.npost[l] if l < depth else 0
+    d[D_LMAX] = int(nt.tri_base.shape[1]) - 1
+    a2 = nt.npre[2] + nt.npost[2] if depth > 2 else 1
+    if a2 < 1:
+        raise NotImplementedError("the CUDA classify needs a2 >= 1")
+    d[D_DIV_A2:D_DIV_A2 + DIV_SIZE] = div_record(a2)
+    for l in (1, 2):
+        lp = nest.loops[l] if l < depth else None
+        tc, sc = (lp.trip_coeff, lp.start_coeff) if lp else (0, 0)
+        for k, a in enumerate((tc, sc, tc + sc)):
+            at = D_DIV_HS + (3 * (l - 1) + k) * DIV_SIZE
+            d[at:at + DIV_SIZE] = div_record(abs(a) or 1)
+
+
+def _tri_ref_offset(nest, r) -> int:
+    """A triangular nest's ref offset without its v0-dependent part
+    (core/trace.py::ref_offset_at less the subloop before a post ref)."""
+    pre = nest.refs_at(r.level, "pre")
+    if r.slot == "pre":
+        return pre.index(r)
+    return len(pre) + nest.refs_at(r.level, "post").index(r)
+
+
 def build_descriptor(nt, ref_idx: int) -> np.ndarray:
     """The classify of source ref `ref_idx` as the kernel's int64
     descriptor: schedule and machine fields, loop tables, the division
@@ -109,17 +153,16 @@ def build_descriptor(nt, ref_idx: int) -> np.ndarray:
     by sink), and every sink group's band plan
     (sampler/nextuse.py::band_plan) with its per-head coefficient (as a
     division record) and residual span precomputed from the value
-    overlay. Raises where the kernel's arithmetic does not hold: a
-    non-positive schedule or machine divisor or body size (the level-2
-    reduction relies on acc[2] > 0)."""
+    overlay. A triangular nest adds its header fields (`_tri_header`),
+    each ref's offset without its v0-dependent part and the post-slot
+    flags; its base table travels apart (`tri_table`). Raises where the
+    kernel's arithmetic does not hold: a non-positive schedule or machine
+    divisor or body size (the level-2 reduction relies on acc[2] > 0, the
+    triangular one on a2 > 0), or a triangular nest with a non-unit
+    step."""
     from ..sampler.nextuse import _ref_vars_static, band_plan
     from ..sampler.sampled import _sink_groups, check_packed_ratios
 
-    if nt.tri:
-        raise NotImplementedError(
-            "the CUDA classify covers rectangular nests; triangular nests "
-            "land with ROADMAP A1"
-        )
     check_packed_ratios(nt)
     t, mach, sched, v = nt.tables, nt.machine, nt.schedule, nt.vals
     depth = nt.nest.depth
@@ -140,8 +183,12 @@ def build_descriptor(nt, ref_idx: int) -> np.ndarray:
     d[D_DIV_CHUNK:D_DIV_CHUNK + DIV_SIZE] = div_record(sched.chunk)
     d[D_DIV_THREADS:D_DIV_THREADS + DIV_SIZE] = div_record(sched.threads)
     d[D_DIV_CLS:D_DIV_CLS + DIV_SIZE] = div_record(mach.cls)
+    d[D_DIV_A2:D_HEADER] = div_record(1) * ((D_HEADER - D_DIV_A2) // DIV_SIZE)
+    if nt.tri:
+        _tri_header(nt, d)
     for l in range(MAX_DEPTH):
-        d[D_ACC + l] = int(v["acc"][l])
+        # a triangular nest's body sizes depend on v0 (acc is -1)
+        d[D_ACC + l] = 1 if nt.tri else int(v["acc"][l])
         d[D_TRIPS + l] = int(v["trips"][l])
         d[D_STARTB + l] = int(v["startb"][l])
         d[D_SC + l] = int(t.start_coeffs[l])
@@ -161,9 +208,14 @@ def build_descriptor(nt, ref_idx: int) -> np.ndarray:
     d += [int(x) for x in v["lc"]]
     d[D_OFF_REFS] = len(d)
     for j in range(t.n_refs):
-        d += [int(v["off"][j]), *(int(c) for c in v["coeff"][j]),
+        off = (_tri_ref_offset(nt.nest, nt.nest.refs[j]) if nt.tri
+               else int(v["off"][j]))
+        d += [off, *(int(c) for c in v["coeff"][j]),
               int(v["const"][j]), int(v["thr"][j]),
               int(t.ref_share_ratios[j]), int(t.ref_levels[j])]
+    if nt.tri:
+        d[D_OFF_POST] = len(d)
+        d += [int(r.slot == "post") for r in nt.nest.refs]
     d[D_OFF_GROUPS] = len(d)
     groups = _sink_groups(nt, ref_idx)
     d[D_NGROUPS] = len(groups)
@@ -214,11 +266,23 @@ def max_heads(desc: np.ndarray) -> int:
     return nh
 
 
-def instantiation(desc: np.ndarray) -> tuple[int, int]:
-    """(LV, NHMAX) of the kernel instantiation that serves this
+def instantiation(desc: np.ndarray) -> tuple[int, int, bool]:
+    """(LV, NHMAX, TRI) of the kernel instantiation that serves this
     descriptor, as csrc/sampled_hist.cu's launch picks it: the source
-    ref's level, and 1 where no group has more than one head, else 3."""
-    return int(desc[D_LV]), 1 if max_heads(desc) <= 1 else 3
+    ref's level, 1 where no group has more than one head, else 3, and
+    whether the nest is triangular."""
+    return (int(desc[D_LV]), 1 if max_heads(desc) <= 1 else 3,
+            bool(desc[D_TRI]))
+
+
+def tri_table(nt, device) -> torch.Tensor | None:
+    """A triangular nest's base table as the kernel reads it: int64
+    [threads, lmax + 1], contiguous, on `device`; None for a rectangular
+    nest."""
+    if not nt.tri:
+        return None
+    return torch.as_tensor(np.ascontiguousarray(nt.tri_base, np.int64),
+                           device=device)
 
 
 # ops_per_sample's cost model, in 32-bit integer instruction issues: an
@@ -328,8 +392,11 @@ def ops_per_sample(desc: np.ndarray, highs) -> int:
     the data, so it is not counted, nor are loop control, loads and the
     histogram's atomics. GEMM's four signatures at N=2048, ratio 0.1
     (radices 2047) count 441 ({C0,C1}), 245 ({A0}), 227 ({B0}) and 452
-    ({C2,C3}) issues."""
+    ({C2,C3}) issues. A triangular descriptor's count depends on the
+    data: `tri_issues`."""
     d = desc
+    if int(d[D_TRI]):
+        raise ValueError("a triangular descriptor's issues: tri_issues")
     lv = int(d[D_LV])
     h = [int(x) for x in highs]
     P, aw, aneg = _ranges(d)
@@ -397,6 +464,113 @@ def ops_per_sample(desc: np.ndarray, highs) -> int:
     return ops + 9 * P + 11 + (3 if P == 2 else 1)
 
 
+# A division by a divisor that varies per sample (the triangular walk's
+# level-1 body size): the least a 64-bit numerator by a 32-bit divisor
+# takes, a reciprocal estimate, a multiply-high, the multiply back and two
+# corrections, in 32-bit issues (the compiler's routine issues more).
+_VAR_DIV = 20
+
+
+def band_hits(nt, ref_idx: int, keys, mask, highs) -> list[tuple[int, int]]:
+    """Per sink group of a triangular source ref, over the chosen lanes
+    of `keys` (every lane where `mask` is None): (band candidates in the
+    band, iterations the walk visits without a later search), the two
+    counts of the triangular walk that depend on the data
+    (`tri_issues`). A candidate whose level 0 is fixed visits its
+    iteration only where the sample's thread owns it; one with a free
+    level 0 visits the sample's own iteration and searches a later one
+    (the later visit is not counted: it depends on the search)."""
+    from ..sampler.nextuse import _band_candidates
+    from ..sampler.sampled import (
+        _sample_geometry,
+        _sink_groups,
+        decode_sample_keys,
+    )
+
+    tnt = nt.with_vals(torch_vals(nt.vals, keys.device))
+    if mask is not None:
+        keys = keys[mask]
+    tid, _, line, _ = _sample_geometry(tnt, ref_idx,
+                                       decode_sample_keys(keys, highs))
+    sched, W = nt.schedule, nt.machine.lines_per_element_block
+    start0, trip0 = nt.nest.loops[0].start, nt.nest.loops[0].trip
+    out = []
+    for sinks in _sink_groups(nt, ref_idx):
+        n = [0, 0]
+
+        def emit(fixed_vals, ok):
+            n[0] += int(ok.sum())
+            if 0 in fixed_vals:
+                n0 = fixed_vals[0][1] - start0
+                ok = ok & (n0 >= 0) & (n0 < trip0) & (
+                    sched.owner_tid(n0) == tid)
+            n[1] += int(ok.sum())
+
+        _band_candidates(tnt, sinks[0], line * W, W,
+                         torch.ones_like(tid, dtype=torch.bool), emit)
+        out.append((n[0], n[1]))
+    return out
+
+
+def tri_issues(nt, desc: np.ndarray, highs, n_samples: int,
+               hits: list[tuple[int, int]]) -> int:
+    """32-bit integer issues that the triangular walk of `n_samples`
+    samples needs, in ops_per_sample's cost model, with the parts that
+    depend on the data from `band_hits`: per sample the decode, schedule,
+    values and line, the level-1 body, offset and position in its
+    iteration, that position's split (a division by the body,
+    `_VAR_DIV`), the share test and bin; per group the band enumeration
+    (as ops_per_sample), every candidate's in-band test and the members'
+    best; per in-band candidate its domains and either the owner test
+    (level 0 fixed) or the later-iteration search (halfspaces,
+    count_below, local_to_value); per visited iteration the split (but in
+    the sample's own), the domain bounds and each member's position. The
+    visit of the later iteration a search finds is not counted."""
+    d = desc
+    lv, depth = int(d[D_LV]), int(d[D_DEPTH])
+    h = [int(x) for x in highs]
+    P = _words(0, int(nt.tri_base.max()) + nt.max_body0)
+    chunk, threads = int(d[D_DIV_CHUNK]), int(d[D_DIV_THREADS])
+    sched = _div(chunk, 1, False) + _div(threads, 1, False) + 3
+    span = h[0] * h[1] * h[2]
+    ops = 0
+    for k in (2, 1):  # the unsigned decode, as ops_per_sample
+        if h[k] > 1:
+            ops += _div(h[k], _words(0, span - 1), False) + 1
+        span //= h[k]
+    ops += sched + 2 * (1 + lv) + _div(int(d[D_DIV_CLS]), 2, True)
+    post = d[int(d[D_OFF_POST]):int(d[D_OFF_POST]) + int(d[D_NREFS])]
+    ops += ((3 if depth > 2 else 0) + 1 + 3 * int(post.any())  # body, offset
+            + P + 2 * lv)  # p0
+    split = _VAR_DIV + 2 * P if depth > 1 else 0
+    ops += split + 9 * P + 11 + (3 if P == 2 else 1)  # share test, key, bin
+    total = n_samples * ops
+    g = int(d[D_OFF_GROUPS])
+    for inband, visits in hits:
+        nm, sl, nh, term, tl, tw = (int(x) for x in d[g:g + 6])
+        heads = [g + G_FIXED - MAX_DEPTH * H_SIZE + k * H_SIZE
+                 for k in range(nh)]
+        fixed0 = (any(int(d[hd]) == 0 for hd in heads)
+                  or (term == TERM_WINDOW and tl == 0))
+        enum, n_emit = 1, 1
+        for hd in heads:
+            enum += n_emit * (2 * _div(int(d[hd + 2]), 1, True) + 3)
+            n_emit *= int(d[hd + 1])
+            enum += n_emit * 4
+        if term == TERM_WINDOW:
+            n_emit *= tw
+        enum += n_emit + nm * 2 * P  # in-band tests, the members' best
+        cand = sl + 1 + (4 + sched if fixed0 else 9 * sl + 25)
+        member = ((3 * P + 2) if sl == 0 else (2 * P + 6) if sl == 1
+                  else (4 * P + 12 + _div(int(d[D_DIV_A2]), 1, True)))
+        visit = 4 * sl + nm * member
+        own = 0 if fixed0 else inband  # visits of the sample's iteration
+        total += (n_samples * enum + inband * cand + visits * visit
+                  + (visits - own) * (split if sl else 0))
+        g += G_FIXED + nm
+    return total
+
+
 def torch_vals(vals: dict, device) -> dict:
     """The value overlay of a NestTrace as int64 tensors on `device`."""
     return {
@@ -450,7 +624,7 @@ def sampled_hist_plain(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R):
 _ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
      ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int]
-    + [ctypes.c_void_p] * 6
+    + [ctypes.c_void_p] * 7
 )
 
 
@@ -474,14 +648,16 @@ def _check(name, x, dtype, shape, dev, ld=None):
 
 
 def sampled_hist_cuda(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
-                      desc=None):
+                      desc=None, tri_base=None):
     """Launch csrc/sampled_hist.cu on the current stream; raises on any
     argument the kernel does not take or a launch error. keys_RB (and
     mask_RB, with the same strides) may be a column span of a wider
     [R, B'] buffer: rows of contiguous lanes, a fixed stride apart. `desc` is
     build_descriptor's output, a host int64 array (built here when None);
     the launch passes it by value and launches the instantiation of its
-    source-ref level desc[D_LV] and most heads per group."""
+    source-ref level desc[D_LV], most heads per group and nest kind.
+    `tri_base` is a triangular nest's `tri_table` on the keys' device
+    (made here when None)."""
     global LAUNCHES
     from . import _build
 
@@ -501,6 +677,12 @@ def sampled_hist_cuda(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
     if not (isinstance(desc, np.ndarray) and desc.dtype == np.int64
             and desc.ndim == 1 and desc.flags.c_contiguous):
         raise ValueError("desc: expected build_descriptor's int64 array")
+    if nt.tri:
+        if tri_base is None:
+            tri_base = tri_table(nt, dev)
+        _check("tri_base", tri_base, torch.int64, nt.tri_base.shape, dev)
+    elif tri_base is not None:
+        raise ValueError("tri_base: a rectangular nest has none")
     fn = _build.load("sampled_hist").sampled_hist_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
@@ -510,10 +692,11 @@ def sampled_hist_cuda(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
         cold = torch.zeros(R, dtype=torch.int64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         mask_ptr = None if mask_RB is None else mask_RB.data_ptr()
+        tri_ptr = None if tri_base is None else tri_base.data_ptr()
         rc = fn(keys_RB.data_ptr(), mask_ptr, R, B, ld,
                 desc.ctypes.data, desc.shape[0], hrec.ctypes.data,
-                rx_R.data_ptr(), residual.data_ptr(), hist.data_ptr(),
-                cold.data_ptr(), stream)
+                rx_R.data_ptr(), tri_ptr, residual.data_ptr(),
+                hist.data_ptr(), cold.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"sampled_hist_launch failed: CUDA error {rc}")
         LAUNCHES += 1
@@ -521,7 +704,7 @@ def sampled_hist_cuda(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
 
 
 def sampled_hist(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
-                 backend: str = "auto", desc=None):
+                 backend: str = "auto", desc=None, tri_base=None):
     """(residual[R,B], hist[R,64], cold[R]) for one bucket dispatch.
 
     backend "torch" takes the plain version; "auto" takes it for tensors
@@ -534,4 +717,4 @@ def sampled_hist(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
     if backend not in ("auto", "cuda"):
         raise ValueError(f"unknown backend {backend!r}")
     return sampled_hist_cuda(nt, ref_idx, keys_RB, mask_RB, highs, rx_R,
-                             desc)
+                             desc, tri_base)

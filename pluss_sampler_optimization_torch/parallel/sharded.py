@@ -37,10 +37,12 @@ so the per-ref results fold to run_sampled's PRIState exactly (and to
 the runtime-v2 state with v2=True); the psum'd pow2 histogram comes
 back beside them, for observability.
 
-Not ported yet: triangular nests (ROADMAP A1) raise
-NotImplementedError; the fused sharded form, the scan form's on-device
-pair merges (merge_pair_sets), the sharded exact engines and replica
-placement are listed in ROADMAP.md (A5, A6).
+Triangular nests run as in run_sampled (the plain classify takes the
+triangular solver); one with a non-unit step raises NotImplementedError
+at `_program_rows`, the JAX package's unit-step gate. Not ported yet:
+the fused sharded form, the scan form's on-device pair merges
+(merge_pair_sets), the sharded exact engines and replica placement are
+listed in ROADMAP.md (A5, A6).
 """
 
 from __future__ import annotations

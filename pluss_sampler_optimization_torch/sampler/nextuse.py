@@ -1,7 +1,8 @@
-"""Closed-form next-use solver on tensors (rectangular nests).
+"""Closed-form next-use solver on tensors.
 
-Port of the JAX package's sampler/nextuse.py, rectangular solver only.
-A sample's reuse is
+Port of the JAX package's sampler/nextuse.py: the rectangular solver
+(`next_use_candidates_group`) and its triangular twin
+(`next_use_candidates_tri_group`). A sample's reuse is
 
     RI(sample) = min over same-array refs r' of
                  (first position p' > p0 in the sample thread's own
@@ -13,7 +14,8 @@ closed form: a tiny static set of band candidates (`band_plan`), each
 reduced by mixed-radix successor arithmetic over a (fixed / interval /
 free)^levels box (`min_position_after`). Every function here is
 elementwise int64 tensor math over all samples at once; torch's `//`
-and `%` floor like jnp's, which `_cdiv` and the schedule maps rely on.
+and `%` floor like jnp's, which `_cdiv`, the schedule maps and the
+triangular solver's negative numerators rely on.
 
 The same walk, driven by a packed descriptor instead of Python
 structure, is the CUDA kernel in csrc/sampled_hist.cu.
@@ -369,6 +371,180 @@ def next_use_candidates_group(
             if not fixed_vals:  # constant ref: no spec carries validity
                 p = torch.where(ok, p, INF)
             bests[j] = torch.minimum(bests[j], p)
+
+    _band_candidates(nt, sink_idx, line * W, W, true_, emit)
+    return bests
+
+
+def _as_i64(x, like):
+    """x (a Python int or a tensor) as an int64 tensor on like's device."""
+    return torch.as_tensor(x, dtype=torch.int64, device=like.device)
+
+
+def next_use_candidates_tri_group(
+    nt: NestTrace, sinks: tuple, tid, p0, line, m0
+):
+    """Triangular-nest twin of next_use_candidates_group (sinks share
+    one flat map; candidates, domain bounds and the later-iteration
+    schedule query are built once, each sink pays only its own
+    position reductions). Returns {sink_idx: positions}.
+
+    Same band enumeration (the flat map must land in the line's W-wide
+    band), but positions come from the per-thread prefix-sum base table
+    and every inner-level domain is evaluated at a concrete parallel
+    value v0, because bounds (and so body sizes and offsets) are affine
+    in v0. Three position strategies:
+
+    - same parallel iteration (v0 known per sample): bump the level-1
+      index past p0's, or keep it and bump the level-2 index —
+      min_position_after's B/C arms with v0-dependent body sizes;
+    - a later parallel iteration: every candidate's inner domain is
+      nonempty over an affine *interval* of v0 (each bound contributes
+      one halfspace), so the minimal valid m' > m0 is a closed-form
+      schedule query (count_below) and positions at m' are gathers of
+      the base table.
+
+    Requires every loop step == 1 (enforced by the caller's gate). `m0`
+    is each sample's thread-local parallel index. Vectorized over
+    samples; INF where no later touch exists. Every `//` floors, as the
+    numerators `rel`, `r`, `rr - np1 - offv` and the halfspace bounds
+    may be negative.
+    """
+    sink_idx = sinks[0]
+    t = nt.tables
+    machine = nt.machine
+    sched = nt.schedule
+    nest = nt.nest
+    lv = int(t.ref_levels[sink_idx])
+    W = machine.lines_per_element_block
+
+    base_tab = nt.vals["tri_base"]
+    lmax = base_tab.shape[1] - 1  # == sched.max_local_count(), static
+    l_count = nt.vals["lc"][tid]
+    start0, trip0 = nest.loops[0].start, nt.vals["trips"][0]
+    np0 = nt.npre[0]
+    np1 = nt.npre[1] if nest.depth > 1 else 0
+    a2 = (
+        nt.npre[2] + nt.npost[2] if nest.depth > 2 else 1
+    )  # deepest-level body = its refs
+
+    def base_of(m):
+        return base_tab[tid, m.clamp(0, lmax)]
+
+    v0_0 = sched.local_to_value(tid, m0)
+    base_0 = base_of(m0)
+
+    def dom_bounds(l, dom, v0m):
+        """Half-open index interval [lo, hi) of domain `dom` at v0m."""
+        tripv = nt.trip_at(l, v0m)
+        if dom is None:  # free
+            return torch.zeros_like(tripv), tripv
+        kind = dom[0]
+        if kind == "fixval":
+            n = dom[1] - nt.start_at(l, v0m)
+            ok = (n >= 0) & (n < tripv)
+            return n, torch.where(ok, n + 1, n)
+        va, vb = dom[1], dom[2]  # value-space interval [va, vb)
+        lo_i = (va - nt.start_at(l, v0m)).clamp(min=0)
+        hi_i = torch.minimum(vb - nt.start_at(l, v0m), tripv)
+        return lo_i, torch.maximum(hi_i, lo_i)
+
+    def min_inner_pos(doms, v0m, basem, okm, j):
+        """Min position of sink `j` > p0 within iteration (v0m, basem)."""
+        offv = nt.ref_offset_at(j, v0m)
+        if lv == 0:
+            pos = basem + offv
+            return torch.where(okm & (pos > p0), pos, INF)
+        b1 = _as_i64(nt.body_at(1, v0m), p0).clamp(min=1)
+        d1lo, d1hi = dom_bounds(1, doms.get(1), v0m)
+        if lv == 1:
+            rel = p0 - basem - np0 - offv
+            n1 = torch.maximum(d1lo, rel // b1 + 1)
+            pos = basem + np0 + n1 * b1 + offv
+            return torch.where(okm & (n1 < d1hi), pos, INF)
+        d2lo, d2hi = dom_bounds(2, doms.get(2), v0m)
+        r = p0 - basem - np0
+        j_a = r // b1
+        rr = r - j_a * b1
+        n1a = torch.maximum(d1lo, j_a + 1)
+        pos_a = basem + np0 + n1a * b1 + np1 + d2lo * a2 + offv
+        ok_a = okm & (n1a < d1hi) & (d2lo < d2hi)
+        n2 = torch.maximum(d2lo, (rr - np1 - offv) // a2 + 1)
+        pos_b = basem + np0 + j_a * b1 + np1 + n2 * a2 + offv
+        ok_b = okm & (j_a >= d1lo) & (j_a < d1hi) & (n2 < d2hi)
+        return torch.minimum(
+            torch.where(ok_a, pos_a, INF), torch.where(ok_b, pos_b, INF)
+        )
+
+    def later_m_context(doms, ok):
+        """(v0, base, ok) of the earliest parallel iteration m' > m0
+        whose inner domains are nonempty — shared by every sink of the
+        group. Each inner domain is nonempty over an affine v0
+        halfspace intersection; the minimal valid m' is a count_below
+        query."""
+        z = torch.zeros_like(p0)
+        vlo = z + start0
+        vhi = z + start0 + trip0 - 1
+        okc = ok
+
+        def add(a, b):
+            """Accumulate constraint a*v0 + b >= 0 (a static int)."""
+            nonlocal vlo, vhi, okc
+            b = _as_i64(b, p0)
+            if a > 0:
+                vlo = torch.maximum(vlo, _cdiv(-b, a))
+            elif a < 0:
+                vhi = torch.minimum(vhi, b // (-a))
+            else:
+                okc = okc & (b >= 0)
+
+        for l in range(1, lv + 1):
+            lp = nest.loops[l]
+            s, sc = nt.vals["startb"][l], lp.start_coeff
+            tr, tc = nt.vals["trips"][l], lp.trip_coeff
+            dom = doms.get(l)
+            if dom is None:
+                add(tc, tr - 1)  # trip(v0) >= 1
+            elif dom[0] == "fixval":
+                u = dom[1]
+                add(-sc, u - s)  # index >= 0
+                add(tc + sc, tr - u + s - 1)  # index < trip(v0)
+            else:
+                va, vb = dom[1], dom[2]
+                add(tc, tr - 1)
+                add(-sc, vb - s - 1)  # interval reaches index > 0
+                add(tc + sc, tr - va + s - 1)  # interval start < trip
+        n_lo = torch.minimum((vlo - start0).clamp(min=0), trip0)
+        m_a = torch.maximum(m0 + 1, sched.count_below(tid, n_lo))
+        ok_a = okc & (m_a < l_count)
+        m_ac = m_a.clamp(0, lmax)
+        v0a = sched.local_to_value(tid, m_ac)
+        ok_a = ok_a & (v0a >= vlo) & (v0a <= vhi)
+        return v0a, base_of(m_ac), ok_a
+
+    bests = {j: torch.full_like(p0, INF) for j in sinks}
+    true_ = torch.ones_like(p0, dtype=torch.bool)
+
+    def emit(fixed_vals, ok):
+        doms = {l: v for l, v in fixed_vals.items() if l != 0}
+        if 0 in fixed_vals:
+            u0 = fixed_vals[0][1]
+            n0 = u0 - start0
+            okf = ok & (n0 >= 0) & (n0 < trip0)
+            okf = okf & (sched.owner_tid(n0) == tid)
+            basef = base_of(sched.local_index(n0))
+            for j in sinks:
+                bests[j] = torch.minimum(
+                    bests[j], min_inner_pos(doms, u0, basef, okf, j)
+                )
+        else:
+            v0a, base_a, ok_a = later_m_context(doms, ok)
+            for j in sinks:
+                pos = torch.minimum(
+                    min_inner_pos(doms, v0_0, base_0, ok, j),
+                    min_inner_pos(doms, v0a, base_a, ok_a, j),
+                )
+                bests[j] = torch.minimum(bests[j], pos)
 
     _band_candidates(nt, sink_idx, line * W, W, true_, emit)
     return bests

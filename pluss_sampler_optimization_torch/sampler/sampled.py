@@ -34,8 +34,12 @@ cache line, solved in closed form (sampler/nextuse.py); samples whose
 line is never touched again flush as -1 (cold); share samples are
 classified at the sink reference's carried threshold.
 
-Not in this slice (each raises NotImplementedError naming its ROADMAP
-item): triangular nests and runtime-v2 raw-noshare states.
+Triangular nests (inner bounds affine in the parallel value) take the
+per-thread base table for positions (core/trace.py::tri_position) and
+nextuse.py's triangular solver; the closed form needs unit steps there,
+and a triangular nest with another step raises NotImplementedError, as
+in the JAX package. Runtime-v2 raw-noshare states are not ported yet
+(they raise NotImplementedError naming ROADMAP A2).
 """
 
 from __future__ import annotations
@@ -261,10 +265,6 @@ def _sample_geometry(nt: NestTrace, ref_idx: int, samples, rx=None):
     differ only in offsets/affine constants (the read/write halves of
     `C[i][j] +=`) share one dispatch; ref_idx supplies the static
     structure (level, slot layout)."""
-    if nt.tri:
-        raise NotImplementedError(
-            "triangular nests are not ported yet (ROADMAP A1)"
-        )
     t = nt.tables
     sched = nt.schedule
     rx = ref_idx if rx is None else rx
@@ -277,10 +277,17 @@ def _sample_geometry(nt: NestTrace, ref_idx: int, samples, rx=None):
         nt.start_at(l, v0) + n[l] * nt.nest.loops[l].step
         for l in range(1, lv + 1)
     ]
-    p0 = nt.access_position(
-        ref_idx, m, n[1] if lv >= 1 else 0, n[2] if lv >= 2 else 0,
-        rx=rx,
-    )
+    if nt.tri:
+        base = nt.vals["tri_base"][tid, m]
+        p0 = nt.tri_position(
+            ref_idx, v0, base, n[1] if lv >= 1 else 0,
+            n[2] if lv >= 2 else 0,
+        )
+    else:
+        p0 = nt.access_position(
+            ref_idx, m, n[1] if lv >= 1 else 0, n[2] if lv >= 2 else 0,
+            rx=rx,
+        )
     flat = torch.zeros_like(p0) + nt.vals["const"][rx]
     for l in range(lv + 1):
         flat = flat + vals[l] * nt.vals["coeff"][rx][l]
@@ -308,18 +315,29 @@ def _sink_groups(nt: NestTrace, ref_idx: int) -> list:
     return list(groups.values())
 
 
-def _best_sink(nt: NestTrace, ref_idx: int, tid, p0, line):
+def _best_sink(nt: NestTrace, ref_idx: int, tid, p0, line, m0):
     """Min next-use position over same-array sink refs + argmin sink.
 
     Sinks sharing one flat map are solved as a group: the band
     candidates and level specs are built once, each member pays only
-    its own position reduction."""
-    from .nextuse import next_use_candidates_group
+    its own position reduction. `m0` (each sample's thread-local
+    parallel index) is read by the triangular solver only."""
+    from .nextuse import (
+        next_use_candidates_group,
+        next_use_candidates_tri_group,
+    )
 
     best = torch.full_like(p0, INF)
     best_sink = torch.zeros_like(p0)
     for sinks in _sink_groups(nt, ref_idx):
-        bests = next_use_candidates_group(nt, tuple(sinks), tid, p0, line)
+        if nt.tri:
+            bests = next_use_candidates_tri_group(
+                nt, tuple(sinks), tid, p0, line, m0
+            )
+        else:
+            bests = next_use_candidates_group(
+                nt, tuple(sinks), tid, p0, line
+            )
         for j in sinks:
             pj = bests[j]
             take = pj < best
@@ -339,8 +357,8 @@ def classify_samples(nt: NestTrace, ref_idx: int, samples, rx=None):
     hold tensors on the samples' device (ops/sampled_hist.torch_vals).
     """
     t = nt.tables
-    tid, p0, line, _ = _sample_geometry(nt, ref_idx, samples, rx)
-    best, best_sink = _best_sink(nt, ref_idx, tid, p0, line)
+    tid, p0, line, m0 = _sample_geometry(nt, ref_idx, samples, rx)
+    best, best_sink = _best_sink(nt, ref_idx, tid, p0, line, m0)
     found = best < INF
     ri = torch.where(found, best - p0, 0)
     thr = nt.vals["thr"][best_sink]
@@ -367,8 +385,8 @@ def per_sample_ri(
     nt = nt.with_vals(torch_vals(nt.vals, dev))
     samples = torch.as_tensor(np.asarray(samples, dtype=np.int64),
                               device=dev)
-    tid, p0, line, _ = _sample_geometry(nt, ref_idx, samples)
-    best, best_sink = _best_sink(nt, ref_idx, tid, p0, line)
+    tid, p0, line, m0 = _sample_geometry(nt, ref_idx, samples)
+    best, best_sink = _best_sink(nt, ref_idx, tid, p0, line, m0)
     found = best < INF
     return (
         p0.cpu().numpy(),
@@ -476,14 +494,17 @@ def _ref_sig_digest(nt: NestTrace, ref_idx: int) -> str:
 
 
 def _program_rows(program: Program, machine: MachineConfig):
-    """(trace, [(nest index, ref index, signature digest), ...])."""
+    """(trace, [(nest index, ref index, signature digest), ...]).
+    Raises NotImplementedError for a triangular nest with a non-unit
+    step, which the closed-form next-use does not cover (the JAX
+    package's gate)."""
     trace = ProgramTrace(program, machine)
     rows = []
     for k, nt in enumerate(trace.nests):
-        if nt.tri:
+        if nt.tri and any(lp.step != 1 for lp in nt.nest.loops):
             raise NotImplementedError(
-                f"{program.name}: triangular nests are not ported yet "
-                "(ROADMAP A1)"
+                f"{program.name}: the closed-form next-use supports "
+                "triangular nests with unit steps only"
             )
         for ri in range(nt.tables.n_refs):
             rows.append((k, ri, _ref_sig_digest(nt, ri)))
@@ -513,19 +534,21 @@ def _host_fuse_plan(s: int, batch: int) -> tuple[int, int]:
 
 
 def bucket_dispatch(nt, ref_idx, keys_RB, mask_RB, highs, rx_R,
-                    capacity: int, backend: str = "auto", desc=None):
+                    capacity: int, backend: str = "auto", desc=None,
+                    tri_base=None):
     """One bucket dispatch: the fused kernel, then the exact pair
     reduction of its residual stream per member. Returns
     (share_keys[R,cap], share_counts[R,cap], n_unique[R], cold[R],
     noshare_hist[R,64]) and a `reduce(capacity)` that redoes only the
     pair reduction (the kernel's outputs do not depend on capacity).
     `mask_RB` None means every lane is live. `desc` is the kernel's
-    descriptor (ops/sampled_hist.py::build_descriptor), built once per
-    bucket."""
+    descriptor (ops/sampled_hist.py::build_descriptor) and `tri_base` a
+    triangular nest's base table on the device (`tri_table`), both made
+    once per bucket."""
     from ..ops.sampled_hist import sampled_hist
 
     residual, hist, cold = sampled_hist(
-        nt, ref_idx, keys_RB, mask_RB, highs, rx_R, backend, desc
+        nt, ref_idx, keys_RB, mask_RB, highs, rx_R, backend, desc, tri_base
     )
 
     def reduce(cap):
@@ -565,6 +588,8 @@ class Dispatch(NamedTuple):
     highs: np.ndarray  # padded to MAX_DEPTH
     rx_R: torch.Tensor  # int64 [R]: each member's ref index
     desc: np.ndarray | None  # the kernel's descriptor (kernel routes)
+    # a triangular nest's base table on the device (kernel routes)
+    tri_base: torch.Tensor | None = None
 
 
 def plan_dispatches(trace: ProgramTrace, rows, cfg: SamplerConfig,
@@ -585,7 +610,7 @@ def plan_dispatches(trace: ProgramTrace, rows, cfg: SamplerConfig,
     host seconds of the draw ("draw", which ends in the device draw's
     host read of its counts) and of stacking and copying host keys to
     the device ("stage")."""
-    from ..ops.sampled_hist import build_descriptor
+    from ..ops.sampled_hist import build_descriptor, tri_table
     from .draw import draw_bucket_keys_device
 
     use_dev = _use_device_draw(cfg, dev)
@@ -594,9 +619,9 @@ def plan_dispatches(trace: ProgramTrace, rows, cfg: SamplerConfig,
         ri0 = members[0][1]
         highs, _ = _sample_highs(nt, ri0, cfg)
         ph = _pad_highs(highs)
-        desc = None
+        desc = tri = None
         if dev.type == "cuda" and backend != "torch":
-            desc = build_descriptor(nt, ri0)
+            desc, tri = build_descriptor(nt, ri0), tri_table(nt, dev)
 
         def rx(mem):
             return torch.tensor([ri for _, ri in mem], dtype=torch.int64,
@@ -624,7 +649,7 @@ def plan_dispatches(trace: ProgramTrace, rows, cfg: SamplerConfig,
                     yield Dispatch(nt, ri0, mem, [g.s] * len(mem),
                                    g.keys[:, lo:lo + span_len],
                                    g.chosen[:, lo:lo + span_len], ph, rx_R,
-                                   desc)
+                                   desc, tri)
         if not host_members:
             continue
         with _span(spans, "draw"):
@@ -643,7 +668,7 @@ def plan_dispatches(trace: ProgramTrace, rows, cfg: SamplerConfig,
                     np.stack([ka[lo:lo + span_len] for ka in keys_list])
                 ).to(dev)
             yield Dispatch(nt, ri0, host_members, n_samples, keys_RB, None,
-                           ph, rx_R, desc)
+                           ph, rx_R, desc, tri)
 
 
 def sampled_outputs(
@@ -684,7 +709,7 @@ def sampled_outputs(
         with _span(spans, "dispatch"):
             out, reduce = bucket_dispatch(
                 d.nt, d.ref_idx, d.keys_RB, d.mask_RB, d.highs, d.rx_R, cap,
-                backend, d.desc,
+                backend, d.desc, d.tri_base,
             )
             mk, mc, max_nu, cold, nh = (x.cpu().numpy() for x in out)
             dispatch_cap = cap

@@ -3,7 +3,8 @@
 `run_workers(world, device)` starts one Python process per rank on
 localhost (gloo for device "cpu", NCCL for "cuda", one card per rank),
 each running `initialize_distributed` -> `build_global_mesh` ->
-`run_sampled_sharded` on GEMM N=`n`, and returns what each rank printed.
+`run_sampled_sharded` on GEMM N=`n` (or the registry's `model` built
+with `args`), and returns what each rank printed.
 `expected(device)` is the single-process answer the ranks must give.
 The host draw by default; `cfg=DEVICE_DRAW, runs=DEVICE_RUNS` takes
 the device draw, which every rank replays on its own device (its
@@ -20,7 +21,7 @@ import subprocess
 import sys
 
 import pluss_sampler_optimization_torch as T
-from pluss_sampler_optimization_torch.models import gemm
+from pluss_sampler_optimization_torch.models import REGISTRY
 from pluss_sampler_optimization_torch.parallel import run_sampled_sharded
 from pluss_sampler_optimization_torch.runtime.baseline import state_to_json
 
@@ -38,14 +39,14 @@ WORKER = r"""
 import dataclasses, json, sys
 import torch.distributed as dist
 import pluss_sampler_optimization_torch as T
-from pluss_sampler_optimization_torch.models import gemm
+from pluss_sampler_optimization_torch.models import REGISTRY
 from pluss_sampler_optimization_torch.parallel import (
     build_global_mesh, initialize_distributed, run_sampled_sharded)
 from pluss_sampler_optimization_torch.runtime.baseline import state_to_json
 
-addr, world, rank, device, n, cfg, runs = (
+addr, world, rank, device, prog, cfg, runs = (
     sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
-    int(sys.argv[5]), json.loads(sys.argv[6]), json.loads(sys.argv[7]))
+    json.loads(sys.argv[5]), json.loads(sys.argv[6]), json.loads(sys.argv[7]))
 initialize_distributed(addr, world, rank, device=device)
 initialize_distributed(addr, world, rank, device=device)  # no-op
 try:
@@ -57,8 +58,8 @@ mesh = build_global_mesh()
 out = []
 for kw in runs:
     state, results = run_sampled_sharded(
-        gemm(n), T.MachineConfig(), T.SamplerConfig(**cfg), mesh,
-        device=device, **kw)
+        REGISTRY[prog[0]](*prog[1]), T.MachineConfig(),
+        T.SamplerConfig(**cfg), mesh, device=device, **kw)
     out.append({"state": state_to_json(state),
                 "results": [dataclasses.asdict(r) for r in results]})
 print(json.dumps({
@@ -77,15 +78,22 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _program(n: int, model: str, args) -> list:
+    """[model, args] as the worker builds the program."""
+    return [model, list((n,) if args is None else args)]
+
+
 def run_workers(world: int, device: str, n: int = 16,
                 timeout: float = 180, cfg: dict = CFG,
-                runs: tuple = RUNS) -> list:
+                runs: tuple = RUNS, model: str = "gemm",
+                args: tuple | None = None) -> list:
     """Each rank's printed dict, in rank order; raises if one fails."""
     addr = f"localhost:{_free_port()}"
     procs = [
         subprocess.Popen(
             [sys.executable, "-c", WORKER, addr, str(world), str(rank),
-             device, str(n), json.dumps(cfg), json.dumps(runs)],
+             device, json.dumps(_program(n, model, args)), json.dumps(cfg),
+             json.dumps(runs)],
             cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True,
         )
@@ -107,10 +115,13 @@ def run_workers(world: int, device: str, n: int = 16,
 
 
 def expected(device: str, n: int = 16, cfg: dict = CFG,
-             batch: int | None = None) -> tuple:
+             batch: int | None = None, model: str = "gemm",
+             args: tuple | None = None) -> tuple:
     """(run_sampled's state, the one-device sharded results), as the
     workers print them."""
-    prog, m, cfg = gemm(n), T.MachineConfig(), T.SamplerConfig(**cfg)
+    name, pargs = _program(n, model, args)
+    prog, m = REGISTRY[name](*pargs), T.MachineConfig()
+    cfg = T.SamplerConfig(**cfg)
     state, _ = T.run_sampled(prog, m, cfg, device=device, batch=batch)
     _, single = run_sampled_sharded(prog, m, cfg, device=device,
                                     batch=batch)
@@ -119,7 +130,8 @@ def expected(device: str, n: int = 16, cfg: dict = CFG,
 
 
 def check_workers(outs: list, device: str, n: int = 16, cfg: dict = CFG,
-                  runs: tuple = RUNS) -> None:
+                  runs: tuple = RUNS, model: str = "gemm",
+                  args: tuple | None = None) -> None:
     """Every rank printed the same runs, each equal to `expected` (at
     the run's batch under the device draw, whose sample sets depend on
     it)."""
@@ -129,9 +141,10 @@ def check_workers(outs: list, device: str, n: int = 16, cfg: dict = CFG,
     assert got["conflict"] == "ValueError"
     assert got["jax"] == []
     assert len(got["runs"]) == len(runs)
-    want = expected(device, n, cfg)
+    want = None
     for kw, run in zip(runs, got["runs"]):
-        if cfg.get("device_draw") and "batch" in kw:
-            want = expected(device, n, cfg, kw["batch"])
+        batch = kw.get("batch") if cfg.get("device_draw") else None
+        if want is None or batch is not None:
+            want = expected(device, n, cfg, batch, model, args)
         assert run["state"] == want[0]
         assert run["results"] == want[1]

@@ -6,7 +6,13 @@ inside it, which the registry's models do not: array S
 has a three-head group (a stride-2 innermost term ends in a check), T a
 two-head group, U constant refs (no head), V one head over an interval,
 and A a window terminal over a descending level. Written against either
-package's IR, so the JAX-free card tests can use it too."""
+package's IR, so the JAX-free card tests can use it too.
+
+`made_tri_program` is its triangular twin (the instantiations
+sampled_hist_kernel<LV, NHMAX, true>): the same arrays over a nest whose
+level 1 ascends with the parallel value (j <= i) and whose level 2
+shrinks from a start that moves with it, reaching zero trips, with
+post-slot refs after a triangular subloop at levels 0 and 1."""
 
 _LOOPS = ((6, 0, 1), (5, 4, -1), (4, 0, 1))  # trip, start, step
 # name, array, level, coeffs, const, share threshold
@@ -32,3 +38,47 @@ def made_program(Loop, ParallelNest, Program, Ref):
     loops = tuple(Loop(t, start=s, step=st) for t, s, st in _LOOPS)
     return Program(name="b1-instantiations",
                    nests=(ParallelNest(loops=loops, refs=refs),))
+
+
+# trip, start, trip coefficient, start coefficient (unit steps: the
+# triangular closed form needs them)
+_TRI_LOOPS = ((6, 0, 0, 0), (1, 0, 1, 0), (5, 1, -1, 1))
+# name, array, level, coeffs, const, share threshold, slot
+_TRI_REFS = (
+    ("S0", "S", 2, (40, 8, 2), 0, None, "pre"),
+    ("S1", "S", 2, (40, 8, 2), 1, None, "pre"),
+    ("S2", "S", 2, (40, 8, 2), 0, 9, "pre"),
+    ("S3", "S", 0, (40,), 0, None, "post"),
+    ("S4", "S", 1, (40, 8), 0, None, "post"),
+    ("T0", "T", 2, (40, 8, 1), 0, None, "pre"),
+    ("T1", "T", 1, (40, 8), 0, None, "pre"),
+    ("T2", "T", 0, (40,), 0, None, "pre"),
+    ("U0", "U", 2, (0, 0, 0), 0, None, "pre"),
+    ("U1", "U", 1, (0, 0), 0, None, "post"),
+    ("U2", "U", 0, (0,), 0, None, "post"),
+    ("V0", "V", 2, (40, 0, 1), 0, None, "pre"),
+    ("A0", "A", 1, (5, 1), 0, None, "pre"),
+    ("A1", "A", 0, (5,), 0, None, "post"),
+)
+
+
+def made_tri_program(Loop, ParallelNest, Program, Ref):
+    refs = tuple(
+        Ref(n, a, level=lv, coeffs=c, const=k, slot=sl) if thr is None
+        else Ref(n, a, level=lv, coeffs=c, const=k, slot=sl,
+                 share_threshold=thr)
+        for n, a, lv, c, k, thr, sl in _TRI_REFS
+    )
+    loops = tuple(Loop(t, start=s, trip_coeff=tc, start_coeff=sc)
+                  for t, s, tc, sc in _TRI_LOOPS)
+    return Program(name="b1-tri-instantiations",
+                   nests=(ParallelNest(loops=loops, refs=refs),))
+
+
+def tri_step2_program(Loop, ParallelNest, Program, Ref):
+    """A triangular nest with a step of 2, which the closed-form next-use
+    does not cover (the JAX package's tests/test_sampled.py program)."""
+    return Program(name="tri-step2", nests=(ParallelNest(
+        loops=(Loop(8, step=2), Loop(trip=1, trip_coeff=1)),
+        refs=(Ref("A0", "A", level=1, coeffs=(8, 1)),),
+    ),))

@@ -12,6 +12,9 @@
   reduction, equal the JAX package's Pallas kernel (interpret mode) on
   the small program of tests/test_pallas.py.
 
+The triangular models (syrk-tri, trmm, trisolv, covariance) and B1's
+triangular walk are held the same way in tests/test_torch_tri.py.
+
 Every comparison is exact.
 """
 
@@ -104,7 +107,7 @@ def host_twin(tmp_path_factory):
     )
     fn = ctypes.CDLL(str(out)).sampled_hist_host
     p, q = ctypes.c_void_p, ctypes.c_longlong
-    fn.argtypes = [p, p, q, q, p, ctypes.c_int, p, p, p, p, p]
+    fn.argtypes = [p, p, q, q, p, ctypes.c_int, p, p, p, p, p, p]
     fn.restype = ctypes.c_int
 
     def run(nt, ri0, keys, mask, highs, rx):
@@ -115,10 +118,12 @@ def host_twin(tmp_path_factory):
         cold = np.zeros(R, np.int64)
         m8 = None if mask is None else mask.astype(np.uint8)
         hrec = sh.radix_records(highs)
+        tri = (np.ascontiguousarray(nt.tri_base, np.int64) if nt.tri
+               else None)
         rc = fn(keys.ctypes.data, None if m8 is None else m8.ctypes.data,
                 R, B, d.ctypes.data, len(d), hrec.ctypes.data,
-                rx.ctypes.data, res.ctypes.data, hist.ctypes.data,
-                cold.ctypes.data)
+                rx.ctypes.data, None if tri is None else tri.ctypes.data,
+                res.ctypes.data, hist.ctypes.data, cold.ctypes.data)
         assert rc == 0
         return res, hist, cold
 
@@ -179,7 +184,7 @@ def test_host_twin_reaches_every_level_instantiation(host_twin):
     out = [np.zeros(n, np.int64) for n in (4, sh.N_BINS, 1)]
     hrec, rx = sh.radix_records([1, 1, 1]), np.zeros(1, np.int64)
     assert host_twin.raw(keys.ctypes.data, None, 1, 4, d.ctypes.data, len(d),
-                         hrec.ctypes.data, rx.ctypes.data,
+                         hrec.ctypes.data, rx.ctypes.data, None,
                          *(x.ctypes.data for x in out)) == 1
 
 
@@ -226,7 +231,7 @@ def test_host_twin_runs_every_instantiation(host_twin):
             )
             for a, b in zip(got, want):
                 np.testing.assert_array_equal(a, b.numpy())
-    assert seen == {(lv, nh) for lv in range(3) for nh in (1, 3)}
+    assert seen == {(lv, nh, False) for lv in range(3) for nh in (1, 3)}
     assert heads == {(lv, nh) for lv in range(3) for nh in range(4)}
 
 

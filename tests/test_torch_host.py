@@ -20,10 +20,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_made import tri_step2_program
 
 import pluss_sampler_optimization_torch as T
 import pluss_sampler_optimization_tpu as J
 from pluss_sampler_optimization_torch.core.trace import ProgramTrace as TTrace
+from pluss_sampler_optimization_torch.ir import (
+    Loop as TLoop,
+    ParallelNest as TNest,
+    Program as TProgram,
+    Ref as TRef,
+)
 from pluss_sampler_optimization_torch.models import REGISTRY as T_MODELS
 from pluss_sampler_optimization_torch.ops.histogram import (
     sorted_k_unique as t_sorted_k_unique,
@@ -185,9 +192,11 @@ def test_unported_routes_raise():
     prog, m = T_MODELS["gemm"](8), T.MachineConfig()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.run_sampled(prog, m, T.SamplerConfig(), v2=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.run_sampled(T_MODELS["trmm"](8), m, T.SamplerConfig(),
-                      device="cpu")
+    # a triangular nest runs (tests/test_torch_tri.py) unless a step is
+    # not 1, which the closed form does not cover
+    step2 = tri_step2_program(TLoop, TNest, TProgram, TRef)
+    with pytest.raises(NotImplementedError, match="unit steps"):
+        T.run_sampled(step2, m, T.SamplerConfig(), device="cpu")
     # the kernel backend on CPU tensors is an error, not the plain path
     with pytest.raises(ValueError, match="CUDA tensors"):
         T.run_sampled(prog, m, T.SamplerConfig(kernel_backend="cuda"),

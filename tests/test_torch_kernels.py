@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 from _torch_dist import check_workers, run_workers
-from _torch_made import made_program
+from _torch_made import made_program, made_tri_program
 
 import pluss_sampler_optimization_torch as T
 from pluss_sampler_optimization_torch.ir import (
@@ -103,7 +103,48 @@ def test_kernel_matches_plain_on_every_instantiation(cuda):
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert torch.equal(a, b)
-    assert seen == {(lv, nh) for lv in range(3) for nh in (1, 3)}
+    assert seen == {(lv, nh, False) for lv in range(3) for nh in (1, 3)}
+
+
+def test_kernel_matches_plain_on_every_triangular_instantiation(cuda):
+    """The made triangular program launches all 6 triangular
+    instantiations (LV 0-2 by NHMAX 1 and 3) under the device draw and
+    the host draw, each equal to the plain version."""
+    prog = made_tri_program(Loop, ParallelNest, Program, Ref)
+    trace, rows = S._program_rows(prog, T.MachineConfig())
+    seen = set()
+    for dd in (True, False):
+        cfg = T.SamplerConfig(ratio=0.6, seed=3, device_draw=dd)
+        for d in S.plan_dispatches(trace, rows, cfg, cuda, 1 << 20, "cuda"):
+            seen.add(sh.instantiation(d.desc))
+            args = (d.keys_RB, d.mask_RB, d.highs, d.rx_R)
+            got = sh.sampled_hist(d.nt, d.ref_idx, *args, desc=d.desc,
+                                  tri_base=d.tri_base)
+            want = sh.sampled_hist_plain(d.nt, d.ref_idx, *args)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+    assert seen == {(lv, nh, True) for lv in range(3) for nh in (1, 3)}
+
+
+@pytest.mark.parametrize("name", ["syrk-tri", "trmm", "trisolv",
+                                  "covariance"])
+def test_triangular_run_sampled_kernel_equals_plain_on_card(name, cuda):
+    """The triangular models at N=64: the kernel route (B3's triangular
+    draw, B1's triangular walk) folds to the plain route's state, and to
+    the CPU's under the host draw."""
+    prog, m = REGISTRY[name](64), T.MachineConfig()
+    for dd in (True, False):
+        cfg = T.SamplerConfig(ratio=0.2, seed=0, device_draw=dd)
+        n0 = sh.LAUNCHES
+        got, _ = S.run_sampled(prog, m, cfg)
+        assert sh.LAUNCHES > n0
+        plain, _ = S.run_sampled(
+            prog, m, dataclasses.replace(cfg, kernel_backend="torch"))
+        assert state_to_json(got) == state_to_json(plain)
+        if not dd:
+            cpu, _ = S.run_sampled(prog, m, cfg, device="cpu")
+            assert state_to_json(got) == state_to_json(cpu)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):

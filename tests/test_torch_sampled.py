@@ -40,7 +40,11 @@ def _mrc(cri, aet, state, machine):
     return aet.aet_mrc(cri.cri_distribute(state, T_, T_), machine)
 
 
-@pytest.mark.parametrize("name", ["gemm", "2mm", "jacobi-2d"])
+@pytest.mark.parametrize("name", [
+    "gemm", "2mm", "jacobi-2d",
+    # the triangular nests (tests/test_torch_tri.py holds their classify)
+    "syrk-tri", "trmm", "trisolv", "covariance",
+])
 def test_run_sampled_folds_like_jax(name):
     jm, tm = J.MachineConfig(), T.MachineConfig()
     js, jres = j_run_sampled(
@@ -106,8 +110,12 @@ def test_host_draw_matches_jax_stream():
                     assert ha == hb
 
 
-def test_sample_cli_prints_the_jax_lines(capsys):
-    args = ["sample", "--model", "gemm", "--n", "16", "--ratio", str(RATIO)]
+@pytest.mark.parametrize("model,n,ratio", [
+    ("gemm", 16, RATIO),
+    ("trmm", 12, 0.3),  # a triangular nest
+])
+def test_sample_cli_prints_the_jax_lines(model, n, ratio, capsys):
+    args = ["sample", "--model", model, "--n", str(n), "--ratio", str(ratio)]
     assert j_main(args + ["--platform", "cpu"]) == 0
     want = capsys.readouterr().out
     assert t_main(args + ["--device", "cpu"]) == 0

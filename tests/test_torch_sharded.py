@@ -30,11 +30,25 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_dist import check_workers, run_workers
+from _torch_dist import (
+    CFG,
+    DEVICE_DRAW,
+    DEVICE_RUNS,
+    RUNS,
+    check_workers,
+    run_workers,
+)
+from _torch_made import tri_step2_program
 
 import pluss_sampler_optimization_torch as T
 import pluss_sampler_optimization_tpu as J
 from pluss_sampler_optimization_torch.cli import main as t_main
+from pluss_sampler_optimization_torch.ir import (
+    Loop as TLoop,
+    ParallelNest as TNest,
+    Program as TProgram,
+    Ref as TRef,
+)
 from pluss_sampler_optimization_torch.models import REGISTRY as T_MODELS
 from pluss_sampler_optimization_torch.ops import histogram as TH
 from pluss_sampler_optimization_torch.ops import pow2_hist as TP
@@ -277,23 +291,57 @@ def _dense_equal(jd, td):
         np.testing.assert_array_equal(b, np.asarray(a))
 
 
-@pytest.mark.parametrize("name,n,n_dev,ratio,seed", [
-    ("gemm", 16, 1, 0.25, 3), ("gemm", 16, 2, 0.25, 3),
-    ("gemm", 16, 8, 0.25, 3), ("2mm", 8, 8, 0.25, 3),
+def _case(name, n, n_dev, ratio, seed, device_draw=None, args=None):
+    """A case of test_sampled_outputs_sharded_matches_jax; the GEMM and
+    2mm cases keep their ids."""
+    cid = "-".join(str(x) for x in (name, n, n_dev, ratio, seed))
+    if device_draw is not None or args is not None:
+        cid = "-".join([name, *(str(a) for a in (args or (n,))),
+                        str(n_dev), "device" if device_draw else "host"])
+    return pytest.param(name, n, n_dev, ratio, seed, device_draw, args,
+                        id=cid)
+
+
+@pytest.mark.parametrize("name,n,n_dev,ratio,seed,device_draw,args", [
+    _case("gemm", 16, 1, 0.25, 3), _case("gemm", 16, 2, 0.25, 3),
+    _case("gemm", 16, 8, 0.25, 3), _case("2mm", 8, 8, 0.25, 3),
+    # triangular nests on 8 shards, under each draw
+    _case("trmm", 12, 8, 0.25, 3, False),
+    _case("trmm", 12, 8, 0.25, 3, True),
+    _case("covariance", 8, 8, 0.25, 3, False, (8, 6)),
+    _case("covariance", 8, 8, 0.25, 3, True, (8, 6)),
 ])
-def test_sampled_outputs_sharded_matches_jax(name, n, n_dev, ratio, seed):
-    jres, jd = j_outputs_sharded(
-        J_MODELS[name](n), J.MachineConfig(),
-        J.SamplerConfig(ratio=ratio, seed=seed), mesh=j_build_mesh(n_dev),
-    )
+def test_sampled_outputs_sharded_matches_jax(name, n, n_dev, ratio, seed,
+                                             device_draw, args):
+    """The per-ref results fold to run_sampled's state and MRC bytes. The
+    rectangular cases also equal the JAX package's sharded engine (per-ref
+    results and pow2 histograms); the triangular ones are held against
+    run_sampled, which tests/test_torch_tri.py holds against the JAX
+    package (its sharded engine would compile a kernel per ref for
+    minutes here). The device draw runs at batch 64, which 8 shards
+    divide, on both sides."""
+    args = (n,) if args is None else args
+    m = T.MachineConfig()
+    cfg = T.SamplerConfig(ratio=ratio, seed=seed, device_draw=device_draw)
+    kw = {"batch": 64} if device_draw else {}
     tres, td = t_outputs_sharded(
-        T_MODELS[name](n), T.MachineConfig(),
-        T.SamplerConfig(ratio=ratio, seed=seed), mesh=_cpu_mesh(n_dev),
-        device="cpu",
+        T_MODELS[name](*args), m, cfg, mesh=_cpu_mesh(n_dev), device="cpu",
+        **kw,
     )
-    _results_equal(jres, tres)
-    _dense_equal(jd, td)
+    if device_draw is None:
+        jres, jd = j_outputs_sharded(
+            J_MODELS[name](n), J.MachineConfig(),
+            J.SamplerConfig(ratio=ratio, seed=seed),
+            mesh=j_build_mesh(n_dev),
+        )
+        _results_equal(jres, tres)
+        _dense_equal(jd, td)
     assert all(d.any() for d in td)
+    want, _ = T.run_sampled(T_MODELS[name](*args), m, cfg, device="cpu",
+                            **kw)
+    state = TS.fold_results(tres, m.thread_num)
+    assert t_state_json(state) == t_state_json(want)
+    assert _mrc(state, m).tobytes() == _mrc(want, m).tobytes()
 
 
 def _mrc(state, machine):
@@ -329,9 +377,9 @@ def test_sharded_folds_like_run_sampled_and_jax_v2():
 
 def test_sharded_unported_routes_and_meshes_raise(monkeypatch):
     m = T.MachineConfig()
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        t_run_sharded(T_MODELS["trmm"](8), m, T.SamplerConfig(),
-                      device="cpu")
+    with pytest.raises(NotImplementedError, match="unit steps"):
+        t_run_sharded(tri_step2_program(TLoop, TNest, TProgram, TRef), m,
+                      T.SamplerConfig(), device="cpu")
     with pytest.raises(ValueError, match="mesh size dividing"):
         t_run_sharded(T_MODELS["gemm"](8), m,
                       T.SamplerConfig(device_draw=True), _cpu_mesh(3),
@@ -391,11 +439,28 @@ def test_sharded_path_imports_no_jax():
 # --- processes over gloo ---------------------------------------------
 
 
-@pytest.mark.parametrize("world", [2, 4])
-def test_gloo_processes_match_the_single_process_engine(world):
+def _gloo(world, model="gemm", args=None, device_draw=False):
+    """A case of the gloo test; GEMM's keep their ids (the world size)."""
+    cid = str(world) if model == "gemm" else "-".join(
+        [str(world), model, *(str(a) for a in args),
+         "device" if device_draw else "host"])
+    return pytest.param(world, model, args, device_draw, id=cid)
+
+
+@pytest.mark.parametrize("world,model,args,device_draw", [
+    _gloo(2), _gloo(4),
+    _gloo(2, "trmm", (12,)), _gloo(2, "trmm", (12,), True),
+    _gloo(2, "covariance", (8, 6)), _gloo(2, "covariance", (8, 6), True),
+])
+def test_gloo_processes_match_the_single_process_engine(world, model, args,
+                                                         device_draw):
     """Both (all) ranks print identical results, equal to run_sampled's
     state and the one-device sharded results; a repeated identical
-    initialize_distributed is a no-op and a conflicting one raises."""
-    outs = run_workers(world, "cpu")
+    initialize_distributed is a no-op and a conflicting one raises. The
+    triangular cases run under each draw (the device draw replayed by
+    every rank; at one batch, which keeps the ranks' collectives few)."""
+    cfg, runs = (DEVICE_DRAW, DEVICE_RUNS[:1]) if device_draw else (CFG, RUNS)
+    outs = run_workers(world, "cpu", cfg=cfg, runs=runs, model=model,
+                       args=args)
     assert outs[0]["mesh"] == ["cpu"] * world
-    check_workers(outs, "cpu")
+    check_workers(outs, "cpu", cfg=cfg, runs=runs, model=model, args=args)
