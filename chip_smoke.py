@@ -16,16 +16,22 @@ each printing its own lines; any failure exits non-zero:
    sampled_hist_kernel<LV, NHMAX, TRI>: source-ref level 0-2 by most
    band-plan heads per sink group, 1 for at most one, 3 for up to
    three, by rectangular or triangular nest; B2 has 2, pow2_hist_kernel<BOOL_W> for bool and int64
-   weights; B3 has 2, randint_kernel and bits_kernel);
+   weights; B3 has 10, randint_kernel<KIND, EDGE> by the span's
+   remainder record (0 a power of two, 1 above 2^32, 2 below it) and
+   bits_kernel<EDGE, MASK>), with each B3 instantiation's SASS
+   instructions per pipe (cuobjdump); B3 must have 0 B stack and spills;
 3. B2 vs plain on made inputs: a numpy-seeded 2^20 input over all 64
    bins (0, negatives and 2^62-1 included) with bool and with int
    weights, the same as misaligned views (values[1:], weights[3:]),
    tiny inputs (1 and 17 elements), and a same-bin weight total of
    exactly 2^31; bit-equal;
 4. B3 vs plain on made inputs: both entries on made keys, 1 and 3 rows
-   of 1, 17, 2^14+3 and 2^20 elements, spans 1, 2, 3, 2^32-1, 2^32,
-   2^32+1 (randint's multiplier wraps to 0 past 2^32), 2^45-1, GEMM-2048's
-   depth-3 box and 2^46, bits with and without a valid mask; bit-equal;
+   of 1, 17, 1023, 1026, 2^14+3 and 2^20 elements (ragged rows and whole
+   blocks), spans of every remainder kind (B3_MADE_SPANS: 1, 2, 3,
+   2^32-1, 2^32, 2^32+1, 2^45-1, 2^46, primes, and the GEMM-2048 and
+   syrk-tri N=1536 boxes), bits with and without a valid mask, a mask
+   one byte off alignment, and columns cut into several launches (a
+   small SEGMENT); bit-equal;
 5. B1 vs plain: every dispatch of the main path (the engine's own
    plan_dispatches: its device-drawn keys, chosen masks and column
    spans) through the CUDA kernel and through its plain torch version
@@ -33,9 +39,20 @@ each printing its own lines; any failure exits non-zero:
    equal; both are timed with CUDA events, and each dispatch's
    instantiation is printed. The draws of that run are recorded;
 6. B3 vs plain on every draw of the main path (the engine's own keys,
-   B, R and span, and its valid masks); bit-equal; timed per run as
-   torch.profiler device time (CUDA events where the trace records
-   none) beside the plain version's CUDA-event time and the bound;
+   B, R and span, and its valid masks); bit-equal; timed per run,
+   randint and bits apart, as torch.profiler device time (CUDA events
+   where the trace records none) beside the plain version's CUDA-event
+   time and the bound by bytes and by the operations the streams need
+   per pipe (B3_BLOCK), the built code's SASS counts per pipe (the
+   instantiation each call takes) beside it. The headline's and
+   syrk-tri's draws (phases 8 and 13) are held and timed the same way;
+6b. the draw span broken down: one draw of every bucket of GEMM --n
+   (2048) and 2*--n (4096) through the engine (draw_bucket_keys_device)
+   under torch.profiler, each step's device time from its profiler
+   range in sampler/draw.py (draw.STEPS: B3 randint, the keys' sort,
+   the neighbour compare, B3 bits, the priorities' sort, the threshold
+   select, the host read), the draw checked equal to the same draw
+   without the profiler;
 7. main path, device draw: run_sampled -> cri_distribute -> aet_mrc on
    the card, once with kernel_backend "cuda" (B3 + B1) and once with
    "torch" (plain draw and classify), each with its host seconds per
@@ -46,7 +63,8 @@ each printing its own lines; any failure exits non-zero:
    baselines/gemm<N>.json.gz must be at most 0.01;
 8. headline, device draw: one "cuda" run at GEMM N=2*--n (4096),
    with wall, spans, launches and the MRC L1 error against
-   baselines/gemm4096.json.gz (at most 0.01);
+   baselines/gemm4096.json.gz (at most 0.01); its B3 calls held
+   against plain and timed as in phase 6;
 9. host-draw path: the same two runs at GEMM N=--n/2 (1024) with
    device_draw=False: equal states and MRC bytes, L1 against
    baselines/gemm1024.json.gz at most 0.01;
@@ -77,12 +95,14 @@ each printing its own lines; any failure exits non-zero:
    at most 0.01;
 15. the other triangular models at PolyBench LARGE, trmm(1000, 1200),
    trisolv(2000) and covariance(1200, 1400), with "cuda" and "torch":
-   B1 and B3 launched, equal states and MRC bytes;
+   B1 and B3 launched, equal states and MRC bytes, every B3 call of the
+   "cuda" run bit-equal to plain;
 16. two shards on one card, as phase 12, on trmm(256).
 
 Then one JSON line of kernel numbers (B1 over the dispatches of phases 5
-and 13 and the launches of phases 7, 14 and 15; B2; B3 over the launches
-of phases 7, 14 and 15), the nvidia-smi line,
+and 13 and the launches of phases 7, 14 and 15; B2; B3 timed on the 8
+calls of GEMM-2048's draw, its launches those of phases 7, 8, 14 and
+15), the nvidia-smi line,
 and last the result line {"ok": true, "device": {...}}. Imports nothing
 of JAX.
 """
@@ -123,19 +143,32 @@ REPLACES = "pluss_sampler_optimization_tpu/ops/pallas_sampled.py:126"
 SOURCE = "pluss_sampler_optimization_torch/csrc/sampled_hist.cu"
 SPANS = ("draw", "stage", "dispatch", "decode", "fold", "cri", "aet")
 # Kernel B3 (no Pallas original: the JAX package's XLA draw). Its bound
-# counts 32-bit issues per element, the script's assumptions: a
-# threefry2x32 block is 20 rounds of add, rotate (one funnel shift) and
-# xor (60) plus the key schedule's 2 + 5 x 2 adds (72); a 64-bit
-# remainder by the launch's span at least a multiply-high by a
-# reciprocal, a multiply back, a subtract and a correction (16);
-# randint is one block and one remainder where its multiplier is 0
-# (span > 2^32), else two blocks, three remainders and a 64-bit
-# multiply-add (5); bits is one block, the valid select and the sign
-# flip (3). Bytes: 8 B written per element, 1 B of mask read by bits.
+# is the larger of its bytes (8 B written per element, 1 B of mask read
+# by bits) and the 32-bit operations the function needs per element,
+# counted by hand from what the streams need, not from the built code
+# (whose set-up and index work is the kernel's own cost). A count is
+# (ALU pipe only: rotates, logic, compares; FMA pipe only: multiplies;
+# either pipe: adds):
+# - a threefry2x32 block (B3_BLOCK): 20 rotates and 20 xors; 20 round
+#   adds and 12 key-injection adds;
+# - a remainder by the span's record (ops/threefry_draw.py::
+#   remainder_record; _b3_rem): a power of two one AND per word of the
+#   result; otherwise the quotient (above 2^32 two 32 x 32 products,
+#   below it the 64 x 64 multiply-high: 4 products and 3 adds), q * span
+#   (2 products), the 64-bit subtract (2 adds), compare (2) and
+#   conditional subtract (2 adds);
+# - randint's multiply-add below 2^32 (hi % span * mult + lo % span):
+#   one 32 x 32 + 64 product (B3_MULADD);
+# - bits: the sign flip, one XOR; with a mask the byte's expansion and
+#   an OR into each word, the flip merged into one of them (3 in all).
+# The operations' time is the largest of the ALU-only count and of the
+# FMA-only count at one pipe's rate (INT32_PIPE_PER_S) and of all of
+# them at the issue rate (INT32_ISSUES_PER_S). The built code's SASS
+# counts per pipe are printed at the same rates beside it, to show what
+# the kernel issues beyond what the function needs.
+B3_BLOCK, B3_MULADD = (40, 0, 32), (0, 1, 0)
 B3_REPLACES = "pluss_sampler_optimization_tpu/sampler/draw.py:144"
 B3_SOURCE = "pluss_sampler_optimization_torch/csrc/threefry_draw.cu"
-B3_BLOCK_ISSUES, B3_REM_ISSUES, B3_MULADD_ISSUES = 72, 16, 5
-B3_BITS_EXTRA = 3
 B3_RUN_REPS = 5  # timed passes over all of a run's B3 calls
 # Kernel B2: per element an 8 B value and a 1 B bool weight read (8 B
 # for int weights), the (64,) int64 output written once; 32-bit issues
@@ -157,8 +190,14 @@ BASELINES = (("gemm", (1024,)), ("gemm", (2048,)), ("gemm", (4096,)),
 TRI_MODELS = (("trmm", (1000, 1200)), ("trisolv", (2000,)),
               ("covariance", (1200, 1400)))
 TWO_SHARD_TRI = ("trmm", (256,))
+# every remainder kind and the main paths' boxes: GEMM-2048's depth-3
+# (8,577,357,823) and depth-2 (4,190,209), syrk-tri N=1536's
+# (3,616,805,375 and 2,356,225); primes below 2^32 and 2^46
 B3_MADE_SPANS = (1, 2, 3, (1 << 32) - 1, 1 << 32, (1 << 32) + 1,
-                 (1 << 45) - 1, 8_577_357_823, 1 << 46)
+                 (1 << 45) - 1, 8_577_357_823, 1 << 46, 4_190_209,
+                 3_616_805_375, 2_356_225, 4_294_967_291,
+                 70_368_744_177_643)
+B3_MADE_B = (1, 17, 1023, 1026, (1 << 14) + 3, 1 << 20)
 
 
 def _card_line() -> str:
@@ -250,7 +289,10 @@ def _launches() -> tuple[int, int, int]:
     return sh.LAUNCHES, p2.LAUNCHES, td.LAUNCHES
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build the three sources together; returns B3's SASS counts per
+    instantiation (ops/_build.py::sass_counts). Raises unless every B3
+    entry has 0 B stack and spills."""
     from concurrent.futures import ThreadPoolExecutor
 
     from pluss_sampler_optimization_torch.ops import _build
@@ -269,6 +311,16 @@ def phase_build() -> None:
             print(f"build: {k['name']}: {k.get('registers')} registers, "
                   f"{k.get('stack')} B stack frame, {k.get('spill_stores')} "
                   f"B spill stores, {k.get('spill_loads')} B spill loads")
+    path, log, _ = built[2]
+    for k in _build.ptxas_report(log):
+        if k.get("stack") or k.get("spill_stores") or k.get("spill_loads"):
+            raise AssertionError(f"B3 {k['name']}: stack or spills")
+    sass = _build.sass_counts(path)
+    for name, c in sass.items():
+        print(f"build: B3 SASS {name}: alu {c['alu']}, fma {c['fma']}, "
+              f"uniform {c['uniform']}, other {c['other']}, total "
+              f"{c['total']} instructions per thread")
+    return sass
 
 
 def _b2_compare(label: str, values, weights):
@@ -366,43 +418,60 @@ def phase_b3_made(dev) -> int:
     a difference raises)."""
     import torch
 
+    from pluss_sampler_optimization_torch.ops import threefry_draw as td
+
     rng = np.random.default_rng(11)
     n_calls = 0
     for R in (1, 3):
         keys = [tuple(int(x) for x in rng.integers(0, 1 << 32, size=2))
                 for _ in range(R)]
-        for B in (1, 17, (1 << 14) + 3, 1 << 20):
+        for B in B3_MADE_B:
             for span in B3_MADE_SPANS:
                 _b3_compare(f"randint R={R} B={B} span={span}",
                             ("randint", keys, B, span, dev))
                 n_calls += 1
             valid = torch.from_numpy(rng.random((R, B)) < 0.6).to(dev)
-            for v in (None, valid):
+            flat = torch.from_numpy(rng.random(R * B + 1) < 0.6).to(dev)
+            for v in (None, valid, flat[1:].view(R, B)):
                 _b3_compare(f"bits R={R} B={B}", ("bits", keys, B, v, dev))
                 n_calls += 1
-    print(f"B3 vs plain: {n_calls} made calls (1 and 3 rows of 1, 17, "
-          f"2^14+3 and 2^20 elements; randint spans "
+    # columns in several launches: counters from each launch's low word
+    segment, td.SEGMENT = td.SEGMENT, 1 << 12
+    try:
+        for call in (("randint", keys, 10_001, 8_577_357_823, dev),
+                     ("randint", keys, 10_001, 4_190_209, dev),
+                     ("bits", keys, 10_001, None, dev)):
+            _b3_compare(f"{call[0]} in 3 launches of columns", call)
+            n_calls += 1
+    finally:
+        td.SEGMENT = segment
+    print(f"B3 vs plain: {n_calls} made calls (1 and 3 rows of "
+          f"{', '.join(str(b) for b in B3_MADE_B)} elements; randint spans "
           f"{', '.join(str(x) for x in B3_MADE_SPANS)}; bits with and "
-          "without a valid mask): equal")
+          "without a valid mask and with one a byte off alignment; 10,001 "
+          "columns in 3 launches): equal")
     return 0
 
 
-def _b3_recording():
-    """Wrap sampler/draw.py's two B3 entry points so that every call is
-    recorded as (kind, keys, B, span or a copy of the valid mask,
+def _b3_recording(calls=None):
+    """Wrap sampler/draw.py's two B3 entry points so that every call to
+    the kernel (backend "auto" or "cuda") is appended to `calls` (a new
+    list by default) as (kind, keys, B, span or a copy of the valid mask,
     device); returns (the list, a function restoring the originals)."""
     from pluss_sampler_optimization_torch.sampler import draw
 
-    calls = []
+    calls = [] if calls is None else calls
     randint, bits = draw.threefry_randint, draw.threefry_bits
 
     def rec_randint(keys, B, span, device, backend="auto"):
-        calls.append(("randint", list(keys), B, span, device))
+        if backend != "torch":
+            calls.append(("randint", list(keys), B, span, device))
         return randint(keys, B, span, device, backend)
 
     def rec_bits(keys, B, device, valid=None, backend="auto"):
-        calls.append(("bits", list(keys), B,
-                      None if valid is None else valid.clone(), device))
+        if backend != "torch":
+            calls.append(("bits", list(keys), B,
+                          None if valid is None else valid.clone(), device))
         return bits(keys, B, device, valid, backend)
 
     draw.threefry_randint, draw.threefry_bits = rec_randint, rec_bits
@@ -541,79 +610,217 @@ def _b1_entry(tots) -> dict:
     }
 
 
-def _b3_bound(call) -> tuple[int, int]:
-    """(bytes, 32-bit issues) one B3 call needs (see B3_BLOCK_ISSUES)."""
+def _b3_instantiation(call) -> tuple[str, bool]:
+    """(the kernel instantiation a B3 call launches, whether it takes the
+    bound-checked EDGE form): csrc/threefry_draw.cu::needs_edge for the
+    rows the wrapper allocates (aligned, stride B) and a fresh mask."""
+    from pluss_sampler_optimization_torch.ops import threefry_draw as td
+
+    kind, _, B, arg, _ = call
+    edge = B % (td.CPT * td.THREADS) != 0
+    e = str(edge).lower()
+    if kind == "randint":
+        return f"randint_kernel<{td.remainder_record(arg).kind}, {e}>", edge
+    return f"bits_kernel<{e}, {str(arg is not None).lower()}>", edge
+
+
+def _b3_rem(span: int) -> tuple[int, int, int]:
+    """A remainder by span's record: (ALU only, FMA only, either pipe)."""
+    if span & (span - 1) == 0:
+        return (1 if span <= 1 << 32 else 2, 0, 0)
+    return (2, 4, 4) if span > 1 << 32 else (2, 6, 7)
+
+
+def _b3_need(call) -> dict:
+    """What one B3 call needs: bytes and operations by pipe (see
+    B3_BLOCK), "total" all of them."""
     from pluss_sampler_optimization_torch.sampler.threefry import (
         randint_multiplier,
     )
 
     kind, keys, B, arg, _ = call
     n = len(keys) * B
-    if kind == "randint":
-        per = B3_BLOCK_ISSUES + B3_REM_ISSUES
-        if randint_multiplier(arg) != 0:
-            per = (2 * B3_BLOCK_ISSUES + 3 * B3_REM_ISSUES
-                   + B3_MULADD_ISSUES)
-        return 8 * n, per * n
-    return (8 + (0 if arg is None else 1)) * n, (
-        B3_BLOCK_ISSUES + B3_BITS_EXTRA) * n
+    parts = [B3_BLOCK]
+    if kind == "bits":
+        parts.append((1 if arg is None else 3, 0, 0))
+    elif randint_multiplier(arg):  # two blocks, three remainders
+        parts += [B3_BLOCK, _b3_rem(arg), _b3_rem(arg), _b3_rem(arg),
+                  B3_MULADD]
+    else:
+        parts.append(_b3_rem(arg))
+    alu, fma, either = (sum(p[i] for p in parts) for i in range(3))
+    return {"bytes": (8 + (kind == "bits" and arg is not None)) * n,
+            "alu": alu * n, "fma": fma * n, "total": (alu + fma + either) * n}
 
 
-def phase_b3_engine(calls, max_err: int) -> dict:
-    """B3 vs plain on every draw of the main path, timed per run (all of
-    the run's calls, once each); returns B3's JSON entry (without
-    launches)."""
-    import torch
+def _b3_issued(call, sass: dict) -> dict:
+    """The instructions one B3 call issues by pipe: its threads times the
+    SASS count of its instantiation (the kernel has no loop, so a thread
+    runs each instruction once)."""
+    from pluss_sampler_optimization_torch.ops import threefry_draw as td
 
-    nbytes = ops = 0
+    _, keys, B, _, _ = call
+    name, edge = _b3_instantiation(call)
+    threads = len(keys) * -(-(B + edge) // (td.CPT * td.THREADS)) * td.THREADS
+    return {k: threads * sass[name][k] for k in ("alu", "fma", "total")}
+
+
+def _b3_ops_ms(count: dict) -> dict:
+    """Milliseconds of a count: the ALU and FMA pipes at INT32_PIPE_PER_S,
+    all of it at INT32_ISSUES_PER_S; "ops" the largest."""
+    ms = {"alu": count["alu"] / INT32_PIPE_PER_S * 1e3,
+          "fma": count["fma"] / INT32_PIPE_PER_S * 1e3,
+          "issue": count["total"] / INT32_ISSUES_PER_S * 1e3}
+    return {**ms, "ops": max(ms.values())}
+
+
+def _b3_sum(counts) -> dict:
+    total: dict = {}
+    for c in counts:
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_b3_engine(label: str, calls, sass: dict, max_err: int) -> dict:
+    """B3 vs plain on every call of one path's draws, timed per run (all
+    of the run's calls, once each; randint and bits apart); returns B3's
+    JSON entry (without launches) for these calls."""
+    from pluss_sampler_optimization_torch.ops import threefry_draw as td
+
     for i, call in enumerate(calls):
         kind, keys, B, arg, _ = call
-        _b3_compare(f"main-path call {i} ({kind}, R={len(keys)}, B={B})",
-                    call)
-        b, o = _b3_bound(call)
-        nbytes += b
-        ops += o
-        print(f"B3: call {i} {kind} R={len(keys)} B={B}"
+        _b3_compare(f"{label} call {i} ({kind}, R={len(keys)}, B={B})", call)
+        print(f"B3 {label}: call {i} {kind} R={len(keys)} B={B}"
               + (f" span={arg}" if kind == "randint" else
                  f" valid={'yes' if arg is not None else 'no'}")
-              + " equal")
+              + f" {_b3_instantiation(call)[0]} equal")
 
-    def run(plain: bool):
-        for call in calls:
+    def run(sub, plain=False):
+        for call in sub:
             _b3_run(call, plain)
 
-    events = _time_ms(lambda: run(False), B3_RUN_REPS)
-    dev_ms, names = _device_ms(lambda: run(False), B3_RUN_REPS)
-    if dev_ms is not None:
-        # a call is one kernel; the trace may miss some of them, and the
-        # time per run is then the recorded kernels' mean times the calls
-        want = B3_RUN_REPS * len(calls)
-        kernels = [x for x in names if "randint_kernel" in x
-                   or "bits_kernel" in x]
-        if len(kernels) != len(names) or len(names) > want:
-            raise AssertionError(f"B3 trace: {want} calls ran other device "
-                                 f"operations: {sorted(set(names))}")
-        dev_ms *= want / len(names)
-        print(f"B3 trace: {want} calls, {len(names)} device operations "
-              "recorded, each a B3 kernel")
-    plain = _time_ms(lambda: run(True), 2)
-    ms = events if dev_ms is None else dev_ms
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / INT32_ISSUES_PER_S * 1e3
-    print(f"B3 vs plain: all {len(calls)} main-path calls equal; per run "
-          f"kernel {ms:.4f} ms (profiler device time "
-          + ("not recorded" if dev_ms is None else f"{dev_ms:.4f} ms")
-          + f", CUDA events {events:.4f} ms), plain {plain:.4f} ms; bound "
-          f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f} ms, int32 "
-          f"issues {ops_ms:.4f} ms; at the one-pipe rate "
-          f"{ops / INT32_PIPE_PER_S * 1e3:.4f} ms)")
+    def timed(sub):
+        """(ms per run, CUDA-event ms, launches the trace recorded)."""
+        events = _time_ms(lambda: run(sub), B3_RUN_REPS)
+        dev_ms, names = _device_ms(lambda: run(sub), B3_RUN_REPS)
+        if dev_ms is None:
+            return events, events, None
+        # a call is one kernel per launch; the trace may miss some, and
+        # the time per run is then the recorded kernels' mean times the
+        # launches
+        want = B3_RUN_REPS * sum(
+            len(list(td.launch_blocks(len(c[1]), c[2]))) for c in sub)
+        if (any("randint_kernel" not in x and "bits_kernel" not in x
+                for x in names) or len(names) > want):
+            raise AssertionError(f"B3 trace: {want} launches ran other "
+                                 f"device operations: {sorted(set(names))}")
+        return dev_ms * want / len(names), events, len(names)
+
+    for part in ("randint", "bits", "all"):
+        sub = [c for c in calls if part in ("all", c[0])]
+        ms, events, recorded = timed(sub)
+        need = _b3_sum(_b3_need(c) for c in sub)
+        bytes_ms = need["bytes"] / HBM_BYTES_PER_S * 1e3
+        ops, built = _b3_ops_ms(need), _b3_ops_ms(
+            _b3_sum(_b3_issued(c, sass) for c in sub))
+        bound = max(bytes_ms, ops["ops"])
+        print(f"B3 {label}: {part}: {len(sub)} calls, kernel {ms:.4f} ms "
+              f"per run (profiler device time, "
+              + ("not recorded" if recorded is None else
+                 f"{recorded} launches recorded")
+              + f"; CUDA events {events:.4f} ms); bound {bound:.4f} ms by "
+              + ("bytes" if bytes_ms >= ops["ops"] else "operations")
+              + f" (bytes {bytes_ms:.4f}; the function's operations: ALU "
+              f"pipe {ops['alu']:.4f}, FMA pipe {ops['fma']:.4f}, issue "
+              f"{ops['issue']:.4f} ms): {bound / ms:.1%} of it; the built "
+              f"code's SASS at the same rates: ALU pipe {built['alu']:.4f}, "
+              f"FMA pipe {built['fma']:.4f}, issue {built['issue']:.4f} ms")
+    plain = _time_ms(lambda: run(calls, True), 2)
+    print(f"B3 vs plain: all {len(calls)} {label} calls equal; per run "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms")
     return {
         "name": "threefry_draw", "route": "cuda", "source": B3_SOURCE,
         "replaces": B3_REPLACES, "launches": None, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain, "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "ms": ms, "plain_ms": plain, "bound_ms": bound,
+        "bound_by": "bytes" if bytes_ms >= ops["ops"] else "operations",
         "library_ms": None,
     }
+
+
+def phase_draw_breakdown(n: int, cfg, dev, label: str) -> dict:
+    """The device draw of GEMM N=n broken into its steps: one draw of
+    every bucket through the engine (sampler/draw.py's
+    draw_bucket_keys_device) under torch.profiler, each step's device
+    time summed over the buckets from the step's profiler range
+    (draw.STEPS; B3's kernels, launched through ctypes outside any torch
+    operation, by their names), beside the engine's host seconds for the
+    same draw without the profiler, and equal to it. Returns {step:
+    device ms}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pluss_sampler_optimization_torch.config import MachineConfig
+    from pluss_sampler_optimization_torch.models import gemm
+    from pluss_sampler_optimization_torch.sampler import draw as D
+    from pluss_sampler_optimization_torch.sampler import sampled as S
+
+    trace, rows = S._program_rows(gemm(n), MachineConfig())
+    batch = S.default_batch(dev)
+    buckets = [(trace.nests[k], [ri for _, ri in m],
+                [cfg.seed * 1000003 + idx for idx, _ in m])
+               for (k, _), m in S._bucket_rows(trace, rows).items()]
+
+    def draw():
+        return [D.draw_bucket_keys_device(nt, ris, cfg, seeds, batch, dev)
+                for nt, ris, seeds in buckets]
+
+    draw()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = draw()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        got = draw()
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    for a, b in zip(engine, got):
+        if len(a) != len(b) or not all(
+                torch.equal(x.keys, y.keys) and torch.equal(x.chosen, y.chosen)
+                for x, y in zip(a, b)):
+            raise AssertionError(f"draw breakdown: gemm({n}): the traced "
+                                 "draw differs from the engine's")
+    del engine, got
+    # a step's device time: its range's device total (the torch ops'
+    # kernels under it); B3's kernels by their names
+    ms = dict.fromkeys(D.STEPS, 0.0)
+    b3 = {"draw: B3 randint": "randint_kernel", "draw: B3 bits": "bits_kernel"}
+    busy = []
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU:
+            if e.name in ms and e.name not in b3:
+                ms[e.name] += e.device_time_total / 1e3
+            continue
+        if e.name in ms:  # the ranges' device-side copies
+            continue
+        busy.append((e.time_range.start, e.time_range.end))
+        for step, kernel in b3.items():
+            if kernel in e.name:
+                ms[step] += (e.time_range.end - e.time_range.start) / 1e3
+    total = sum(ms.values())
+    busy_s = _busy_us(busy) / 1e6
+    print(f"{label}: gemm({n}) draw, {len(buckets)} buckets: the engine's "
+          f"draw {host_s:.4f} s host; traced {traced_s:.4f} s host, device "
+          f"busy {busy_s:.4f} s (idle share {1 - busy_s / traced_s:.3f}); "
+          "device ms by step: "
+          + ", ".join(f"{k[6:]} {v:.4f} ({v / max(total, 1e-12):.1%})"
+                      for k, v in ms.items())
+          + f"; sum {total:.4f} ms")
+    return ms
 
 
 def _state_mrc(state, machine, spans: dict | None = None):
@@ -637,7 +844,8 @@ def _state_mrc(state, machine, spans: dict | None = None):
 
 
 def phase_main_path(label: str, n: int, cfg, backends, dispatches=None,
-                    b3_launches=None, model: str = "gemm", args=None):
+                    b3_launches=None, model: str = "gemm", args=None,
+                    b3_calls: list | None = None):
     """run_sampled -> cri_distribute -> aet_mrc of `model` (the registry's
     constructor, called with `args`, by default (n,)) on the card once per
     kernel backend; returns the "cuda" run's (B1, B3) launches and the
@@ -645,7 +853,8 @@ def phase_main_path(label: str, n: int, cfg, backends, dispatches=None,
     dispatch (`dispatches`) and B3 `b3_launches` times where given (at
     least once under the device draw, never under the host draw); under
     "torch" no kernel launches; B2 never does. Every run's state and MRC
-    bytes must be equal, and the MRC's L1 error against
+    bytes must be equal; `b3_calls`, where given, gets the "cuda" run's
+    B3 calls (_b3_recording). The MRC's L1 error against
     baselines/<model><n>.json.gz, where the file exists, at most
     MRC_L1_LIMIT (it must exist in BASELINES)."""
     import torch
@@ -674,13 +883,20 @@ def phase_main_path(label: str, n: int, cfg, backends, dispatches=None,
     for i, backend in enumerate(backends, 1):
         c = dataclasses.replace(cfg, kernel_backend=backend)
         spans: dict = {}
-        _reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, results = run_sampled(REGISTRY[model](*args), machine, c,
-                                     device="cuda", spans=spans)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        restore = None
+        if b3_calls is not None and backend == "cuda":
+            _, restore = _b3_recording(b3_calls)
+        try:
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, results = run_sampled(REGISTRY[model](*args), machine, c,
+                                         device="cuda", spans=spans)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            if restore is not None:
+                restore()
         b1, b2, b3 = _launches()
         got = _state_mrc(state, machine, spans)
         samples = sum(r.n_samples for r in results)
@@ -1011,7 +1227,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     card = _card_line()
     print(f"card: {card}")
-    phase_build()
+    sass = phase_build()
     b2_err = phase_b2_made(dev)
     b3_err = phase_b3_made(dev)
     cfg = SamplerConfig(ratio=0.1, seed=0)  # auto: the device draw here
@@ -1019,11 +1235,19 @@ def main(argv=None) -> int:
 
     k = phase_kernels(gemm(args.n), cfg, dev)
     _b1_summary("kernels", k)
-    b3 = phase_b3_engine(k.pop("b3_calls"), b3_err)
+    b3 = phase_b3_engine(f"gemm({args.n})", k.pop("b3_calls"), sass,
+                         b3_err)
+    for n in (args.n, 2 * args.n):
+        phase_draw_breakdown(n, cfg, dev, "draw breakdown")
     (b1_launches, b3["launches"]), main_path = phase_main_path(
         "main path", args.n, cfg, MAIN_PATH_ORDER, k["dispatches"],
         k["b3_launches"])
-    phase_main_path("headline", 2 * args.n, cfg, ("cuda",))
+    head_calls: list = []
+    (_, head_b3), _ = phase_main_path("headline", 2 * args.n, cfg,
+                                      ("cuda",), b3_calls=head_calls)
+    b3["launches"] += head_b3
+    phase_b3_engine(f"gemm({2 * args.n})", head_calls, sass, b3_err)
+    del head_calls
     phase_main_path("host draw", args.n // 2,
                     dataclasses.replace(cfg, device_draw=False),
                     MAIN_PATH_ORDER)
@@ -1036,17 +1260,25 @@ def main(argv=None) -> int:
     # triangular walk, its dispatches held against the plain version
     kt = phase_kernels(syrk_tri(args.tri_n), cfg, dev, "tri kernels")
     _b1_summary("tri kernels", kt)
+    phase_b3_engine(f"syrk-tri({args.tri_n})", kt.pop("b3_calls"), sass,
+                    b3_err)
+    tri_calls: list = []
     (tri_b1, tri_b3), _ = phase_main_path(
         "tri path", args.tri_n, cfg, MAIN_PATH_ORDER, kt["dispatches"],
-        kt["b3_launches"], model="syrk-tri")
+        kt["b3_launches"], model="syrk-tri", b3_calls=tri_calls)
     b1_launches += tri_b1
     b3["launches"] += tri_b3
     for model, margs in TRI_MODELS:
         (tri_b1, tri_b3), _ = phase_main_path(
             "tri path", margs[0], cfg, MAIN_PATH_ORDER, model=model,
-            args=margs)
+            args=margs, b3_calls=tri_calls)
         b1_launches += tri_b1
         b3["launches"] += tri_b3
+    for i, call in enumerate(tri_calls):
+        _b3_compare(f"tri path call {i}", call)
+    print(f"B3 vs plain: all {len(tri_calls)} B3 calls of the triangular "
+          "runs (syrk-tri, trmm, trisolv, covariance) equal")
+    del tri_calls
     phase_two_shards(cfg, *TWO_SHARD_TRI)
     b1 = _b1_entry([k, kt])
     b1["launches"] = b1_launches

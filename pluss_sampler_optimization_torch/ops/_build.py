@@ -114,6 +114,75 @@ def ptxas_report(log: str) -> list[dict]:
     return list(entries.values())
 
 
+# Hopper's integer pipes, by SASS opcode: the ALU pipe (adds, logic,
+# shifts, compares, selects, moves) and the FMA pipe (IMAD in all its
+# forms, and the float multiply-adds) each take 16 lanes per clock per
+# SM sub-partition, 64 per SM; each sub-partition issues one warp
+# instruction per clock, 128 lanes per SM.
+ALU_OPS = frozenset((
+    "IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "ISETP", "ICMP",
+    "SEL", "FSEL", "LEA", "PRMT", "MOV", "IABS", "IMNMX", "VIMNMX", "BMSK",
+    "SGXT", "PLOP3", "P2R", "R2P", "FLO", "POPC", "BREV", "CSET", "CSETP",
+))
+FMA_OPS = frozenset(("IMAD", "IMUL", "FFMA", "FMUL", "FADD", "HFMA2",
+                     "HADD2", "HMUL2"))
+_SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)")
+
+
+def cuobjdump_path() -> str:
+    """cuobjdump beside nvcc (raises where there is none)."""
+    path = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    if not os.path.exists(path):
+        raise RuntimeError(f"cuobjdump not found at {path}")
+    return path
+
+
+def sass_counts(lib: str) -> dict:
+    """count_sass of `cuobjdump -sass` on the library at `lib`."""
+    return count_sass(subprocess.run(
+        [cuobjdump_path(), "-sass", lib], check=True, capture_output=True,
+        text=True).stdout)
+
+
+def count_sass(out: str) -> dict:
+    """{entry name (as ptxas_report names it): {"alu", "fma", "uniform",
+    "other", "total": instructions}} of a `cuobjdump -sass` listing: each
+    entry's instructions up to its last EXIT (the padding after it never
+    runs), NOPs left out; "uniform" is the uniform datapath (U*
+    opcodes), "other" memory, control and the rest."""
+    counts: dict = {}
+    name, ops = None, []
+
+    def flush():
+        if name is None:
+            return
+        last = max((i for i, op in enumerate(ops) if op == "EXIT"),
+                   default=len(ops) - 1)
+        c = {"alu": 0, "fma": 0, "uniform": 0, "other": 0}
+        for op in ops[:last + 1]:
+            if op == "NOP":
+                continue
+            base = op.split(".")[0]
+            key = ("alu" if base in ALU_OPS else "fma" if base in FMA_OPS
+                   else "uniform" if base.startswith("U") else "other")
+            c[key] += 1
+        c["total"] = sum(c.values())
+        counts[_demangle(name)] = c
+
+    for line in out.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            flush()
+            name, ops = m.group(1), []
+            continue
+        m = _SASS_LINE.search(line)
+        if m and name is not None:
+            ops.append(m.group(1))
+    flush()
+    return counts
+
+
 def _demangle(mangled: str) -> str:
     """`_Z19sampled_hist_kernelILi2ELi1EEv...` -> `sampled_hist_kernel<2, 1>`
     (int or bool template arguments; other names pass unchanged)."""

@@ -15,16 +15,18 @@ key per row, B elements per row:
 A key is a pair of uint32 words as Python ints (sampler/threefry.py
 derives them on the host). Each entry launches the hand-written CUDA
 kernel csrc/threefry_draw.cu on a CUDA device, one launch per
-`MAX_ROWS` rows, and takes its plain torch version
-(`threefry_randint_plain`, `threefry_bits_plain`: sampler/threefry.py's
-`randint` and `bits64` row by row) on the CPU or under backend "torch".
-There is no fallback: "auto"/"cuda" on a CUDA device launches the
-kernel or raises, and "cuda" on the CPU raises.
+`MAX_ROWS` rows and `SEGMENT` columns, with the span's remainder record
+(`remainder_record`, computed here in exact integers), and takes its
+plain torch version (`threefry_randint_plain`, `threefry_bits_plain`:
+sampler/threefry.py's `randint` and `bits64` row by row) on the CPU or
+under backend "torch". There is no fallback: "auto"/"cuda" on a CUDA
+device launches the kernel or raises, and "cuda" on the CPU raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,12 +37,62 @@ from ..sampler import threefry
 # run went through the kernel.
 LAUNCHES = 0
 MAX_ROWS = 128  # csrc/threefry_draw.cu's rows per launch
+# csrc/threefry_draw.cu's counters per thread and threads per block: a
+# launch covers each row in blocks of CPT * THREADS columns
+CPT, THREADS = 4, 128
+# Columns per launch: a launch's counters (col >> 32, col & 0xffffffff)
+# then share their high word, and the kernel indexes in 32 bits.
+SEGMENT = 1 << 31
 
-_RANDINT_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                     ctypes.c_ulonglong, ctypes.c_void_p, ctypes.c_void_p]
-_BITS_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+# csrc/threefry_draw.cu's remainder kinds
+REM_POW2, REM_BIG, REM_SMALL = 0, 1, 2
+
+_C = ctypes
+_RANDINT_ARGTYPES = [_C.c_void_p, _C.c_longlong, _C.c_longlong,
+                     _C.c_longlong, _C.c_uint, _C.c_uint, _C.c_ulonglong,
+                     _C.c_ulonglong, _C.c_ulonglong, _C.c_int, _C.c_void_p,
+                     _C.c_void_p]
+_BITS_ARGTYPES = [_C.c_void_p, _C.c_longlong, _C.c_longlong, _C.c_longlong,
+                  _C.c_uint, _C.c_uint, _C.c_void_p, _C.c_void_p,
+                  _C.c_void_p]
 _FNS: dict = {}  # entry name -> the typed ctypes function, at first use
+
+
+class Record(NamedTuple):
+    """How the kernel takes n % span for a uint64 n (csrc/threefry_draw.cu
+    ::urem proves it for every n and every span in [1, 2^63])."""
+
+    kind: int  # REM_POW2: n & (span - 1); REM_BIG, REM_SMALL: by recip
+    recip: int  # floor((2^64 - 1) / span); 0 for REM_POW2
+    mult: int  # jax's randint multiplier (2^32 % span)^2 % span in uint64
+
+
+def remainder_record(span: int) -> Record:
+    """The launch's record for 1 <= span <= 2^46. REM_BIG (span > 2^32,
+    not a power of two) has recip < 2^32; REM_SMALL (span < 2^32, not a
+    power of two) is the one kind whose randint multiplier is not 0."""
+    if not 1 <= span <= threefry.MAX_SPAN:
+        raise ValueError(f"threefry: span must be in [1, 2^46], got {span}")
+    mult = threefry.randint_multiplier(span)
+    if span & (span - 1) == 0:
+        rec = Record(REM_POW2, 0, mult)
+    else:
+        rec = Record(REM_BIG if span > 1 << 32 else REM_SMALL,
+                     threefry.M64 // span, mult)
+    if (rec.mult != 0) != (rec.kind == REM_SMALL):
+        raise AssertionError(f"threefry: span {span}: multiplier {mult} "
+                             f"does not fit kind {rec.kind}")
+    return rec
+
+
+def record_urem(n: int, span: int, rec: Record) -> int:
+    """n % span for 0 <= n < 2^64 as the kernel takes it from `rec`: a
+    mask, or q = (n * recip) >> 64, n - q * span in uint64 and at most
+    one subtraction of span."""
+    if rec.kind == REM_POW2:
+        return n & (span - 1)
+    r = (n - ((n * rec.recip) >> 64) * span) & threefry.M64
+    return r - span if r >= span else r
 
 
 def _check_args(keys, B: int, span: int | None = None) -> list:
@@ -118,56 +170,90 @@ def _fn(name: str, argtypes):
     return fn
 
 
-def _launch_rows(name, argtypes, words, out, per_launch):
-    """Launch `name` over out's rows, MAX_ROWS at a time, on the current
-    stream of out's device; per_launch(words block, out block, stream)
-    gives the arguments. Raises on a launch error."""
-    global LAUNCHES
-    fn = _fn(name, argtypes)
-    dev = out.device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for r0 in range(0, out.shape[0], MAX_ROWS):
-            w = np.ascontiguousarray(words[r0:r0 + MAX_ROWS])
-            rc = fn(*per_launch(w, r0, stream))
-            if rc != 0:
-                raise RuntimeError(f"{name} failed: CUDA error {rc}")
-            LAUNCHES += 1
-    return out
+def randint_words(keys) -> np.ndarray:
+    """uint32 [R, 4]: each key's two randint sub-keys (split on the
+    host), the rows of the kernel's key bank."""
+    return np.array([[*a, *b] for a, b in map(threefry.split, keys)],
+                    dtype=np.uint32)
+
+
+def launch_blocks(R: int, B: int):
+    """(r0, rows, col0, cols) of each launch over [R, B]: MAX_ROWS rows
+    and SEGMENT columns at a time."""
+    for r0 in range(0, R, MAX_ROWS):
+        for c in range(0, B, SEGMENT):
+            yield r0, min(MAX_ROWS, R - r0), c, min(SEGMENT, B - c)
+
+
+def launch_randint(fn, words, B: int, span: int, out, stream) -> int:
+    """Launch `fn` (csrc/threefry_draw.cu's randint entry) over out's
+    rows, the randint sub-key words `words`; returns the launches.
+    Raises on a failed launch."""
+    rec = remainder_record(span)
+    n = 0
+    for r0, rows, c, cols in launch_blocks(out.shape[0], B):
+        w = np.ascontiguousarray(words[r0:r0 + rows])
+        rc = fn(w.ctypes.data, rows, B, cols, c >> 32, c & threefry.M32,
+                span, rec.recip, rec.mult, rec.kind,
+                out.data_ptr() + 8 * (r0 * B + c), stream)
+        if rc != 0:
+            raise RuntimeError(f"threefry randint launch failed: CUDA "
+                               f"error {rc}")
+        n += 1
+    return n
+
+
+def launch_bits(fn, words, B: int, valid, out, stream) -> int:
+    """As launch_randint for the bits entry; valid a bool [R, B] tensor
+    on out's device, or None."""
+    n = 0
+    for r0, rows, c, cols in launch_blocks(out.shape[0], B):
+        w = np.ascontiguousarray(words[r0:r0 + rows])
+        v = None if valid is None else valid.data_ptr() + r0 * B + c
+        rc = fn(w.ctypes.data, rows, B, cols, c >> 32, c & threefry.M32, v,
+                out.data_ptr() + 8 * (r0 * B + c), stream)
+        if rc != 0:
+            raise RuntimeError(f"threefry bits launch failed: CUDA error "
+                               f"{rc}")
+        n += 1
+    return n
+
+
+def _cuda_device(device, name: str) -> torch.device:
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"{name} needs a CUDA device, got {device}")
+    return device
 
 
 def threefry_randint_cuda(keys, B: int, span: int, device):
     """csrc/threefry_draw.cu's randint entry: int64 [R, B] on `device`."""
+    global LAUNCHES
     keys = _check_args(keys, B, span)
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"threefry_randint_cuda needs a CUDA device, got "
-                         f"{device}")
-    words = np.array([[*a, *b] for a, b in map(threefry.split, keys)],
-                     dtype=np.uint32)
+    device = _cuda_device(device, "threefry_randint_cuda")
     out = torch.empty((len(keys), B), dtype=torch.int64, device=device)
-    return _launch_rows(
-        "threefry_randint_launch", _RANDINT_ARGTYPES, words, out,
-        lambda w, r0, st: (w.ctypes.data, len(w), B, span,
-                           out[r0].data_ptr(), st))
+    fn = _fn("threefry_randint_launch", _RANDINT_ARGTYPES)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        LAUNCHES += launch_randint(fn, randint_words(keys), B, span, out,
+                                   stream)
+    return out
 
 
 def threefry_bits_cuda(keys, B: int, device, valid=None):
     """csrc/threefry_draw.cu's bits entry: int64 [R, B] images on
     `device`, UINT64_MAX's image where valid is False."""
+    global LAUNCHES
     keys = _check_args(keys, B)
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"threefry_bits_cuda needs a CUDA device, got "
-                         f"{device}")
+    device = _cuda_device(device, "threefry_bits_cuda")
     valid = _check_valid(valid, len(keys), B, device)
-    words = np.array(keys, dtype=np.uint32)
     out = torch.empty((len(keys), B), dtype=torch.int64, device=device)
-    return _launch_rows(
-        "threefry_bits_launch", _BITS_ARGTYPES, words, out,
-        lambda w, r0, st: (w.ctypes.data, len(w), B,
-                           None if valid is None else valid[r0].data_ptr(),
-                           out[r0].data_ptr(), st))
+    fn = _fn("threefry_bits_launch", _BITS_ARGTYPES)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        LAUNCHES += launch_bits(fn, np.array(keys, dtype=np.uint32), B,
+                                valid, out, stream)
+    return out
 
 
 def _use_plain(device, backend: str) -> bool:

@@ -36,6 +36,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..ops.threefry_draw import threefry_bits, threefry_randint
 from . import threefry
@@ -43,6 +44,13 @@ from . import threefry
 # Above this many int64 buffer slots the draw falls back to the host
 # path (the JAX package's device-memory budget; a semantic limit here).
 DEVICE_DRAW_MAX_SLOTS = 1 << 28
+
+# The draw's steps, each a profiler range (record_function) that a trace
+# of a draw breaks its time down by; without a profiler a range is two
+# host calls.
+STEPS = ("draw: B3 randint", "draw: sort keys", "draw: neighbour compare",
+         "draw: B3 bits", "draw: sort priorities", "draw: threshold select",
+         "draw: host read")
 
 # Rejection sentinel: strictly greater than every valid flat key.
 _SENT = np.iinfo(np.int64).max
@@ -109,13 +117,18 @@ def _select_exact(sk, valid_first, s: int, pri_keys, backend: str):
     uint64 draws (compared as their int64 images), the s smallest among
     representatives win, and a tie at the threshold chooses more."""
     R, B = sk.shape
-    U = valid_first.sum(dim=1)
-    pri = threefry_bits(pri_keys, B, sk.device, valid_first, backend)
-    spri = torch.sort(pri, dim=1).values
-    thr = spri[:, min(max(s - 1, 0), B - 1)]
-    del spri
-    chosen = valid_first & (pri <= thr[:, None])
-    return chosen, U, chosen.sum(dim=1)
+    with record_function("draw: neighbour compare"):
+        U = valid_first.sum(dim=1)
+    with record_function("draw: B3 bits"):
+        pri = threefry_bits(pri_keys, B, sk.device, valid_first, backend)
+    with record_function("draw: sort priorities"):
+        spri = torch.sort(pri, dim=1).values
+    with record_function("draw: threshold select"):
+        thr = spri[:, min(max(s - 1, 0), B - 1)]
+        del spri
+        chosen = valid_first & (pri <= thr[:, None])
+        n_chosen = chosen.sum(dim=1)
+    return chosen, U, n_chosen
 
 
 def _rect_draw_body(rng_keys, space: int, s: int, B: int, device,
@@ -125,12 +138,16 @@ def _rect_draw_body(rng_keys, space: int, s: int, B: int, device,
     threefry streams are counter-based per key, so a row is its key's
     per-ref draw). Returns (sorted keys, chosen, U, n_chosen)."""
     subs = [threefry.split(k) for k in rng_keys]
-    keys = threefry_randint([k1 for k1, _ in subs], B, space, device,
-                            backend)
-    sk = torch.sort(keys, dim=1).values
+    with record_function("draw: B3 randint"):
+        keys = threefry_randint([k1 for k1, _ in subs], B, space, device,
+                                backend)
+    with record_function("draw: sort keys"):
+        sk = torch.sort(keys, dim=1).values
     del keys
+    with record_function("draw: neighbour compare"):
+        first = _first_of_runs(sk)
     chosen, U, n_chosen = _select_exact(
-        sk, _first_of_runs(sk), s, [k2 for _, k2 in subs], backend)
+        sk, first, s, [k2 for _, k2 in subs], backend)
     return sk, chosen, U, n_chosen
 
 
@@ -145,14 +162,17 @@ def _tri_draw_body(nt, ref_idx: int, highs: tuple, excl: int, rng_key,
     for h in highs:
         space_box *= h
     k1, k2 = threefry.split(rng_key)
-    keys = threefry_randint([k1], B, space_box, device, backend)[0]
+    with record_function("draw: B3 randint"):
+        keys = threefry_randint([k1], B, space_box, device, backend)[0]
     cols = decode_sample_keys(keys, highs)
     v0 = nt.nest.loops[0].start + cols[:, 0] * nt.nest.loops[0].step
     ok = torch.ones(B, dtype=torch.bool, device=keys.device)
     for l in range(1, lv + 1):
         ok &= cols[:, l] < (nt.nest.loops[l].trip_at(v0) - excl)
-    sk = torch.sort(torch.where(ok, keys, _SENT)).values[None]
-    first = _first_of_runs(sk) & (sk < _SENT)
+    with record_function("draw: sort keys"):
+        sk = torch.sort(torch.where(ok, keys, _SENT)).values[None]
+    with record_function("draw: neighbour compare"):
+        first = _first_of_runs(sk) & (sk < _SENT)
     chosen, U, n_chosen = _select_exact(sk, first, s, [k2], backend)
     return sk, chosen, U, n_chosen
 
@@ -166,7 +186,8 @@ def _draw_base_key(seed: int) -> tuple[int, int]:
 
 def _host_counts(U, n_chosen) -> list[tuple[int, int]]:
     """(U, n_chosen) per row, in one device-to-host read."""
-    return [tuple(x) for x in torch.stack([U, n_chosen], 1).tolist()]
+    with record_function("draw: host read"):
+        return [tuple(x) for x in torch.stack([U, n_chosen], 1).tolist()]
 
 
 def draw_sample_keys_device(nt, ref_idx: int, cfg, seed: int, batch: int,

@@ -86,6 +86,22 @@ def test_rect_draw_matches_jax(name, n, seed, batch):
                 TD.draw_sample_keys_device(tnt, ri, tc, sd, batch, "cpu"))
 
 
+def test_draw_steps_are_profiler_ranges():
+    """Each step of a rectangular draw runs inside its named profiler
+    range (draw.STEPS), which a trace of the draw breaks its time down
+    by; the draw under the profiler is the draw without it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, tt = _traces("gemm", 16)
+    _, tc = _cfgs(0.3, 0)
+    nt = tt.nests[0]
+    want = TD.draw_sample_keys_device(nt, 0, tc, 5, 256, "cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = TD.draw_sample_keys_device(nt, 0, tc, 5, 256, "cpu")
+    assert set(TD.STEPS) <= {e.name for e in prof.events()}
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("name,n", [("trmm", 16), ("syrk-tri", 12)])
 def test_tri_draw_matches_jax(name, n):
     """Box draw with rejection: out-of-bounds candidates become _SENT,

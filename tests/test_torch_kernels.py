@@ -386,8 +386,13 @@ def test_nccl_processes_device_draw(cards):
 
 # --- kernel B3: the device draw's threefry streams --------------------
 
+# every remainder kind: powers of two (1, 2, 2^32, 2^46), spans above
+# 2^32 (one block, a 32-bit reciprocal: GEMM-2048's depth-3 box
+# 8,577,357,823) and below it (two blocks, three remainders: GEMM-2048's
+# depth-2 box 4,190,209, syrk-tri N=1536's 2,356,225 and 3,616,805,375)
 B3_SPANS = [1, 2, 3, (1 << 32) - 1, 1 << 32, (1 << 32) + 1, (1 << 45) - 1,
-            8_577_357_823, 1 << 46]
+            8_577_357_823, 1 << 46, 4_190_209, 2_356_225, 3_616_805_375,
+            1_000_000_007, (1 << 45) + 7]
 
 
 def _b3_keys(R, seed):
@@ -396,7 +401,7 @@ def _b3_keys(R, seed):
             for _ in range(R)]
 
 
-@pytest.mark.parametrize("B", [1, 17, (1 << 14) + 3, 1 << 20])
+@pytest.mark.parametrize("B", [1, 17, 1023, 1026, (1 << 14) + 3, 1 << 20])
 def test_threefry_kernel_matches_plain(B, cuda):
     """Both entries, bit-equal to the plain versions for every span
     (span > 2^32 wraps randint's multiplier to 0), with and without the
@@ -431,6 +436,39 @@ def test_threefry_kernel_many_rows(cuda):
     assert torch.equal(got, td.threefry_randint_plain(keys, 1000, 12345,
                                                       cuda))
     assert torch.equal(bits, td.threefry_bits_plain(keys, 1000, cuda))
+
+
+def test_threefry_kernel_segments_and_misaligned_mask(cuda, monkeypatch):
+    """Columns split into launches (SEGMENT made small: counters from a
+    launch's own low word), and a mask row that starts off a 4-byte
+    boundary (a view one row into a larger mask): equal to plain."""
+    keys = _b3_keys(3, 7)
+    B = 10_001
+    monkeypatch.setattr(td, "SEGMENT", 1 << 12)
+    for span in (12345, 8_577_357_823, 1 << 20):
+        n0 = td.LAUNCHES
+        got = td.threefry_randint(keys, B, span, cuda)
+        assert td.LAUNCHES == n0 + 3
+        assert torch.equal(got, td.threefry_randint_plain(keys, B, span,
+                                                          cuda))
+    monkeypatch.undo()
+    rng = np.random.default_rng(3)
+    big = torch.from_numpy(rng.random((4, 4099)) < 0.5).to(cuda)
+    flat = torch.from_numpy(rng.random(3 * 2048 + 1) < 0.5).to(cuda)
+    for v in (big[1:], big[:3], flat[1:].view(3, 2048)):
+        B = v.shape[1]
+        got = td.threefry_bits(keys, B, cuda, v)
+        assert torch.equal(got, td.threefry_bits_plain(keys, B, cuda, v))
+
+
+def test_threefry_kernel_refuses_a_wrong_record(cuda, monkeypatch):
+    """A record that is not the span's is refused by the launcher: the
+    entry raises, and nothing falls back to the plain version."""
+    rec = td.remainder_record(12345)
+    monkeypatch.setattr(td, "remainder_record",
+                        lambda span: rec._replace(recip=rec.recip + 1))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        td.threefry_randint(_b3_keys(1, 0), 64, 12345, cuda)
 
 
 def test_threefry_kernel_rejects_what_it_does_not_take(cuda):
