@@ -15,11 +15,16 @@ each printing its own lines; any failure exits non-zero:
    and spill bytes for every kernel instantiation (B1 has 12,
    sampled_hist_kernel<LV, NHMAX, TRI>: source-ref level 0-2 by most
    band-plan heads per sink group, 1 for at most one, 3 for up to
-   three, by rectangular or triangular nest; B2 has 2, pow2_hist_kernel<BOOL_W> for bool and int64
-   weights; B3 has 10, randint_kernel<KIND, EDGE> by the span's
+   three, by rectangular or triangular nest, each taking the launch flag
+   of its raw-noshare form; B2 has 2, pow2_hist_kernel<BOOL_W> for bool
+   and int64 weights; B3 has 10, randint_kernel<KIND, EDGE> by the span's
    remainder record (0 a power of two, 1 above 2^32, 2 below it) and
    bits_kernel<EDGE, MASK>), with each B3 instantiation's SASS
    instructions per pipe (cuobjdump); B3 must have 0 B stack and spills;
+2b. cold and warm: the first run of this process at GEMM --n (the CUDA
+   context, module loads, first launches) beside a fresh process that
+   calls sampler/sampled.py::warmup and then runs twice; then warmup for
+   every program of the timed runs below;
 3. B2 vs plain on made inputs: a numpy-seeded 2^20 input over all 64
    bins (0, negatives and 2^62-1 included) with bool and with int
    weights, the same as misaligned views (values[1:], weights[3:]),
@@ -37,7 +42,9 @@ each printing its own lines; any failure exits non-zero:
    spans) through the CUDA kernel and through its plain torch version
    on the card; residual, hist, cold and the sorted pair outputs must be
    equal; both are timed with CUDA events, and each dispatch's
-   instantiation is printed. The draws of that run are recorded;
+   instantiation is printed. The draws of that run are recorded. Then
+   the same for B1's raw-noshare form ("raw kernels:" lines): residual
+   bit-equal to plain, histogram all zero, cold equal;
 6. B3 vs plain on every draw of the main path (the engine's own keys,
    B, R and span, and its valid masks); bit-equal; timed per run,
    randint and bits apart, as torch.profiler device time (CUDA events
@@ -65,6 +72,20 @@ each printing its own lines; any failure exits non-zero:
    with wall, spans, launches and the MRC L1 error against
    baselines/gemm4096.json.gz (at most 0.01); its B3 calls held
    against plain and timed as in phase 6;
+8b. the dispatch pipeline at the headline: pipeline_depth 1 and 4, each
+   with its spans, pipeline_stalls and the seconds in the device draw's
+   host reads, and under torch.profiler the device's idle share inside
+   the "dispatch" span; states and MRC bytes equal the headline's, MRC L1
+   error printed; then the serial runner (fuse_refs=False) at --n, equal
+   to the main path, B1 once per dispatch;
+8c. the raw route (runtime v2, the r10 distribute) at --n with "cuda"
+   and "torch": equal v2 PRIStates and --r10 lines, the v1 fold of the
+   raw results equal to the main path's state, B1 once per raw dispatch
+   of 5;
+8d. checkpoints at --n in a temporary directory: a full run, a resume
+   with the second member of the first two-member bucket de-checkpointed
+   (that member alone dispatches), a fully checkpointed rerun (nothing
+   dispatches); every state and MRC equal to the main path's;
 9. host-draw path: the same two runs at GEMM N=--n/2 (1024) with
    device_draw=False: equal states and MRC bytes, L1 against
    baselines/gemm1024.json.gz at most 0.01;
@@ -100,9 +121,9 @@ each printing its own lines; any failure exits non-zero:
 16. two shards on one card, as phase 12, on trmm(256).
 
 Then one JSON line of kernel numbers (B1 over the dispatches of phases 5
-and 13 and the launches of phases 7, 14 and 15; B2; B3 timed on the 8
-calls of GEMM-2048's draw, its launches those of phases 7, 8, 14 and
-15), the nvidia-smi line,
+and 13 and the launches of phases 7, 8b's serial run, 8c, 14 and 15; B2;
+B3 timed on the 8 calls of GEMM-2048's draw, its launches those of
+phases 7, 8, 8c, 14 and 15), the nvidia-smi line,
 and last the result line {"ok": true, "device": {...}}. Imports nothing
 of JAX.
 """
@@ -226,13 +247,21 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# Profiler ranges of the engine (sampler/sampled.py::_span) and of the draw
+# (sampler/draw.py::STEPS); a trace copies each onto the device timeline,
+# where it is no device work.
+RANGE_PREFIXES = ("sampled: ", "draw: ")
+
+
 def _device_intervals(prof) -> list:
     """(start, end) microseconds of every device activity (kernel,
-    memset, copy) a torch.profiler trace recorded."""
+    memset, copy) a torch.profiler trace recorded, without the device-side
+    copies of the profiler ranges."""
     from torch.autograd import DeviceType
 
     return [(e.time_range.start, e.time_range.end) for e in prof.events()
-            if e.device_type != DeviceType.CPU]
+            if e.device_type != DeviceType.CPU
+            and not e.name.startswith(RANGE_PREFIXES)]
 
 
 def _busy_us(intervals) -> float:
@@ -482,12 +511,14 @@ def _b3_recording(calls=None):
     return calls, restore
 
 
-def phase_kernels(prog, cfg, dev, label="kernels") -> dict:
+def phase_kernels(prog, cfg, dev, label="kernels", raw: bool = False) -> dict:
     """Kernel vs plain on every dispatch of a main path (the program
     `prog`); returns B1's totals over them (kernel and plain ms, bytes,
     32-bit issues, max abs error), the number of dispatches, and the
     run's B3 calls and launches. A triangular dispatch's issues depend on
-    its data (ops/sampled_hist.py::band_hits, tri_issues)."""
+    its data (ops/sampled_hist.py::band_hits, tri_issues). `raw` holds
+    B1's raw-noshare form against the plain version's: its histogram
+    must also be all zero."""
     import torch
 
     from pluss_sampler_optimization_torch.config import MachineConfig
@@ -524,14 +555,16 @@ def phase_kernels(prog, cfg, dev, label="kernels") -> dict:
 
         def kern():
             return sampled_hist_cuda(d.nt, d.ref_idx, keys, mask, d.highs,
-                                     d.rx_R, d.desc, d.tri_base)
+                                     d.rx_R, d.desc, d.tri_base, raw)
 
         def plain():
             return sampled_hist_plain(d.nt, d.ref_idx, keys, mask, d.highs,
-                                      d.rx_R)
+                                      d.rx_R, raw)
 
         got, want = kern(), plain()
         torch.cuda.synchronize()
+        if raw and bool(got[1].any()):
+            raise AssertionError(f"{label}: the raw form binned samples")
         for name, a, b in zip(("residual", "hist", "cold"), got, want):
             err = int((a - b).abs().max()) if a.numel() else 0
             max_err = max(max_err, err)
@@ -541,7 +574,7 @@ def phase_kernels(prog, cfg, dev, label="kernels") -> dict:
                     f"(max abs err {err})"
                 )
         for j in range(keys.shape[0]):
-            pk = [sorted_k_unique(r[j], r[j] != SENTINEL, 64)
+            pk = [sorted_k_unique(r[j], r[j] != SENTINEL, 1 << 12)
                   for r in (got[0], want[0])]
             for a, b in zip(*pk):
                 if not torch.equal(a, b):
@@ -1207,6 +1240,330 @@ def phase_two_shards(cfg, model: str = "gemm",
               f"MRC bytes equal run_sampled's; {b2} B2 and {b3} B3 launches")
 
 
+def phase_cold_warm(n: int, cfg) -> None:
+    """The first run of this process (GEMM N=n, "cuda"), which pays the
+    CUDA context, each module's load and each kernel's first launch,
+    beside a fresh process that calls warmup first (sampler/sampled.py)
+    and then runs twice: after warmup the first run must not pay for
+    them, so it is as fast as the second (printed, not checked: host
+    times spread)."""
+    import torch
+
+    from pluss_sampler_optimization_torch.config import MachineConfig
+    from pluss_sampler_optimization_torch.models import gemm
+    from pluss_sampler_optimization_torch.sampler.sampled import run_sampled
+
+    t0 = time.perf_counter()
+    run_sampled(gemm(n), MachineConfig(), cfg, device="cuda")
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    code = (
+        "import time, torch\n"
+        "from pluss_sampler_optimization_torch import MachineConfig, "
+        "SamplerConfig\n"
+        "from pluss_sampler_optimization_torch.models import gemm\n"
+        "from pluss_sampler_optimization_torch.sampler.sampled import "
+        "run_sampled, warmup\n"
+        f"prog, m = gemm({n}), MachineConfig()\n"
+        f"cfg = SamplerConfig(ratio={cfg.ratio!r}, seed={cfg.seed!r})\n"
+        "def segs():\n"
+        "    stats = torch.cuda.memory_stats()\n"
+        "    return stats.get('segment.all.allocated', 0)\n"
+        "t, g = [time.perf_counter()], [0]\n"
+        "warmup(prog, m, cfg)\n"
+        "t.append(time.perf_counter()); g.append(segs())\n"
+        "for _ in range(2):\n"
+        "    run_sampled(prog, m, cfg); torch.cuda.synchronize()\n"
+        "    t.append(time.perf_counter()); g.append(segs())\n"
+        "print(*(b - a for a, b in zip(t, t[1:])), *(b - a for a, b in "
+        "zip(g, g[1:])))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    if out.returncode != 0:
+        raise AssertionError(f"cold/warm: the warmed process failed:\n"
+                             f"{out.stderr[-4000:]}")
+    wu, first, second, *segs = (float(x) for x in out.stdout.split())
+    print(f"cold/warm: gemm({n}) device draw: this process's first run "
+          f"(cold: context, module loads, first launches) {cold:.3f} s; a "
+          f"fresh process: warmup {wu:.3f} s, then the run {first:.3f} s, "
+          f"again {second:.3f} s; device memory segments the caching "
+          f"allocator added in each: {', '.join(str(int(x)) for x in segs)}")
+
+
+def phase_raw_route(n: int, cfg, dispatches: int, main_path) -> tuple:
+    """The raw route (runtime v2 and the r10 distribute) of GEMM N=n with
+    "cuda" and "torch": equal v2 PRIStates, equal `--r10` lines
+    (cli.result_lines), and the v1 state folded from the raw route's
+    results equal to the binned main path's (`main_path`); under "cuda"
+    B1 launches once per dispatch (`dispatches`, phase_kernels' raw
+    form), under "torch" never. Returns the "cuda" run's (B1, B3)
+    launches."""
+    import torch
+
+    from pluss_sampler_optimization_torch.cli import result_lines
+    from pluss_sampler_optimization_torch.config import MachineConfig
+    from pluss_sampler_optimization_torch.models import gemm
+    from pluss_sampler_optimization_torch.runtime.baseline import (
+        state_to_json,
+    )
+    from pluss_sampler_optimization_torch.sampler.sampled import (
+        fold_results,
+        run_sampled,
+    )
+
+    machine = MachineConfig()
+    first = kernel_launches = None
+    for backend in MAIN_PATH_ORDER:
+        c = dataclasses.replace(cfg, kernel_backend=backend)
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, per_ref = run_sampled(gemm(n), machine, c, v2=True,
+                                     device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        b1, b2, b3 = _launches()
+        got = (state_to_json(state),
+               result_lines(fold_results(per_ref, machine.thread_num),
+                            per_ref, machine, r10=True),
+               state_to_json(fold_results(per_ref, machine.thread_num)))
+        keys = sum(len(r.noshare) for r in per_ref)
+        print(f"raw route: gemm({n}) v2 kernel_backend={backend} "
+              f"{wall:.3f} s; {keys} raw noshare keys over {len(per_ref)} "
+              f"refs; {b1} B1, {b2} B2 and {b3} B3 launches; "
+              f"{len(got[1])} --r10 lines")
+        if backend == "cuda":
+            if b1 != dispatches or b2 != 0 or b3 == 0:
+                raise AssertionError(
+                    f"raw route: {b1} B1, {b2} B2, {b3} B3 launches under "
+                    f"cuda (expected B1 {dispatches}, B2 0, B3 > 0)")
+            kernel_launches = (b1, b3)
+        elif b1 or b2 or b3:
+            raise AssertionError("raw route: kernels launched under torch")
+        if first is None:
+            first = got
+        elif got[0] != first[0] or got[1] != first[1]:
+            raise AssertionError("raw route: the v2 PRIState or the --r10 "
+                                 "lines differ between cuda and torch")
+    if first[2] != main_path[0]:
+        raise AssertionError("raw route: the v1 fold of the raw results "
+                             "differs from the binned route's state")
+    print("raw route: v2 PRIStates and --r10 lines equal under cuda and "
+          "torch; the v1 fold of the raw results equals the main path's")
+    return kernel_launches
+
+
+def _union(intervals) -> list:
+    merged: list = []
+    for a, b in sorted(intervals):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return merged
+
+
+def _busy_inside(host, device) -> float:
+    """Microseconds of device activity (the union of `device`) inside the
+    union of the `host` intervals."""
+    dev = _union(device)
+    total = 0.0
+    for a, b in _union(host):
+        for c, d in dev:
+            total += max(0.0, min(b, d) - max(a, c))
+    return total
+
+
+def _host_read_timer():
+    """Time the device draw's host read (sampler/draw.py::_host_counts,
+    which waits for every launch before it on the stream); returns (the
+    [seconds, calls] total, a function restoring the original)."""
+    from pluss_sampler_optimization_torch.sampler import draw
+
+    total = [0.0, 0]
+    read = draw._host_counts
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        try:
+            return read(*args)
+        finally:
+            total[0] += time.perf_counter() - t0
+            total[1] += 1
+
+    draw._host_counts = timed
+
+    def restore():
+        draw._host_counts = read
+
+    return total, restore
+
+
+def phase_pipeline(n: int, cfg, head, serial_n: int, main_path) -> int:
+    """The dispatch pipeline at the headline, GEMM N=n: pipeline_depth 1
+    and 4, each run once with its spans, counters and the seconds the
+    host spends in the device draw's host reads, and once under
+    torch.profiler for the device's idle share inside the "dispatch"
+    span (the profiler ranges sampler/sampled.py::_span opens) and over
+    the run. Both depths' states and MRC bytes must equal the headline
+    run's (`head`), with its MRC L1 error against the baseline. Then the
+    serial runner (fuse_refs=False) at GEMM N=serial_n: state and MRC
+    bytes equal the main path's (`main_path`), B1 once per dispatch.
+    Returns the serial run's B1 launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pluss_sampler_optimization_torch.config import MachineConfig
+    from pluss_sampler_optimization_torch.models import gemm
+    from pluss_sampler_optimization_torch.runtime.aet import mrc_l1_error
+    from pluss_sampler_optimization_torch.runtime.baseline import (
+        load_baseline,
+    )
+    from pluss_sampler_optimization_torch.sampler.sampled import run_sampled
+
+    machine = MachineConfig()
+    T = machine.thread_num
+    base = load_baseline("gemm", n, machine)
+    mrc_b = None
+    if base is not None:
+        from pluss_sampler_optimization_torch.runtime.aet import aet_mrc
+        from pluss_sampler_optimization_torch.runtime.cri import (
+            cri_distribute,
+        )
+
+        mrc_b = aet_mrc(cri_distribute(base["state"], T, T), machine)
+    for depth in (1, 4):
+        c = dataclasses.replace(cfg, pipeline_depth=depth)
+        spans: dict = {}
+        counters: dict = {}
+        reads, restore = _host_read_timer()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = run_sampled(gemm(n), machine, c, device="cuda",
+                                   spans=spans, counters=counters)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            restore()
+        got = _state_mrc(state, machine)
+        if got[0] != head[0] or got[1].tobytes() != head[1].tobytes():
+            raise AssertionError(f"pipeline: depth {depth}: PRIState or MRC "
+                                 "bytes differ from the headline run's")
+        err = (None if mrc_b is None else mrc_l1_error(got[1], mrc_b))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_sampled(gemm(n), machine, c, device="cuda", spans={})
+            torch.cuda.synchronize()
+            traced = time.perf_counter() - t0
+        host = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type == DeviceType.CPU
+                and e.name == "sampled: dispatch"]
+        dev = _device_intervals(prof)
+        span_us = _busy_us(host)
+        if dev and span_us:
+            inside = _busy_inside(host, dev)
+            busy = _busy_us(dev)
+            idle = (f"device idle share inside dispatch "
+                    f"{1 - inside / span_us:.4f} ({span_us / 1e6:.4f} s of "
+                    f"dispatch spans, device busy {inside / 1e6:.4f} s in "
+                    f"them); over the traced run {1 - busy / 1e6 / traced:.4f}"
+                    f" ({traced:.3f} s)")
+        else:
+            idle = "no device activity recorded: idle share not measured"
+        print(f"pipeline: gemm({n}) pipeline_depth={depth}: {wall:.3f} s "
+              f"({_spans_text(spans, SPANS[:5])}); {counters['dispatches']} "
+              f"dispatches, {counters.get('pipeline_stalls', 0)} "
+              f"pipeline_stalls, {counters.get('capacity_regrows', 0)} "
+              f"capacity_regrows, {counters['ref_buckets']} buckets, "
+              f"{counters['refs_per_dispatch']:.3f} refs per dispatch; the "
+              f"draw's host reads {reads[1]} calls, {reads[0]:.4f} s; "
+              f"{idle}; MRC L1 error {err!r}")
+    print(f"pipeline: depths 1 and 4 give the headline's PRIState and MRC "
+          "bytes")
+    c = dataclasses.replace(cfg, fuse_refs=False)
+    spans, counters = {}, {}
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = run_sampled(gemm(serial_n), machine, c, device="cuda",
+                           spans=spans, counters=counters)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b1, _, b3 = _launches()
+    got = _state_mrc(state, machine)
+    if got[0] != main_path[0] or got[1].tobytes() != main_path[1].tobytes():
+        raise AssertionError("pipeline: the serial runner's PRIState or MRC "
+                             "bytes differ from the main path's")
+    if b1 != counters["dispatches"] or counters["refs_per_dispatch"] != 1:
+        raise AssertionError(f"pipeline: serial runner: {b1} B1 launches, "
+                             f"{counters['dispatches']} dispatches")
+    print(f"pipeline: gemm({serial_n}) fuse_refs=False (serial runner) "
+          f"{wall:.3f} s ({_spans_text(spans, SPANS[:5])}); "
+          f"{counters['dispatches']} dispatches of one ref, {b1} B1 and {b3} "
+          f"B3 launches; PRIState and MRC bytes equal the main path's")
+    return b1
+
+
+def phase_checkpoints(n: int, cfg, main_path) -> None:
+    """Checkpoints of GEMM N=n ("cuda") in a temporary directory: a full
+    run; with the second member's file of the first two-member bucket
+    deleted, a resume that dispatches that member alone and gives the
+    same state and MRC bytes; a fully checkpointed rerun that draws and
+    dispatches nothing."""
+    import tempfile
+
+    import torch
+
+    from pluss_sampler_optimization_torch.config import MachineConfig
+    from pluss_sampler_optimization_torch.models import gemm
+    from pluss_sampler_optimization_torch.sampler import sampled as S
+
+    machine = MachineConfig()
+    trace, rows = S._program_rows(gemm(n), machine)
+    pair = next(m for m in S._bucket_rows(trace, rows).values()
+                if len(m) == 2)
+    with tempfile.TemporaryDirectory() as ck:
+        lines = []
+        for label in ("full", "resume", "rerun"):
+            if label == "resume":
+                os.remove(S._checkpoint_path(ck, pair[1][0]))
+            counters: dict = {}
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, results = S.run_sampled(gemm(n), machine, cfg,
+                                           device="cuda", checkpoint_dir=ck,
+                                           counters=counters)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            b1, _, b3 = _launches()
+            got = _state_mrc(state, machine)
+            if (got[0] != main_path[0]
+                    or got[1].tobytes() != main_path[1].tobytes()):
+                raise AssertionError(f"checkpoints: the {label} run's "
+                                     "PRIState or MRC bytes differ")
+            nd = counters.get("dispatches", 0)
+            if label == "resume" and (
+                    counters["ref_buckets"] != 1 or b1 != nd
+                    or counters["refs_per_dispatch"] != 1):
+                raise AssertionError(f"checkpoints: the resume ran {nd} "
+                                     f"dispatches, {b1} B1 launches")
+            if label == "rerun" and (nd or b1 or b3):
+                raise AssertionError("checkpoints: a fully checkpointed "
+                                     "rerun dispatched")
+            lines.append(f"{label} {wall:.3f} s, {nd} dispatches, {b1} B1 "
+                         f"and {b3} B3 launches")
+    name = trace.nests[0].tables.ref_names[pair[1][1]]
+    print(f"checkpoints: gemm({n}): " + "; ".join(lines) + f" (the resume "
+          f"redid {name} alone); every state and MRC equals the main path's")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=2048,
@@ -1228,13 +1585,34 @@ def main(argv=None) -> int:
     card = _card_line()
     print(f"card: {card}")
     sass = phase_build()
+    cfg = SamplerConfig(ratio=0.1, seed=0)  # auto: the device draw here
+    from pluss_sampler_optimization_torch.config import MachineConfig
+    from pluss_sampler_optimization_torch.models import (
+        REGISTRY,
+        gemm,
+        syrk_tri,
+    )
+    from pluss_sampler_optimization_torch.sampler.sampled import warmup
+
+    phase_cold_warm(args.n, cfg)
+    # every kernel the timed runs launch, built, loaded and launched once
+    t0 = time.perf_counter()
+    host_cfg = dataclasses.replace(cfg, device_draw=False)
+    for prog, c in ((gemm(args.n), cfg), (gemm(2 * args.n), cfg),
+                    (gemm(args.n // 2), host_cfg),
+                    (syrk_tri(args.tri_n), cfg),
+                    *((REGISTRY[m](*a), cfg) for m, a in TRI_MODELS)):
+        warmup(prog, MachineConfig(), c)
+    print(f"warmup: {time.perf_counter() - t0:.3f} s for the timed runs' "
+          "programs")
     b2_err = phase_b2_made(dev)
     b3_err = phase_b3_made(dev)
-    cfg = SamplerConfig(ratio=0.1, seed=0)  # auto: the device draw here
-    from pluss_sampler_optimization_torch.models import gemm, syrk_tri
 
     k = phase_kernels(gemm(args.n), cfg, dev)
     _b1_summary("kernels", k)
+    kr = phase_kernels(gemm(args.n), cfg, dev, "raw kernels", raw=True)
+    _b1_summary("raw kernels", kr)
+    del kr["b3_calls"]
     b3 = phase_b3_engine(f"gemm({args.n})", k.pop("b3_calls"), sass,
                          b3_err)
     for n in (args.n, 2 * args.n):
@@ -1243,11 +1621,17 @@ def main(argv=None) -> int:
         "main path", args.n, cfg, MAIN_PATH_ORDER, k["dispatches"],
         k["b3_launches"])
     head_calls: list = []
-    (_, head_b3), _ = phase_main_path("headline", 2 * args.n, cfg,
-                                      ("cuda",), b3_calls=head_calls)
+    (_, head_b3), head = phase_main_path("headline", 2 * args.n, cfg,
+                                         ("cuda",), b3_calls=head_calls)
     b3["launches"] += head_b3
     phase_b3_engine(f"gemm({2 * args.n})", head_calls, sass, b3_err)
     del head_calls
+    b1_launches += phase_pipeline(2 * args.n, cfg, head, args.n, main_path)
+    raw_b1, raw_b3 = phase_raw_route(args.n, cfg, kr["dispatches"],
+                                     main_path)
+    b1_launches += raw_b1
+    b3["launches"] += raw_b3
+    phase_checkpoints(args.n, cfg, main_path)
     phase_main_path("host draw", args.n // 2,
                     dataclasses.replace(cfg, device_draw=False),
                     MAIN_PATH_ORDER)

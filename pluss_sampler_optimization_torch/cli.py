@@ -3,18 +3,24 @@
     python -m pluss_sampler_optimization_torch sample --model gemm --n 128
     python -m pluss_sampler_optimization_torch sample --n 16 --device cpu
     python -m pluss_sampler_optimization_torch sample --engine sharded
+    python -m pluss_sampler_optimization_torch sample --runtime v2 --r10
 
 `--engine sharded` runs the mesh-sharded engine over every visible card
 (one CPU device with `--device cpu`); its lines equal `--engine
 sampled`'s. `--device-draw/--no-device-draw` picks the draw (default
 auto: the device draw on CUDA, the host draw on the CPU), as the JAX
-CLI's flag does for its sampled and sharded engines.
+CLI's flag does for its sampled and sharded engines. `--runtime v2`
+keeps noshare reuse raw in the state, `--r10` distributes with the r10
+generated code's per-ref quirk copies and prints each per-ref
+histogram; both take the sampled engine's raw route. `--fuse-refs`,
+`--pipeline-depth` and `--checkpoint-dir` are the sampled engine's
+runner, pipeline and resume knobs; none changes a printed line.
 
 Prints the lines the JAX package's `sample` mode prints, in its order:
 one line per tracked ref, the noshare and share private-reuse dumps, the
-distributed reuse-time dump, the miss-ratio curve and the sample count.
-Runs on CUDA unless `--device cpu` is given, and fails where CUDA is
-absent.
+per-ref r10 histograms under `--r10`, the distributed reuse-time dump,
+the miss-ratio curve and the sample count. Runs on CUDA unless
+`--device cpu` is given, and fails where CUDA is absent.
 """
 
 from __future__ import annotations
@@ -45,33 +51,85 @@ def _parser() -> argparse.ArgumentParser:
                     "PRNG (kernel B3 on the card) instead of numpy on the "
                     "host (default: auto, on for a CUDA device and off on "
                     "the CPU, as the JAX package's auto per backend)")
+    ap.add_argument("--fuse-refs", default=None,
+                    action=argparse.BooleanOptionalAction,
+                    help="sampled engine: stack refs sharing a "
+                    "kernel-signature bucket into one dispatch per span "
+                    "(default: auto, on for a CUDA device and off on the "
+                    "CPU; results are bit-identical either way; "
+                    "--no-fuse-refs keeps the per-ref serial runner as "
+                    "the parity oracle)")
     ap.add_argument("--kernel-backend", default=None, choices=KERNEL_BACKENDS,
                     help="kernel implementation (default auto: the CUDA "
                     "kernels on the card, plain torch on the CPU)")
+    ap.add_argument("--pipeline-depth", type=int, default=None,
+                    help="sampled engine: max in-flight dispatches "
+                    "awaiting their device->host copy before the oldest "
+                    "is drained (config default: 4; forced drains count "
+                    "as pipeline_stalls)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="sample mode: persist finished per-ref results "
+                    "here and resume an interrupted run")
+    ap.add_argument("--runtime", choices=["v1", "v2"], default="v1",
+                    help="histogram runtime semantics: v1 pow2-bins "
+                    "noshare on insertion (pluss_utils.h:924-927), v2 "
+                    "keeps raw keys (pluss_utils_v2.h:915-918)")
+    ap.add_argument("--r10", action="store_true",
+                    help="distribute with the r10 generated-code quirk "
+                    "copies per reference (...rs-ri-opt-r10.cpp:42-131) "
+                    "instead of the runtime-v1 CRI model")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap
 
 
-def sample_lines(program, machine, cfg, device,
-                 engine: str = "sampled") -> list[str]:
+def _run(program, machine, cfg, device, engine: str, v2: bool, raw: bool,
+         checkpoint_dir: str | None):
+    """(PRIState, per-ref results) of one engine run; `raw` takes the
+    sampled engine's raw-noshare route (the sharded engine's results
+    always keep raw keys)."""
+    if engine == "sharded":
+        from .parallel import run_sampled_sharded
+
+        return run_sampled_sharded(program, machine, cfg, device=device,
+                                   v2=v2)
+    from .sampler.sampled import fold_results, sampled_outputs
+
+    per_ref = sampled_outputs(program, machine, cfg, device=device,
+                              raw_noshare=raw,
+                              checkpoint_dir=checkpoint_dir)
+    return fold_results(per_ref, machine.thread_num, v2), per_ref
+
+
+def sample_lines(program, machine, cfg, device, engine: str = "sampled",
+                 runtime: str = "v1", r10: bool = False,
+                 checkpoint_dir: str | None = None) -> list[str]:
     """The sample mode's output lines."""
+    v2 = runtime == "v2"
+    state, per_ref = _run(program, machine, cfg, device, engine, v2,
+                          v2 or r10, checkpoint_dir)
+    return result_lines(state, per_ref, machine, r10)
+
+
+def result_lines(state, per_ref, machine, r10: bool = False) -> list[str]:
+    """The sample mode's lines of one run's folded state and per-ref
+    results (under `r10`, results of the raw route)."""
     from .runtime import report
     from .runtime.aet import aet_mrc
-    from .runtime.cri import cri_distribute
+    from .runtime.cri import cri_distribute, r10_distribute
 
-    if engine == "sharded":
-        from .parallel import run_sampled_sharded as run
-    else:
-        from .sampler.sampled import run_sampled as run
-    state, per_ref = run(program, machine, cfg, device=device)
     lines = [
         f"ref {r.name}: {r.n_samples} samples, cold {r.cold:g}"
         for r in per_ref
     ]
     lines += report.noshare_dump(state)
     lines += report.share_dump(state)
-    rih = cri_distribute(state, machine.thread_num, machine.thread_num)
+    if r10:
+        rih, per_ref_hists = r10_distribute(per_ref, machine.thread_num)
+        for name, h in per_ref_hists.items():
+            lines += report.histogram_lines(name, h)
+    else:
+        rih = cri_distribute(state, machine.thread_num, machine.thread_num)
     lines += report.rih_dump(rih)
     lines += report.mrc_lines(aet_mrc(rih, machine))
     total = sum(r.n_samples for r in per_ref)
@@ -86,10 +144,14 @@ def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     machine = MachineConfig(thread_num=args.threads, chunk_size=args.chunk)
     program = build(args.model, args.n)
+    kw = {}
+    if args.pipeline_depth is not None:  # None = keep the config default
+        kw["pipeline_depth"] = args.pipeline_depth
     cfg = SamplerConfig(
         ratio=args.ratio, seed=args.seed, device_draw=args.device_draw,
-        kernel_backend=args.kernel_backend,
+        kernel_backend=args.kernel_backend, fuse_refs=args.fuse_refs, **kw,
     )
     report.emit(sample_lines(program, machine, cfg, args.device,
-                             args.engine))
+                             args.engine, args.runtime, args.r10,
+                             args.checkpoint_dir))
     return 0

@@ -101,6 +101,20 @@ class SamplerConfig:
     # use_pallas_hist: "torch" is use_pallas_hist=False (exp_hist), and
     # "auto"/"cuda" launch the kernel on CUDA tensors.
     kernel_backend: str | None = None
+    # Cross-ref fused dispatch: refs sharing a kernel-signature bucket
+    # (sampler/sampled.py::_kernel_sig) stack along a leading ref axis and
+    # classify in one dispatch per span instead of one per ref. Results
+    # are bit-identical to the per-ref runner (the pair reductions are
+    # exact and the per-ref seeds unchanged), so this is a pure dispatch
+    # knob; False keeps the serial per-ref runner as the parity oracle.
+    # None = auto, as in the JAX package: on for a CUDA device, off on
+    # the CPU.
+    fuse_refs: bool | None = None
+    # Depth bound of the dispatch pipeline: how many dispatches may be in
+    # flight, their small outputs copying back, before the host drains
+    # the oldest. Each in-flight dispatch keeps its residual and inputs
+    # alive on the device. A forced drain counts as `pipeline_stalls`.
+    pipeline_depth: int = 4
 
     def __post_init__(self) -> None:
         kb = self.kernel_backend

@@ -12,6 +12,10 @@
 //   - share samples and sub-1 noshare samples go to the residual stream
 //     as the packed key ri*16+slot, every other lane holds 2^62;
 //   - masked-in samples whose line is never touched again count cold.
+// The raw-noshare form (a launch flag, `raw`) keeps every noshare
+// reuse exact: each found sample goes to the residual stream and the
+// histogram stays zero, for the runtime-v2 state and the r10
+// distribute, which read raw noshare keys. Cold counting is the same.
 //
 // Design. The Pallas kernel was traced per kernel signature, with the
 // classify's structure baked in. Here one build serves every
@@ -973,10 +977,12 @@ HD void classify_one(const i64* d, const i64* tri, i64 key, const i64* hr,
 
 // One sample's contribution: residual lane, histogram bin, cold count.
 // Returns the bin (0..63) of a noshare ri >= 1 sample, 64 for a cold
-// sample, -1 otherwise.
+// sample, -1 otherwise. Under `raw` no sample is binned: every found
+// sample writes its packed key (noshare slot 15) to the residual.
 template <int LV, int NHMAX, bool TRI>
 HD int sample_step(const i64* d, const i64* tri, i64 key, bool mk,
-                   const i64* hr, i64 rx, i64* nb, i64* residual) {
+                   const i64* hr, i64 rx, i64* nb, bool raw,
+                   i64* residual) {
     if (!mk) {  // masked-out lane: nothing but the sentinel
         *residual = SENTINEL;
         return -1;
@@ -985,7 +991,7 @@ HD int sample_step(const i64* d, const i64* tri, i64 key, bool mk,
     bool shr, fnd;
     classify_one<LV, NHMAX, TRI>(d, tri, key, hr, rx, nb, &packed, &ri, &shr,
                                  &fnd);
-    const bool nosh = fnd && !shr && ri >= 1;
+    const bool nosh = !raw && fnd && !shr && ri >= 1;
     *residual = (fnd && !nosh) ? packed : SENTINEL;
     if (nosh) return 63 - clz64(ri);
     return fnd ? -1 : N_BINS;
@@ -1020,8 +1026,9 @@ sampled_hist_kernel(const i64* __restrict__ keys,
                     const unsigned char* __restrict__ mask, i64 B, i64 ld,
                     const __grid_constant__ Params pr,
                     const i64* __restrict__ rx,
-                    const i64* __restrict__ tri, i64* __restrict__ residual,
-                    u64* __restrict__ hist, u64* __restrict__ cold) {
+                    const i64* __restrict__ tri, bool raw,
+                    i64* __restrict__ residual, u64* __restrict__ hist,
+                    u64* __restrict__ cold) {
     __shared__ i64 s_nb[MAX_MEMBERS * THREADS];  // walk_group's nb
     __shared__ u64 s_hist[N_BINS + 1];  // + cold
     for (int i = threadIdx.x; i <= N_BINS; i += blockDim.x) s_hist[i] = 0;
@@ -1040,7 +1047,7 @@ sampled_hist_kernel(const i64* __restrict__ keys,
             const bool mk = mask == nullptr || mask[in + b] != 0;
             bin = sample_step<LV, NHMAX, TRI>(pr.desc, tri, keys[in + b], mk,
                                               pr.hr, rxv, s_nb + threadIdx.x,
-                                              residual + base + b);
+                                              raw, residual + base + b);
         }
         const unsigned peers = __match_any_sync(0xffffffffu, bin);
         if (bin >= 0 && (int)(threadIdx.x & 31) == __ffs(peers) - 1)
@@ -1054,15 +1061,15 @@ sampled_hist_kernel(const i64* __restrict__ keys,
 }
 
 typedef int (*LaunchFn)(const void*, const void*, i64, i64, i64,
-                        const Params&, const void*, const void*, void*, void*,
-                        void*, cudaStream_t);
+                        const Params&, const void*, const void*, bool, void*,
+                        void*, void*, cudaStream_t);
 
 #define MAX_DEVICES 64
 
 template <int LV, int NHMAX, bool TRI>
 static int launch(const void* keys, const void* mask, i64 R, i64 B, i64 ld,
                   const Params& pr, const void* rx, const void* tri,
-                  void* residual, void* hist, void* cold,
+                  bool raw, void* residual, void* hist, void* cold,
                   cudaStream_t stream) {
     // as many blocks as the card holds at once, split over the R rows;
     // the card's SM count times this instantiation's blocks per SM, asked
@@ -1091,7 +1098,7 @@ static int launch(const void* keys, const void* mask, i64 R, i64 B, i64 ld,
     dim3 grid((unsigned)bx, (unsigned)R);
     sampled_hist_kernel<LV, NHMAX, TRI><<<grid, THREADS, 0, stream>>>(
         (const i64*)keys, (const unsigned char*)mask, B, ld, pr, (const i64*)rx,
-        (const i64*)tri, (i64*)residual, (u64*)hist, (u64*)cold);
+        (const i64*)tri, raw, (i64*)residual, (u64*)hist, (u64*)cold);
     return (int)cudaGetLastError();
 }
 
@@ -1109,15 +1116,15 @@ static const LaunchFn LAUNCH[2][MAX_DEPTH][2] = {
 // (build_descriptor); hrec: the host's int64 [9], the division records
 // of the three radices; rx: int64 [R]; tri: for a triangular descriptor
 // the base table, int64 [threads, lmax + 1] on the card (null
-// otherwise); hist: int64 [R, 64] and cold: int64 [R], both zeroed by the
-// caller. Launches the instantiation of the descriptor's source-ref level
+// otherwise); raw: nonzero for the raw-noshare form; hist: int64 [R, 64]
+// and cold: int64 [R], both zeroed by the caller. Launches the instantiation of the descriptor's source-ref level
 // (desc[D_LV]), most heads per group and nest kind on `stream`,
 // allocates nothing, returns cudaGetLastError() (or
 // cudaErrorInvalidValue for arguments the kernel does not take).
 extern "C" int sampled_hist_launch(const void* keys, const void* mask,
                                    i64 R, i64 B, i64 ld, const i64* desc,
                                    int desc_len, const i64* hrec,
-                                   const void* rx, const void* tri,
+                                   const void* rx, const void* tri, int raw,
                                    void* residual, void* hist, void* cold,
                                    void* stream) {
     if (desc_len < D_HEADER || desc_len > MAX_DESC || R < 1 || R > 65535
@@ -1128,7 +1135,7 @@ extern "C" int sampled_hist_launch(const void* keys, const void* mask,
     for (int i = 0; i < MAX_DEPTH * DIV_SIZE; ++i) pr.hr[i] = hrec[i];
     for (int i = 0; i < desc_len; ++i) pr.desc[i] = desc[i];
     return LAUNCH[desc[D_TRI] != 0][desc[D_LV]][max_heads(desc) > 1](
-        keys, mask, R, B, ld, pr, rx, tri, residual, hist, cold,
+        keys, mask, R, B, ld, pr, rx, tri, raw != 0, residual, hist, cold,
         (cudaStream_t)stream);
 }
 
@@ -1137,15 +1144,15 @@ extern "C" int sampled_hist_launch(const void* keys, const void* mask,
 template <int LV, int NHMAX, bool TRI>
 static void host_rows(const i64* keys, const unsigned char* mask, i64 R,
                       i64 B, const i64* desc, const i64* hrec,
-                      const i64* rx, const i64* tri, i64* residual,
-                      i64* hist, i64* cold) {
+                      const i64* rx, const i64* tri, bool raw,
+                      i64* residual, i64* hist, i64* cold) {
     i64 nb[MAX_MEMBERS];
     for (i64 r = 0; r < R; ++r) {
         for (i64 b = 0; b < B; ++b) {
             const i64 i = r * B + b;
             const bool mk = mask == nullptr || mask[i] != 0;
             const int bin = sample_step<LV, NHMAX, TRI>(
-                desc, tri, keys[i], mk, hrec, rx[r], nb, residual + i);
+                desc, tri, keys[i], mk, hrec, rx[r], nb, raw, residual + i);
             if (bin == N_BINS) cold[r] += 1;
             else if (bin >= 0) hist[r * N_BINS + bin] += 1;
         }
@@ -1153,8 +1160,8 @@ static void host_rows(const i64* keys, const unsigned char* mask, i64 R,
 }
 
 typedef void (*HostFn)(const i64*, const unsigned char*, i64, i64,
-                       const i64*, const i64*, const i64*, const i64*, i64*,
-                       i64*, i64*);
+                       const i64*, const i64*, const i64*, const i64*, bool,
+                       i64*, i64*, i64*);
 #define HOST_ROW(LV, TRI) {host_rows<LV, 1, TRI>, host_rows<LV, 3, TRI>}
 static const HostFn HOST[2][MAX_DEPTH][2] = {
     {HOST_ROW(0, false), HOST_ROW(1, false), HOST_ROW(2, false)},
@@ -1165,14 +1172,15 @@ static const HostFn HOST[2][MAX_DEPTH][2] = {
 extern "C" int sampled_hist_host(const i64* keys, const unsigned char* mask,
                                  i64 R, i64 B, const i64* desc,
                                  int desc_len, const i64* hrec,
-                                 const i64* rx, const i64* tri,
+                                 const i64* rx, const i64* tri, int raw,
                                  i64* residual, i64* hist, i64* cold) {
     if (desc_len < D_HEADER || desc_len > MAX_DESC || R < 1 || B < 1
         || desc[D_LV] < 0 || desc[D_LV] >= MAX_DEPTH
         || max_heads(desc) > MAX_DEPTH || (desc[D_TRI] != 0) != (tri != 0))
         return 1;
     HOST[desc[D_TRI] != 0][desc[D_LV]][max_heads(desc) > 1](
-        keys, mask, R, B, desc, hrec, rx, tri, residual, hist, cold);
+        keys, mask, R, B, desc, hrec, rx, tri, raw != 0, residual, hist,
+        cold);
     return 0;
 }
 

@@ -11,6 +11,11 @@ buffer of B mixed-radix sample keys — it returns
                     (bin floor(log2 ri); bin 63 is always empty);
     cold[R]         masked-in samples whose line is never touched again.
 
+Under `raw=True` (the raw-noshare form, for runtime-v2 states and the
+r10 distribute, which read raw noshare reuse) no sample is binned: every
+found sample's packed key goes to the residual, noshare ones with slot
+15, and hist stays zero; cold is unchanged.
+
 `mask_RB` (bool [R, B]) switches lanes off: the engine passes the
 device draw's `chosen` mask. None means every lane is live, which is
 what the host draw's dispatches pass (they are never padded), so the
@@ -591,10 +596,12 @@ def exp2_floor(x):
     return e
 
 
-def sampled_hist_plain(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R):
+def sampled_hist_plain(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
+                       raw: bool = False):
     """Plain torch version: the tensor classify
     (sampler/sampled.py::classify_samples), then the same
-    residual/histogram/cold split as the kernel."""
+    residual/histogram/cold split as the kernel (`raw`: the raw-noshare
+    form, nothing binned)."""
     from ..sampler.sampled import classify_samples, decode_sample_keys
 
     dev = keys_RB.device
@@ -614,7 +621,7 @@ def sampled_hist_plain(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R):
         live, dead = found, ~found
         if mask_RB is not None:
             live, dead = live & mask_RB[r], dead & mask_RB[r]
-        nosh = live & ~is_share & (ri >= 1)
+        nosh = live & ~is_share & (ri >= 1) & (not raw)
         residual[r] = torch.where(live & ~nosh, packed, SENTINEL)
         hist[r] = torch.bincount(exp2_floor(ri[nosh]), minlength=N_BINS)
         cold[r] = dead.sum()
@@ -624,7 +631,7 @@ def sampled_hist_plain(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R):
 _ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
      ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int]
-    + [ctypes.c_void_p] * 7
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 4
 )
 
 
@@ -648,7 +655,7 @@ def _check(name, x, dtype, shape, dev, ld=None):
 
 
 def sampled_hist_cuda(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
-                      desc=None, tri_base=None):
+                      desc=None, tri_base=None, raw: bool = False):
     """Launch csrc/sampled_hist.cu on the current stream; raises on any
     argument the kernel does not take or a launch error. keys_RB (and
     mask_RB, with the same strides) may be a column span of a wider
@@ -657,7 +664,7 @@ def sampled_hist_cuda(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
     the launch passes it by value and launches the instantiation of its
     source-ref level desc[D_LV], most heads per group and nest kind.
     `tri_base` is a triangular nest's `tri_table` on the keys' device
-    (made here when None)."""
+    (made here when None). `raw` launches the raw-noshare form."""
     global LAUNCHES
     from . import _build
 
@@ -695,7 +702,7 @@ def sampled_hist_cuda(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
         tri_ptr = None if tri_base is None else tri_base.data_ptr()
         rc = fn(keys_RB.data_ptr(), mask_ptr, R, B, ld,
                 desc.ctypes.data, desc.shape[0], hrec.ctypes.data,
-                rx_R.data_ptr(), tri_ptr, residual.data_ptr(),
+                rx_R.data_ptr(), tri_ptr, int(raw), residual.data_ptr(),
                 hist.data_ptr(), cold.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"sampled_hist_launch failed: CUDA error {rc}")
@@ -704,8 +711,10 @@ def sampled_hist_cuda(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
 
 
 def sampled_hist(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
-                 backend: str = "auto", desc=None, tri_base=None):
-    """(residual[R,B], hist[R,64], cold[R]) for one bucket dispatch.
+                 backend: str = "auto", desc=None, tri_base=None,
+                 raw: bool = False):
+    """(residual[R,B], hist[R,64], cold[R]) for one bucket dispatch
+    (`raw`: the raw-noshare form).
 
     backend "torch" takes the plain version; "auto" takes it for tensors
     on the CPU and launches the kernel for CUDA tensors; "cuda" always
@@ -713,8 +722,9 @@ def sampled_hist(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
     if backend == "torch" or (
         backend == "auto" and keys_RB.device.type == "cpu"
     ):
-        return sampled_hist_plain(nt, ref_idx, keys_RB, mask_RB, highs, rx_R)
+        return sampled_hist_plain(nt, ref_idx, keys_RB, mask_RB, highs, rx_R,
+                                  raw)
     if backend not in ("auto", "cuda"):
         raise ValueError(f"unknown backend {backend!r}")
     return sampled_hist_cuda(nt, ref_idx, keys_RB, mask_RB, highs, rx_R,
-                             desc, tri_base)
+                             desc, tri_base, raw)

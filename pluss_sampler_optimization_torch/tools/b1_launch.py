@@ -200,7 +200,7 @@ def main(argv=None) -> int:
                                device=dev),
                    torch.zeros(R, dtype=torch.int64, device=dev))
             args = (keys.data_ptr(), None, R, B, B, desc.ctypes.data,
-                    desc.shape[0], hrec.ctypes.data, rx.data_ptr(), None,
+                    desc.shape[0], hrec.ctypes.data, rx.data_ptr(), None, 0,
                     *(t.data_ptr() for t in out), stream)
             if fn(*args) != 0:
                 raise RuntimeError(f"{name} launch failed")

@@ -107,10 +107,11 @@ def host_twin(tmp_path_factory):
     )
     fn = ctypes.CDLL(str(out)).sampled_hist_host
     p, q = ctypes.c_void_p, ctypes.c_longlong
-    fn.argtypes = [p, p, q, q, p, ctypes.c_int, p, p, p, p, p, p]
+    fn.argtypes = [p, p, q, q, p, ctypes.c_int, p, p, p, ctypes.c_int, p, p,
+                   p]
     fn.restype = ctypes.c_int
 
-    def run(nt, ri0, keys, mask, highs, rx):
+    def run(nt, ri0, keys, mask, highs, rx, raw=False):
         R, B = keys.shape
         d = sh.build_descriptor(nt, ri0)
         res = np.empty_like(keys)
@@ -123,7 +124,7 @@ def host_twin(tmp_path_factory):
         rc = fn(keys.ctypes.data, None if m8 is None else m8.ctypes.data,
                 R, B, d.ctypes.data, len(d), hrec.ctypes.data,
                 rx.ctypes.data, None if tri is None else tri.ctypes.data,
-                res.ctypes.data, hist.ctypes.data, cold.ctypes.data)
+                int(raw), res.ctypes.data, hist.ctypes.data, cold.ctypes.data)
         assert rc == 0
         return res, hist, cold
 
@@ -184,7 +185,7 @@ def test_host_twin_reaches_every_level_instantiation(host_twin):
     out = [np.zeros(n, np.int64) for n in (4, sh.N_BINS, 1)]
     hrec, rx = sh.radix_records([1, 1, 1]), np.zeros(1, np.int64)
     assert host_twin.raw(keys.ctypes.data, None, 1, 4, d.ctypes.data, len(d),
-                         hrec.ctypes.data, rx.ctypes.data, None,
+                         hrec.ctypes.data, rx.ctypes.data, None, 0,
                          *(x.ctypes.data for x in out)) == 1
 
 

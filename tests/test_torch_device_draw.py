@@ -82,7 +82,7 @@ def test_run_sampled_device_draw_folds_like_jax(name, n, batch):
         J.SamplerConfig(ratio=0.3, seed=1, device_draw=True), **kw)
     ts, tres = T.run_sampled(
         T_MODELS[name](n), tm,
-        T.SamplerConfig(ratio=0.3, seed=1, device_draw=True),
+        T.SamplerConfig(ratio=0.3, seed=1, device_draw=True, fuse_refs=True),
         device="cpu", **kw)
     assert t_state_json(ts) == j_state_json(js)
     assert (_mrc(t_cri, t_aet, ts, tm).tobytes()
@@ -112,7 +112,8 @@ def test_replayed_members_fold_like_jax(monkeypatch):
         J_MODELS["gemm"](16), jm,
         J.SamplerConfig(ratio=0.3, seed=0, device_draw=True), batch=batch)
     prog = T_MODELS["gemm"](16)
-    cfg = T.SamplerConfig(ratio=0.3, seed=0, device_draw=True)
+    cfg = T.SamplerConfig(ratio=0.3, seed=0, device_draw=True,
+                          fuse_refs=True)
     trace, rows = TS._program_rows(prog, tm)
     ds = list(TS.plan_dispatches(trace, rows, cfg, torch.device("cpu"),
                                  batch, "auto"))
@@ -132,7 +133,8 @@ def test_device_draw_dispatches_are_masked_views():
     chosen lanes are exactly the samples; the plain route equals the
     default; a tiny batch with capacity 0 folds the same."""
     prog, m = T_MODELS["gemm"](16), T.MachineConfig()
-    cfg = T.SamplerConfig(ratio=0.3, seed=2, device_draw=True)
+    cfg = T.SamplerConfig(ratio=0.3, seed=2, device_draw=True,
+                          fuse_refs=True)
     trace, rows = TS._program_rows(prog, m)
     ds = list(TS.plan_dispatches(trace, rows, cfg, torch.device("cpu"), 8,
                                  "auto"))
@@ -222,7 +224,8 @@ def test_sample_cli_device_draw_prints_the_jax_lines(engine, capsys):
             "--device-draw"]
     assert j_main(args + ["--platform", "cpu"]) == 0
     want = capsys.readouterr().out
-    assert t_main(args + ["--engine", engine, "--device", "cpu"]) == 0
+    assert t_main(args + ["--engine", engine, "--device", "cpu",
+                          "--fuse-refs"]) == 0
     got = capsys.readouterr().out
     assert got == want
     assert "ref B0" in got and "max iteration count" in got

@@ -186,14 +186,18 @@ def test_run_sampled_needs_cuda_unless_cpu_is_asked(monkeypatch):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["sample", "--n", "8"])
+    from pluss_sampler_optimization_torch.sampler.sampled import warmup
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        warmup(prog, m)
+    assert warmup(prog, m, device="cpu") is None
 
 
 def test_unported_routes_raise():
     prog, m = T_MODELS["gemm"](8), T.MachineConfig()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.run_sampled(prog, m, T.SamplerConfig(), v2=True, device="cpu")
-    # a triangular nest runs (tests/test_torch_tri.py) unless a step is
-    # not 1, which the closed form does not cover
+    # runtime v2 runs (tests/test_torch_r10_v2.py); a triangular nest
+    # runs (tests/test_torch_tri.py) unless a step is not 1, which the
+    # closed form does not cover
     step2 = tri_step2_program(TLoop, TNest, TProgram, TRef)
     with pytest.raises(NotImplementedError, match="unit steps"):
         T.run_sampled(step2, m, T.SamplerConfig(), device="cpu")

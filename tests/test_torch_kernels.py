@@ -181,6 +181,96 @@ def test_run_sampled_kernel_equals_plain_on_card(name, cuda):
     ]
 
 
+@pytest.mark.parametrize("made", [made_program, made_tri_program])
+def test_raw_form_matches_plain_on_every_instantiation(made, cuda):
+    """B1's raw-noshare form on the made programs (all 12
+    instantiations): bit-equal to the plain version's raw form, the
+    histogram empty, and every masked-in sample either a residual pair
+    or cold; the binned form's hist plus its pairs hold the same
+    samples."""
+    prog = made(Loop, ParallelNest, Program, Ref)
+    trace, rows = S._program_rows(prog, T.MachineConfig())
+    seen = set()
+    for dd in (True, False):
+        cfg = T.SamplerConfig(ratio=0.6, seed=3, device_draw=dd)
+        for d in S.plan_dispatches(trace, rows, cfg, cuda, 1 << 20, "cuda"):
+            seen.add(sh.instantiation(d.desc))
+            args = (d.keys_RB, d.mask_RB, d.highs, d.rx_R)
+            n0 = sh.LAUNCHES
+            got = sh.sampled_hist(d.nt, d.ref_idx, *args, desc=d.desc,
+                                  tri_base=d.tri_base, raw=True)
+            assert sh.LAUNCHES == n0 + 1
+            want = sh.sampled_hist_plain(d.nt, d.ref_idx, *args, raw=True)
+            binned = sh.sampled_hist(d.nt, d.ref_idx, *args, desc=d.desc,
+                                     tri_base=d.tri_base)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+            residual, hist, cold = got
+            assert not hist.any() and torch.equal(cold, binned[2])
+            live = (torch.ones_like(d.keys_RB, dtype=torch.bool)
+                    if d.mask_RB is None else d.mask_RB)
+            pairs = (residual != sh.SENTINEL).sum(dim=1)
+            assert torch.equal(pairs + cold, live.sum(dim=1))
+            assert torch.equal(
+                (binned[0] != sh.SENTINEL).sum(dim=1) + binned[1].sum(dim=1),
+                pairs)
+    want = {(lv, nh) for lv in range(3) for nh in (1, 3)}
+    assert {(lv, nh) for lv, nh, _ in seen} == want
+
+
+@pytest.mark.parametrize("name", ["gemm", "trmm"])
+def test_raw_route_launches_b1_and_equals_the_cpu(name, cuda):
+    """sampled_outputs(raw_noshare=True) on the card runs B1 (never the
+    plain version) and gives the CPU's per-ref results under the host
+    draw, field for field; v2 and the v1 fold of the raw route equal
+    the plain route's on the card."""
+    prog, m = REGISTRY[name](48), T.MachineConfig()
+    cfg = T.SamplerConfig(ratio=0.3, seed=1, device_draw=False)
+    n0 = sh.LAUNCHES
+    got = S.sampled_outputs(prog, m, cfg, raw_noshare=True)
+    assert sh.LAUNCHES > n0
+    cpu = S.sampled_outputs(prog, m, cfg, device="cpu", raw_noshare=True)
+    assert [dataclasses.asdict(r) for r in got] == [
+        dataclasses.asdict(r) for r in cpu]
+    for v2 in (False, True):
+        st, _ = S.run_sampled(prog, m, T.SamplerConfig(ratio=0.3, seed=1),
+                              v2=v2)
+        plain, _ = S.run_sampled(prog, m, T.SamplerConfig(
+            ratio=0.3, seed=1, kernel_backend="torch"), v2=v2)
+        assert state_to_json(st) == state_to_json(plain)
+
+
+def test_pipeline_depths_runners_and_resume_on_card(cuda, tmp_path):
+    """On the card: pipeline depths 1 and 4, the serial runner and a
+    resumed run give the same per-ref results; depth 1 stalls once per
+    dispatch; warmup launches B1 and B3 and leaves the run's results
+    unchanged."""
+    prog, m = REGISTRY["gemm"](64), T.MachineConfig()
+    cfg = T.SamplerConfig(ratio=0.2, seed=0)
+    n1, n3 = sh.LAUNCHES, td.LAUNCHES
+    S.warmup(prog, m, cfg)
+    assert sh.LAUNCHES > n1 and td.LAUNCHES > n3
+    runs = {}
+    for key, c in (("d4", cfg),
+                   ("d1", dataclasses.replace(cfg, pipeline_depth=1)),
+                   ("serial", dataclasses.replace(cfg, fuse_refs=False))):
+        counters: dict = {}
+        runs[key] = [dataclasses.asdict(r) for r in S.sampled_outputs(
+            prog, m, c, counters=counters, batch=1 << 12)]
+        if key == "d1":
+            assert counters["pipeline_stalls"] == counters["dispatches"]
+    assert runs["d1"] == runs["d4"] == runs["serial"]
+    ck = tmp_path / "ck"
+    S.sampled_outputs(prog, m, cfg, batch=1 << 12, checkpoint_dir=str(ck))
+    (ck / "ref_001.json").unlink()
+    counters = {}
+    got = S.sampled_outputs(prog, m, cfg, batch=1 << 12, counters=counters,
+                            checkpoint_dir=str(ck))
+    assert [dataclasses.asdict(r) for r in got] == runs["d4"]
+    assert counters["refs_per_dispatch"] == 1
+
+
 def _b2_made_input(n, seed):
     """n values over all 64 ladder bins, 0 and negatives included."""
     rng = np.random.default_rng(seed)

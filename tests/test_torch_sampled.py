@@ -54,7 +54,8 @@ def test_run_sampled_folds_like_jax(name):
         ),
     )
     ts, tres = T.run_sampled(
-        T_MODELS[name](16), tm, T.SamplerConfig(ratio=RATIO, seed=SEED),
+        T_MODELS[name](16), tm,
+        T.SamplerConfig(ratio=RATIO, seed=SEED, fuse_refs=True),
         device="cpu",
     )
     assert t_state_json(ts) == j_state_json(js)
@@ -70,7 +71,7 @@ def test_small_batch_and_capacity_regrow_fold_the_same():
     """Many dispatches per bucket and a capacity of 0 (every dispatch
     that carries a share pair regrows) give the one-dispatch result."""
     prog, m = T_MODELS["gemm"](16), T.MachineConfig()
-    cfg = T.SamplerConfig(ratio=RATIO, seed=SEED)
+    cfg = T.SamplerConfig(ratio=RATIO, seed=SEED, fuse_refs=True)
     want = TS.sampled_outputs(prog, m, cfg, device="cpu")
     assert any(r.share for r in want)
     got = TS.sampled_outputs(prog, m, cfg, device="cpu", batch=8,
@@ -118,7 +119,7 @@ def test_sample_cli_prints_the_jax_lines(model, n, ratio, capsys):
     args = ["sample", "--model", model, "--n", str(n), "--ratio", str(ratio)]
     assert j_main(args + ["--platform", "cpu"]) == 0
     want = capsys.readouterr().out
-    assert t_main(args + ["--device", "cpu"]) == 0
+    assert t_main(args + ["--device", "cpu", "--fuse-refs"]) == 0
     got = capsys.readouterr().out
     assert got == want
     assert "ref B0" in got and "max iteration count" in got

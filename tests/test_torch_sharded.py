@@ -337,8 +337,9 @@ def test_sampled_outputs_sharded_matches_jax(name, n, n_dev, ratio, seed,
         _results_equal(jres, tres)
         _dense_equal(jd, td)
     assert all(d.any() for d in td)
-    want, _ = T.run_sampled(T_MODELS[name](*args), m, cfg, device="cpu",
-                            **kw)
+    want, _ = T.run_sampled(T_MODELS[name](*args), m,
+                            dataclasses.replace(cfg, fuse_refs=True),
+                            device="cpu", **kw)
     state = TS.fold_results(tres, m.thread_num)
     assert t_state_json(state) == t_state_json(want)
     assert _mrc(state, m).tobytes() == _mrc(want, m).tobytes()
@@ -355,7 +356,8 @@ def test_sharded_folds_like_run_sampled_and_jax_v2():
     state and MRC bytes, and v2=True equals the JAX package's v2 state."""
     m, cfg = T.MachineConfig(), T.SamplerConfig(ratio=0.25, seed=3)
     prog = T_MODELS["gemm"](16)
-    want_state, _ = T.run_sampled(prog, m, cfg, device="cpu")
+    want_state, _ = T.run_sampled(
+        prog, m, dataclasses.replace(cfg, fuse_refs=True), device="cpu")
     base, _ = t_outputs_sharded(prog, m, cfg, device="cpu", capacity=4096)
     small, _ = t_outputs_sharded(prog, m, cfg, mesh=_cpu_mesh(3), batch=40,
                                  capacity=2)
@@ -409,7 +411,7 @@ def test_sample_cli_sharded_prints_the_jax_lines(capsys):
     want = capsys.readouterr().out
     assert t_main(args + ["--engine", "sharded", "--device", "cpu"]) == 0
     got = capsys.readouterr().out
-    assert t_main(args + ["--device", "cpu"]) == 0
+    assert t_main(args + ["--device", "cpu", "--fuse-refs"]) == 0
     assert got == want == capsys.readouterr().out
     assert "ref B0" in got and "max iteration count" in got
 

@@ -147,7 +147,8 @@ def test_run_sampled_device_draw_folds_like_jax():
     )
     ts, tres = T.run_sampled(
         T_MODELS[name](16), tm,
-        T.SamplerConfig(ratio=0.3, seed=0, device_draw=True),
+        T.SamplerConfig(ratio=0.3, seed=0, device_draw=True,
+                        fuse_refs=True),
         device="cpu", **kw,
     )
     assert t_state_json(ts) == j_state_json(js)
