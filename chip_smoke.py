@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # GEMM N=2048, ratio 0.1, seed 0
     python3 chip_smoke.py --n 256 --tri-n 256   # quicker (no baselines)
+    python3 chip_smoke.py --scaling-only   # the fused sharded form, 1..all cards
 
 SamplerConfig() resolves to the device draw on the card (threefry on
 kernel B3), as the JAX package's auto does on an accelerator. Phases,
@@ -89,24 +90,49 @@ each printing its own lines; any failure exits non-zero:
 9. host-draw path: the same two runs at GEMM N=--n/2 (1024) with
    device_draw=False: equal states and MRC bytes, L1 against
    baselines/gemm1024.json.gz at most 0.01;
-10. sharded path, device draw: sampled_outputs_sharded over build_mesh()
-   (every visible card) and fold_results, with host seconds per stage
-   and the device's busy time from a torch.profiler trace of the run.
-   B2 must launch once per shard per batch step of each ref's drawn
-   buffer, B1 never; the folded PRIState and MRC bytes must equal the
+10. sharded path, device draw, over build_mesh() (every visible card):
+   sampled_outputs_sharded and fold_results at GEMM --n in the fused
+   form (the default on CUDA), counted and recorded, then again under
+   torch.profiler (spans, wall, the device's busy share). B1 (its raw
+   form) must launch once per shard per bucket step, B2 once per member
+   row of each mesh reduction (the histogram of the gathered noshare
+   pairs, int64 weights), B3 as often as the main path's draw; one read
+   back per reduction; the folded PRIState and MRC bytes must equal the
    main path's, and each ref's pow2 histogram the pow2 binning of its
-   exact noshare pairs;
+   exact noshare pairs. Then the per-ref (scan) form (fuse_refs=False):
+   one read back per ref plus regrows, equal state. Every B1 launch of
+   both runs (each shard's keys, mask, column span and rx) is held
+   bit-equal against the plain raw form on the card and timed beside its
+   bound ("sharded kernels:" lines). Then the fused form at GEMM --n/2
+   (1024) with "cuda" and "torch" (the JAX package's own route: plain
+   classify, exp_hist, fixed_k_unique): equal per-ref results, dense
+   histograms, states and MRC bytes;
 11. B2 vs plain on the sharded path's own inputs (every launch's
-   max(ri, 1) and bool weights, recorded during phase 10); bit-equal;
-   how many bins each launch fills; kernel, plain version and the
-   torch.searchsorted + torch.bincount yardstick timed per run, as
+   max(ri, 1) and int64 count weights, recorded during phase 10);
+   bit-equal; how many bins each launch fills; kernel, plain version and
+   the torch.searchsorted + torch.bincount yardstick timed per run, as
    device time from torch.profiler and as CUDA events around the calls
    (host-bound for the kernel: its wrapper's cost per call); the
    kernel's trace must hold no device operation but the kernel;
+11b. the headline through the sharded engine's fused form, GEMM 2*--n
+   (4096): state and MRC bytes equal phase 8's, MRC L1 error against
+   baselines/gemm4096.json.gz at most 0.01; wall and spans;
+11c. scaling: the fused form at GEMM --n and 2*--n over 1, 2, ... every
+   visible card that divides the batch, a first run then the timed one,
+   wall time beside the card count, states equal; with two or more cards
+   every B1 launch of the widest --n run held against plain on its own
+   card (`--scaling-only` runs just this, after the build);
 12. two shards on one card: run_sampled_sharded over
-   build_mesh(devices=["cuda:0", "cuda:0"]) at GEMM N=512, with the host
-   draw and with the device draw, must fold to run_sampled's PRIState
-   and MRC bytes under the same draw;
+   build_mesh(devices=["cuda:0", "cuda:0"]) at GEMM N=512 in both forms,
+   with the host draw and with the device draw, must fold to
+   run_sampled's PRIState and MRC bytes under the same draw, B1 and B2
+   counted as in phase 10;
+12b. progressive precision at GEMM --n/2 (1024), host draw: "cuda" and
+   "torch" with max_rounds=4 fold to phase 9's state and MRC bytes (L1
+   error against baselines/gemm1024.json.gz at most 0.01), with equal
+   info and band widths per round, B1's raw form once per classified
+   chunk; then tolerance=10.0, which must stop after round 1; each
+   round's classify and bootstrap seconds;
 13. B1's triangular walk vs plain: every dispatch of syrk-tri at
    --tri-n (1536) with the device draw (B3's triangular draw), as phase
    5, each dispatch's bound from its own data (band_hits, tri_issues);
@@ -120,10 +146,12 @@ each printing its own lines; any failure exits non-zero:
    "cuda" run bit-equal to plain;
 16. two shards on one card, as phase 12, on trmm(256).
 
-Then one JSON line of kernel numbers (B1 over the dispatches of phases 5
-and 13 and the launches of phases 7, 8b's serial run, 8c, 14 and 15; B2;
-B3 timed on the 8 calls of GEMM-2048's draw, its launches those of
-phases 7, 8, 8c, 14 and 15), the nvidia-smi line,
+Then one JSON line of kernel numbers (B1 timed over the dispatches of
+phases 5 and 13, its launches those of phases 7, 8b's serial run, 8c,
+10, 11b, 11c, 12, 12b, 14, 15 and 16; B2 timed on phase 10's inputs,
+its launches those of phases 10-12 and 16; B3 timed on the 8 calls of
+GEMM-2048's draw, its launches those of phases 7, 8, 8c, 10-12 and
+14-16), the nvidia-smi line,
 and last the result line {"ok": true, "device": {...}}. Imports nothing
 of JAX.
 """
@@ -142,6 +170,7 @@ import numpy as np
 
 MRC_L1_LIMIT = 0.01
 KERNEL_REPS, PLAIN_REPS = 10, 2  # timed calls per dispatch, after a warm-up
+KERNEL_SHARDED_REPS = 3  # timed passes over a sharded run's B1 launches
 MAIN_PATH_ORDER = ("cuda", "torch")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # Issue rate of 32-bit integer instructions on an H100 SXM: each SM's four
@@ -527,12 +556,9 @@ def phase_kernels(prog, cfg, dev, label="kernels", raw: bool = False) -> dict:
         sorted_k_unique,
     )
     from pluss_sampler_optimization_torch.ops.sampled_hist import (
-        band_hits,
         instantiation,
-        ops_per_sample,
         sampled_hist_cuda,
         sampled_hist_plain,
-        tri_issues,
     )
     from pluss_sampler_optimization_torch.sampler import sampled as S
 
@@ -585,16 +611,8 @@ def phase_kernels(prog, cfg, dev, label="kernels", raw: bool = False) -> dict:
         ms = _time_ms(kern, KERNEL_REPS)
         plain_ms = _time_ms(plain, PLAIN_REPS)
         # the classify's need: the chosen lanes (every lane without a mask)
-        live = keys.numel() if mask is None else int(mask.sum())
-        if d.nt.tri:
-            ops = sum(tri_issues(d.nt, d.desc, d.highs, live, band_hits(
-                d.nt, d.ref_idx, keys[j], None if mask is None else mask[j],
-                d.highs)) for j in range(keys.shape[0]))
-        else:
-            ops = ops_per_sample(d.desc, d.highs) * live
-        nbytes = (KEY_BYTES * live + RESIDUAL_BYTES * keys.numel()
-                  + (0 if mask is None else MASK_BYTES * keys.numel())
-                  + 8 * got[1].numel() + 8 * got[2].numel())
+        nbytes, ops, live = _b1_need(d.nt, d.desc, d.highs, d.ref_idx, keys,
+                                     mask, *got[1:])
         tot["ms"] += ms
         tot["plain_ms"] += plain_ms
         tot["bytes"] += nbytes
@@ -985,62 +1003,79 @@ def phase_main_path(label: str, n: int, cfg, backends, dispatches=None,
     return kernel_launches, first
 
 
-def _b2_launches_expected(results, mesh, buffers) -> int:
-    """One B2 launch per shard per step of every ref: a batch of its
-    device-drawn buffer (`buffers`: each ref's drawn B, None for the
-    host draw), or a padded chunk of its host-drawn keys."""
-    from pluss_sampler_optimization_torch.sampler.sampled import (
-        default_batch,
-    )
-
-    n_dev = mesh.size
-    batch = default_batch(mesh.devices[0])
-    step = max(n_dev, (batch // n_dev) * n_dev)
-    return n_dev * sum(-(-r.n_samples // step) if B is None else B // batch
-                       for r, B in zip(results, buffers))
-
-
-def _draw_recording():
-    """Wrap the sharded engine's device draw so that each ref's drawn
-    buffer size is recorded (None where it takes the host draw); returns
-    (the list, a function restoring the original)."""
+def _sharded_recording():
+    """Wrap the sharded engine's mesh reductions and draws (host-side,
+    no device work): each reduction's member rows R and steps per shard,
+    and each device draw's (rows, buffer size B); returns (the record,
+    a function restoring the originals)."""
     from pluss_sampler_optimization_torch.parallel import sharded
 
-    sizes = []
-    draw = sharded.draw_sample_keys_device
+    rec = {"groups": [], "draws": []}
+    run, per_ref, bucket = (sharded._Group.run,
+                            sharded.draw_sample_keys_device,
+                            sharded.draw_bucket_keys_device)
 
-    def recording(*args, **kw):
-        out = draw(*args, **kw)
-        sizes.append(None if out is None else int(out[0].shape[0]))
+    def run_rec(self, *args, **kw):
+        rec["groups"].append((next(iter(self.rx.values())).numel(),
+                              [len(s) for s in self.steps.values()]))
+        return run(self, *args, **kw)
+
+    def per_ref_rec(*args, **kw):
+        out = per_ref(*args, **kw)
+        if out is not None:
+            rec["draws"].append((1, int(out[0].shape[0])))
         return out
 
-    sharded.draw_sample_keys_device = recording
+    def bucket_rec(*args, **kw):
+        groups = bucket(*args, **kw)
+        rec["draws"] += [(len(g.positions), int(g.keys.shape[1]))
+                         for g in groups]
+        return groups
+
+    sharded._Group.run = run_rec
+    sharded.draw_sample_keys_device = per_ref_rec
+    sharded.draw_bucket_keys_device = bucket_rec
 
     def restore():
-        sharded.draw_sample_keys_device = draw
+        sharded._Group.run = run
+        sharded.draw_sample_keys_device = per_ref
+        sharded.draw_bucket_keys_device = bucket
 
-    return sizes, restore
+    return rec, restore
 
 
-def phase_sharded(n: int, cfg, main_path) -> tuple[int, list]:
-    """The sharded path over every visible card, under torch.profiler;
-    returns B2's launches and the (values, weights) of each launch,
-    recorded on the way (the recording's copies are device work in the
-    trace too)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def _b1_recording():
+    """Wrap B1's launch so that each launch's arguments and outputs are
+    kept (copies, so column spans become whole rows); returns (the list,
+    a function restoring the original)."""
+    import pluss_sampler_optimization_torch.ops.sampled_hist as sh
 
-    from pluss_sampler_optimization_torch.config import MachineConfig
-    from pluss_sampler_optimization_torch.models import gemm
-    from pluss_sampler_optimization_torch.parallel import (
-        build_mesh,
-        sharded,
-    )
-    from pluss_sampler_optimization_torch.runtime.hist import pow2_floor
-    from pluss_sampler_optimization_torch.sampler import sampled as S
+    calls = []
+    launch = sh.sampled_hist_cuda
 
-    machine = MachineConfig()
-    mesh = build_mesh()
+    def recording(nt, ref_idx, keys, mask, highs, rx, desc=None,
+                  tri_base=None, raw=False):
+        out = launch(nt, ref_idx, keys, mask, highs, rx, desc, tri_base,
+                     raw)
+        calls.append(((nt, ref_idx, keys.clone(),
+                       None if mask is None else mask.clone(), highs,
+                       rx.clone(), desc, tri_base, raw),
+                      tuple(o.clone() for o in out)))
+        return out
+
+    sh.sampled_hist_cuda = recording
+
+    def restore():
+        sh.sampled_hist_cuda = launch
+
+    return calls, restore
+
+
+def _b2_inputs_recording():
+    """Wrap the sharded engine's histogram so that each launch's (values,
+    weights) are kept (copies); returns (the list, a restore)."""
+    from pluss_sampler_optimization_torch.parallel import sharded
+
     inputs = []
     hist_fn = sharded.pow2_hist_auto
 
@@ -1048,73 +1083,391 @@ def phase_sharded(n: int, cfg, main_path) -> tuple[int, list]:
         inputs.append((values.clone(), weights.clone()))
         return hist_fn(values, weights, backend)
 
-    spans: dict = {}
     sharded.pow2_hist_auto = recording
-    sizes, restore = _draw_recording()
+
+    def restore():
+        sharded.pow2_hist_auto = hist_fn
+
+    return inputs, restore
+
+
+def _sharded_run(prog, cfg, mesh, spans=None, counters=None, profiled=False,
+                 record_b1=None, record_b2=None):
+    """One sampled_outputs_sharded + fold_results on the card, with the
+    launches reset before it and read after it: a dict of the results,
+    the dense histograms, state and MRC, wall seconds, (B1, B2, B3)
+    launches, the engine's reductions and draws (_sharded_recording) and,
+    `profiled`, the device's busy seconds from a torch.profiler trace.
+    `record_b1`/`record_b2`: lists that get B1's launches and B2's
+    inputs (their copies are device work of their own)."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pluss_sampler_optimization_torch.config import MachineConfig
+    from pluss_sampler_optimization_torch.parallel import sharded
+    from pluss_sampler_optimization_torch.sampler import sampled as S
+
+    machine = MachineConfig()
+    rec, restore = _sharded_recording()
+    restores = [restore]
+    if record_b1 is not None:
+        calls, r = _b1_recording()
+        restores.append(r)
+    if record_b2 is not None:
+        inputs, r = _b2_inputs_recording()
+        restores.append(r)
+    prof = None
     try:
         _reset_launches()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        ctx = (profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+               if profiled else contextlib.nullcontext())
+        with ctx as prof:
             t0 = time.perf_counter()
             results, dense = sharded.sampled_outputs_sharded(
-                gemm(n), machine, cfg, mesh=mesh, spans=spans
-            )
+                prog, machine, cfg, mesh=mesh, spans=spans,
+                counters=counters)
             state = S.fold_results(results, machine.thread_num)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        b1, launches, b3 = _launches()
+        launches = _launches()
     finally:
-        sharded.pow2_hist_auto = hist_fn
-        restore()
-    if len(sizes) != len(results) or None in sizes or b3 == 0:
-        raise AssertionError(f"sharded path: not every ref was drawn on "
-                             f"the device (buffers {sizes}, {b3} B3 "
-                             "launches)")
-    iv = _device_intervals(prof)
-    b2_iv = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if "pow2_hist_kernel" in e.name]
-    if iv:
-        busy = _busy_us(iv) / 1e6
-        print(f"sharded path: profiler: device busy {busy:.4f} s of the "
-              f"{wall:.3f} s run (idle share {1 - busy / wall:.5f}); "
-              f"{len(b2_iv)} B2 kernels, {sum(b - a for a, b in b2_iv):.1f} "
-              "us of device time in all")
-    else:
-        print("sharded path: profiler: no device activity recorded; "
-              "device busy time not measured")
-    want = _b2_launches_expected(results, mesh, sizes)
-    steps = " + ".join(f"{mesh.size} x {B // S.default_batch(mesh.devices[0])}"
-                       for B in sizes)
-    print(f"sharded path: gemm({n}) device draw {wall:.3f} s "
-          f"({_spans_text(spans, SHARDED_SPANS)}, rest "
-          f"{wall - sum(spans.values()):.3f} s), "
-          f"{sum(r.n_samples for r in results)} samples in buffers of "
-          f"{sizes}, {launches} B2 launches (expected {steps} = {want}: "
-          f"one per shard per batch step), {b1} B1 and {b3} B3 launches, "
-          f"over {mesh.size} shard(s)")
-    if launches != want or b1 != 0:
-        raise AssertionError(
-            f"sharded path: {launches} B2 and {b1} B1 launches (expected "
-            f"{want} and 0)"
-        )
-    got = _state_mrc(state, machine)
-    if got[0] != main_path[0] or got[1].tobytes() != main_path[1].tobytes():
-        raise AssertionError("sharded path: PRIState or MRC bytes differ "
-                             "from the main path's")
-    for r, nh in zip(results, dense):
+        for r in restores:
+            r()
+    if record_b1 is not None:
+        record_b1 += calls
+    if record_b2 is not None:
+        record_b2 += inputs
+    busy = None
+    if profiled:
+        iv = _device_intervals(prof)
+        busy = _busy_us(iv) / 1e6 if iv else None
+    return {"results": results, "dense": dense,
+            "state": _state_mrc(state, machine), "wall": wall,
+            "launches": launches, "rec": rec, "busy": busy}
+
+
+def _check_sharded(label: str, run: dict, mesh, batch: int, counters: dict,
+                   want=None, kernel: bool = True) -> None:
+    """The counts of one sharded run (see phase_sharded) and, where
+    `want` is given, its state and MRC bytes against it; every ref's
+    dense histogram must be the pow2 binning of its exact noshare pairs.
+    """
+    from pluss_sampler_optimization_torch.runtime.hist import pow2_floor
+
+    b1, b2, b3 = run["launches"]
+    groups, draws = run["rec"]["groups"], run["rec"]["draws"]
+    steps = sum(sum(s) for _, s in groups)
+    rows = sum(r for r, _ in groups)
+    regrows = counters.get("capacity_regrows", 0)
+    if counters["fetches"] != len(groups) or counters["dispatches"] != len(
+            groups):
+        raise AssertionError(f"{label}: {counters} for {len(groups)} mesh "
+                             "reductions (one read back each)")
+    if kernel:
+        if b1 != steps or b2 != rows:
+            raise AssertionError(
+                f"{label}: {b1} B1 and {b2} B2 launches for {steps} shard "
+                f"steps and {rows} member rows of {len(groups)} reductions")
+        if draws and not regrows:
+            # no rerun: one reduction per drawn group, B/batch steps on
+            # every shard
+            need = mesh.size * sum(B // batch for _, B in draws)
+            if steps != need or len(groups) != len(draws):
+                raise AssertionError(
+                    f"{label}: {steps} shard steps over {len(groups)} "
+                    f"reductions for draws {draws} (expected {need})")
+    elif b1 or b2 or b3:
+        raise AssertionError(f"{label}: kernels launched under torch")
+    if want is not None and (run["state"][0] != want[0]
+                             or run["state"][1].tobytes()
+                             != want[1].tobytes()):
+        raise AssertionError(f"{label}: PRIState or MRC bytes differ")
+    for r, nh in zip(run["results"], run["dense"]):
         from_pairs: dict = {}
         for ri_val, cnt in r.noshare.items():
             k = pow2_floor(max(int(ri_val), 1))
             from_pairs[k] = from_pairs.get(k, 0) + int(cnt)
         if from_pairs != {1 << e: int(c) for e, c in enumerate(nh) if c}:
             raise AssertionError(
-                f"sharded path: ref {r.name}'s pow2 histogram is not the "
-                "binning of its exact noshare pairs"
-            )
-    print("sharded path: PRIState and MRC bytes equal the main path's; "
-          "every ref's pow2 histogram equals its binned exact pairs")
-    return launches, inputs
+                f"{label}: ref {r.name}'s pow2 histogram is not the binning "
+                "of its exact noshare pairs")
+
+
+def _b1_need(d_nt, desc, highs, ref_idx, keys, mask, hist, cold):
+    """(bytes, 32-bit issues) one B1 launch needs: each chosen lane's key
+    read, every lane's residual written and mask byte read, hist and
+    cold written; issues from ops_per_sample, or from tri_issues with the
+    launch's own band hits on a triangular nest."""
+    from pluss_sampler_optimization_torch.ops.sampled_hist import (
+        band_hits,
+        ops_per_sample,
+        tri_issues,
+    )
+
+    live = keys.numel() if mask is None else int(mask.sum())
+    if d_nt.tri:
+        ops = sum(tri_issues(d_nt, desc, highs, live, band_hits(
+            d_nt, ref_idx, keys[j], None if mask is None else mask[j],
+            highs)) for j in range(keys.shape[0]))
+    else:
+        ops = ops_per_sample(desc, highs) * live
+    nbytes = (KEY_BYTES * live + RESIDUAL_BYTES * keys.numel()
+              + (0 if mask is None else MASK_BYTES * keys.numel())
+              + 8 * hist.numel() + 8 * cold.numel())
+    return nbytes, ops, live
+
+
+def phase_b1_recorded(label: str, calls: list) -> dict:
+    """B1 vs plain on recorded launches (_b1_recording): each launch's
+    arguments through the plain version on the card, residual, hist and
+    cold bit-equal to what the launch gave; then all of them timed, the
+    kernel with CUDA events over KERNEL_SHARDED_REPS passes, the plain
+    version over one; returns the totals (as phase_kernels')."""
+    import torch
+
+    from pluss_sampler_optimization_torch.ops.sampled_hist import (
+        sampled_hist_cuda,
+        sampled_hist_plain,
+    )
+
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
+    max_err = lanes = live = 0
+    for i, (args, got) in enumerate(calls):
+        nt, ref_idx, keys, mask, highs, rx, desc, tri, raw = args
+        want = sampled_hist_plain(nt, ref_idx, keys, mask, highs, rx, raw)
+        for name, a, b in zip(("residual", "hist", "cold"), got, want):
+            err = int((a - b).abs().max()) if a.numel() else 0
+            max_err = max(max_err, err)
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label}: launch {i} {name} differs "
+                                     f"from plain (max abs err {err})")
+        nbytes, ops, n_live = _b1_need(nt, desc, highs, ref_idx, keys, mask,
+                                       *got[1:])
+        tot["bytes"] += nbytes
+        tot["ops"] += ops
+        lanes += keys.numel()
+        live += n_live
+
+    def kern():
+        for args, _ in calls:
+            sampled_hist_cuda(*args)
+
+    def plain():
+        for args, _ in calls:
+            sampled_hist_plain(*args[:6], args[8])
+
+    tot["ms"] = _time_ms(kern, KERNEL_SHARDED_REPS)
+    tot["plain_ms"] = _time_ms(plain, 1)
+    tot.update(max_abs_err=max_err, dispatches=len(calls))
+    print(f"{label}: all {len(calls)} B1 launches bit-equal to the plain "
+          f"raw form ({lanes} lanes, {live} chosen)")
+    _b1_summary(label, tot)
+    return tot
+
+
+def phase_sharded(n: int, cfg, main_path, b3_main: int, small_n: int):
+    """Phase 10: the sharded engine over build_mesh() at GEMM N=n, device
+    draw. Returns the launches of its counted runs (B1, B2, B3), B1's
+    recorded launches' totals and B2's recorded inputs."""
+    import torch
+
+    from pluss_sampler_optimization_torch.models import gemm
+    from pluss_sampler_optimization_torch.parallel import build_mesh
+    from pluss_sampler_optimization_torch.sampler.sampled import (
+        default_batch,
+    )
+
+    mesh = build_mesh()
+    batch = default_batch(mesh.devices[0])
+    totals = [0, 0, 0]
+    b1_calls: list = []
+    b2_inputs: list = []
+    # the fused form (the default on CUDA): a counted, recorded run, then
+    # a profiled run for the device's busy share (no copies in it)
+    spans: dict = {}
+    counters: dict = {}
+    run = _sharded_run(gemm(n), cfg, mesh, spans, counters,
+                       record_b1=b1_calls, record_b2=b2_inputs)
+    _check_sharded("sharded path (fused)", run, mesh, batch, counters,
+                   main_path)
+    if run["launches"][2] != b3_main or "dispatches_fused" not in counters:
+        raise AssertionError(
+            f"sharded path (fused): {run['launches'][2]} B3 launches "
+            f"(run_sampled's draw: {b3_main}), counters {counters}")
+    for i in range(3):
+        totals[i] += run["launches"][i]
+    prof_spans: dict = {}
+    prof = _sharded_run(gemm(n), cfg, mesh, prof_spans, {}, profiled=True)
+    if prof["state"][1].tobytes() != main_path[1].tobytes():
+        raise AssertionError("sharded path (fused, profiled): MRC differs")
+    b1, b2, b3 = run["launches"]
+    print(f"sharded path (fused): gemm({n}) device draw {run['wall']:.3f} s "
+          f"({_spans_text(spans, SHARDED_SPANS)}, rest "
+          f"{run['wall'] - sum(spans.values()):.3f} s, B1 and B2 launches "
+          f"recorded); {sum(r.n_samples for r in run['results'])} samples, "
+          f"draws (rows, B) {run['rec']['draws']}, {len(run['rec']['groups'])}"
+          f" mesh reductions over {mesh.size} shard(s); {b1} B1 (one per "
+          f"shard per step), {b2} B2 (one per member row per reduction) and "
+          f"{b3} B3 launches (run_sampled's draw: {b3_main}); counters "
+          f"{counters}")
+    busy = prof["busy"]
+    print(f"sharded path (fused): profiled run {prof['wall']:.3f} s "
+          f"({_spans_text(prof_spans, SHARDED_SPANS)}); "
+          + ("no device activity recorded; device busy time not measured"
+             if busy is None else
+             f"device busy {busy:.4f} s (idle share "
+             f"{1 - busy / prof['wall']:.5f})"))
+    print("sharded path (fused): PRIState and MRC bytes equal the main "
+          "path's; every ref's pow2 histogram equals its binned exact pairs")
+    b1_tot = phase_b1_recorded("sharded kernels (fused)", b1_calls)
+    del b1_calls[:]
+    # the per-ref (scan) form: one read back per ref plus regrows
+    spans, counters = {}, {}
+    run = _sharded_run(gemm(n), dataclasses.replace(cfg, fuse_refs=False),
+                       mesh, spans, counters, record_b1=b1_calls)
+    _check_sharded("sharded path (per-ref scan)", run, mesh, batch,
+                   counters, main_path)
+    n_refs = len(run["results"])
+    regrows = counters.get("capacity_regrows", 0)
+    if counters["fetches"] != n_refs + regrows:
+        raise AssertionError(f"sharded path (per-ref scan): {counters} for "
+                             f"{n_refs} refs")
+    for i in range(3):
+        totals[i] += run["launches"][i]
+    b1, b2, b3 = run["launches"]
+    print(f"sharded path (per-ref scan): gemm({n}) {run['wall']:.3f} s "
+          f"({_spans_text(spans, SHARDED_SPANS)}); {counters['fetches']} "
+          f"read backs for {n_refs} refs and {regrows} regrows; {b1} B1, "
+          f"{b2} B2, {b3} B3 launches; PRIState and MRC bytes equal the "
+          "main path's")
+    scan_tot = phase_b1_recorded("sharded kernels (per-ref scan)", b1_calls)
+    del b1_calls
+    b1_tot = {k: b1_tot[k] + scan_tot[k] for k in ("ms", "plain_ms",
+                                                  "bytes", "ops",
+                                                  "dispatches")} | {
+        "max_abs_err": max(b1_tot["max_abs_err"], scan_tot["max_abs_err"])}
+    # the kernel route against the JAX package's own route ("torch": the
+    # plain classify, exp_hist, fixed_k_unique) at a smaller size
+    outs = {}
+    for backend in MAIN_PATH_ORDER:
+        spans, counters = {}, {}
+        c = dataclasses.replace(cfg, kernel_backend=backend)
+        run = _sharded_run(gemm(small_n), c, mesh, spans, counters)
+        _check_sharded(f"sharded path ({backend})", run, mesh, batch,
+                       counters, kernel=backend == "cuda")
+        if backend == "cuda":
+            for i in range(3):
+                totals[i] += run["launches"][i]
+        outs[backend] = ([dataclasses.asdict(r) for r in run["results"]],
+                         [d.tolist() for d in run["dense"]], run["state"][0],
+                         run["state"][1].tobytes())
+        print(f"sharded path: gemm({small_n}) fused kernel_backend={backend} "
+              f"{run['wall']:.3f} s ({_spans_text(spans, SHARDED_SPANS)}); "
+              f"launches (B1, B2, B3) {run['launches']}")
+    if outs["cuda"] != outs["torch"]:
+        raise AssertionError(f"sharded path: gemm({small_n}) cuda and torch "
+                             "differ")
+    print(f"sharded path: gemm({small_n}) cuda and torch give equal per-ref "
+          "results, dense histograms, PRIStates and MRC bytes")
+    torch.cuda.synchronize()
+    return tuple(totals), b1_tot, b2_inputs
+
+
+def phase_sharded_headline(n: int, cfg, head) -> tuple:
+    """The headline through the sharded engine's fused form over
+    build_mesh(): GEMM N=n, state and MRC bytes equal run_sampled's
+    (`head`), MRC L1 error against the baseline at most MRC_L1_LIMIT.
+    Returns its (B1, B2, B3) launches."""
+    from pluss_sampler_optimization_torch.config import MachineConfig
+    from pluss_sampler_optimization_torch.models import gemm
+    from pluss_sampler_optimization_torch.parallel import build_mesh
+    from pluss_sampler_optimization_torch.runtime.aet import (
+        aet_mrc,
+        mrc_l1_error,
+    )
+    from pluss_sampler_optimization_torch.runtime.baseline import (
+        load_baseline,
+    )
+    from pluss_sampler_optimization_torch.runtime.cri import cri_distribute
+    from pluss_sampler_optimization_torch.sampler.sampled import (
+        default_batch,
+    )
+
+    mesh = build_mesh()
+    spans, counters = {}, {}
+    run = _sharded_run(gemm(n), cfg, mesh, spans, counters)
+    _check_sharded("sharded headline", run, mesh,
+                   default_batch(mesh.devices[0]), counters, head)
+    machine = MachineConfig()
+    base = load_baseline("gemm", n, machine)
+    err = None
+    if base is not None:
+        T = machine.thread_num
+        err = mrc_l1_error(run["state"][1], aet_mrc(
+            cri_distribute(base["state"], T, T), machine))
+        if not err <= MRC_L1_LIMIT:
+            raise AssertionError(f"sharded headline: MRC L1 error {err}")
+    elif ("gemm", (n,)) in BASELINES:
+        raise AssertionError(f"sharded headline: baselines/gemm{n}.json.gz "
+                             "is missing")
+    print(f"sharded headline: gemm({n}) fused over {mesh.size} card(s) "
+          f"{run['wall']:.3f} s ({_spans_text(spans, SHARDED_SPANS)}, rest "
+          f"{run['wall'] - sum(spans.values()):.3f} s); launches (B1, B2, "
+          f"B3) {run['launches']}; PRIState and MRC bytes equal run_sampled's"
+          + ("" if err is None else
+             f"; MRC L1 error vs baselines/gemm{n}.json.gz: {err!r}"))
+    return run["launches"]
+
+
+def phase_scaling(sizes, cfg, wants) -> tuple:
+    """The fused form over 1, 2, ... every visible card that divides the
+    batch (the device draw's rule) at each GEMM size of `sizes`: a first
+    run, which also meets each card's first use, then the timed run,
+    wall time beside the card count; every state and MRC equal to `wants`
+    (per size). With two or more cards, every B1 launch of the first
+    size's widest first run, each on its shard's card, is held against
+    the plain version. Returns the timed runs' (B1, B2, B3) launches."""
+    import torch
+
+    from pluss_sampler_optimization_torch.models import gemm
+    from pluss_sampler_optimization_torch.parallel import build_mesh
+    from pluss_sampler_optimization_torch.sampler.sampled import (
+        default_batch,
+    )
+
+    n_cards = torch.cuda.device_count()
+    batch = default_batch(torch.device("cuda"))
+    counts = [k for k in range(1, n_cards + 1) if batch % k == 0]
+    print(f"scaling: {n_cards} card(s) visible; meshes of {counts} cards "
+          f"(the counts that divide the batch, {batch})")
+    totals = [0, 0, 0]
+    for n, want in zip(sizes, wants):
+        for k in counts:
+            calls = [] if k == counts[-1] > 1 and n == sizes[0] else None
+            first = _sharded_run(gemm(n), cfg, build_mesh(k), None, {},
+                                 record_b1=calls)
+            spans, counters = {}, {}
+            run = _sharded_run(gemm(n), cfg, build_mesh(k), spans, counters)
+            for r in (first, run):
+                if (r["state"][0] != want[0]
+                        or r["state"][1].tobytes() != want[1].tobytes()):
+                    raise AssertionError(f"scaling: gemm({n}) on {k} cards "
+                                         "differs")
+            if calls is not None:
+                cards = sorted({str(c[0][2].device) for c in calls})
+                phase_b1_recorded(f"scaling kernels ({', '.join(cards)})",
+                                  calls)
+            for i in range(3):
+                totals[i] += run["launches"][i]
+            print(f"scaling: gemm({n}) fused on {k} card(s): "
+                  f"{run['wall']:.3f} s ({_spans_text(spans, SHARDED_SPANS)})"
+                  f"; first run {first['wall']:.3f} s; launches (B1, B2, B3) "
+                  f"{run['launches']}")
+    return tuple(totals)
 
 
 def phase_b2_engine(inputs, max_err: int) -> dict:
@@ -1199,45 +1552,147 @@ def phase_b2_engine(inputs, max_err: int) -> dict:
 
 
 def phase_two_shards(cfg, model: str = "gemm",
-                     args: tuple = (TWO_SHARD_N,)) -> None:
-    """Two shards on one card fold to run_sampled's state and MRC, with
-    the host draw and with the device draw."""
+                     args: tuple = (TWO_SHARD_N,)) -> tuple:
+    """Two shards on one card, in both sharded forms, fold to
+    run_sampled's state and MRC, with the host draw and with the device
+    draw; B1 once per shard step, B2 once per member row of each mesh
+    reduction. Returns the runs' (B1, B2, B3) launches."""
     from pluss_sampler_optimization_torch.config import MachineConfig
     from pluss_sampler_optimization_torch.models import REGISTRY
-    from pluss_sampler_optimization_torch.parallel import (
-        build_mesh,
-        run_sampled_sharded,
+    from pluss_sampler_optimization_torch.parallel import build_mesh
+    from pluss_sampler_optimization_torch.sampler.sampled import (
+        default_batch,
+        run_sampled,
     )
-    from pluss_sampler_optimization_torch.sampler.sampled import run_sampled
 
     machine = MachineConfig()
     prog = REGISTRY[model](*args)
     what = f"{model}({', '.join(str(a) for a in args)})"
     mesh = build_mesh(devices=["cuda:0", "cuda:0"])
+    totals = [0, 0, 0]
     for dev_draw in (False, True):
+        draw = "device" if dev_draw else "host"
         c = dataclasses.replace(cfg, device_draw=dev_draw)
         want = _state_mrc(run_sampled(prog, machine, c)[0], machine)
-        sizes, restore = _draw_recording()
-        try:
-            _reset_launches()
-            state, results = run_sampled_sharded(prog, machine, c,
-                                                 mesh=mesh)
-            _, b2, b3 = _launches()
-        finally:
-            restore()
-        if not dev_draw:
-            sizes = [None] * len(results)
+        for fuse in (True, False):
+            form = "fused" if fuse else "per-ref"
+            counters: dict = {}
+            run = _sharded_run(prog, dataclasses.replace(c, fuse_refs=fuse),
+                               mesh, None, counters)
+            _check_sharded(f"two shards: {what} {draw} draw {form}", run,
+                           mesh, default_batch(mesh.devices[0]), counters,
+                           want)
+            if (run["launches"][2] > 0) != dev_draw:
+                raise AssertionError(f"two shards: {draw} draw {form}: "
+                                     f"{run['launches']} launches")
+            for i in range(3):
+                totals[i] += run["launches"][i]
+            print(f"two shards on cuda:0: {what} {draw} draw, {form} form: "
+                  f"PRIState and MRC bytes equal run_sampled's; launches "
+                  f"(B1, B2, B3) {run['launches']} over "
+                  f"{len(run['rec']['groups'])} mesh reductions")
+    return tuple(totals)
+
+
+def phase_progressive(n: int, cfg, want) -> int:
+    """Progressive precision at GEMM N=n (host draw, as run_sampled's
+    phase 9): "cuda" and "torch" with max_rounds=4 and no tolerance, each
+    full schedule folding to `want` (run_sampled(device_draw=False)'s
+    state and MRC), with the MRC L1 error against the baseline at most
+    MRC_L1_LIMIT; both routes' info and every round's band width equal;
+    B1 once per classified chunk under "cuda", never under "torch". Then
+    tolerance=10.0, which must stop after round 1. Prints each round's
+    seconds, classify and bootstrap apart. Returns the "cuda" runs' B1
+    launches."""
+    import torch
+
+    from pluss_sampler_optimization_torch.config import MachineConfig
+    from pluss_sampler_optimization_torch.models import gemm
+    from pluss_sampler_optimization_torch.runtime.aet import (
+        aet_mrc,
+        mrc_l1_error,
+    )
+    from pluss_sampler_optimization_torch.runtime.baseline import (
+        load_baseline,
+    )
+    from pluss_sampler_optimization_torch.runtime.cri import cri_distribute
+    from pluss_sampler_optimization_torch.sampler.sampled import (
+        run_sampled_progressive,
+    )
+
+    machine = MachineConfig()
+    T = machine.thread_num
+    host = dataclasses.replace(cfg, device_draw=False)
+    b1_total = 0
+    outs = {}
+    for backend, knobs in (("cuda", {"max_rounds": 4}),
+                           ("torch", {"max_rounds": 4}),
+                           ("cuda", {"tolerance": 10.0})):
+        c = dataclasses.replace(host, kernel_backend=backend, **knobs)
+        spans: dict = {}
+        counters: dict = {}
+        rounds: list = []
+        marks = [dict(spans)]
+
+        def on_round(info, spans=spans, rounds=rounds, marks=marks):
+            torch.cuda.synchronize()
+            prev = marks[-1]
+            rounds.append((info["round"], info["band_width"], {
+                k: spans.get(k, 0.0) - prev.get(k, 0.0)
+                for k in ("dispatch", "stage", "decode", "bootstrap")}))
+            marks.append(dict(spans))
+
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, results, info = run_sampled_progressive(
+            gemm(n), machine, c, device="cuda", spans=spans,
+            counters=counters, on_round=on_round)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        b1, b2, b3 = _launches()
         got = _state_mrc(state, machine)
-        draw = "device" if dev_draw else "host"
+        label = f"progressive: gemm({n}) kernel_backend={backend} {knobs}"
+        if b2 or b3 or b1 != (counters["dispatches"] if backend == "cuda"
+                              else 0):
+            raise AssertionError(f"{label}: {b1} B1, {b2} B2, {b3} B3 "
+                                 f"launches for {counters['dispatches']} "
+                                 "chunks")
+        if backend == "cuda":
+            b1_total += b1
+        per_round = "; ".join(
+            f"round {r} band {w!r}: classify "
+            f"{t['dispatch'] + t['stage'] + t['decode']:.3f} s, bootstrap "
+            f"{t['bootstrap']:.3f} s" for r, w, t in rounds)
+        print(f"{label}: {wall:.3f} s (draw {spans.get('draw', 0.0):.3f} s);"
+              f" info {info}; {counters['dispatches']} chunks, {b1} B1 "
+              f"launches; {per_round}")
+        if "tolerance" in knobs:
+            if info["rounds"] != 1 or info["stopped"] != "converged":
+                raise AssertionError(f"{label}: did not stop after round 1")
+            continue
         if got[0] != want[0] or got[1].tobytes() != want[1].tobytes():
-            raise AssertionError(f"two shards: {what} {draw} draw "
-                                 "differs from run_sampled")
-        want_b2 = _b2_launches_expected(results, mesh, sizes)
-        if b2 != want_b2 or (b3 > 0) != dev_draw:
-            raise AssertionError(f"two shards: {draw} draw: {b2} B2 and "
-                                 f"{b3} B3 launches, expected {want_b2} B2")
-        print(f"two shards on cuda:0: {what} {draw} draw: PRIState and "
-              f"MRC bytes equal run_sampled's; {b2} B2 and {b3} B3 launches")
+            raise AssertionError(f"{label}: PRIState or MRC bytes differ "
+                                 "from run_sampled's (host draw)")
+        outs[backend] = (info, [(r, w) for r, w, _ in rounds])
+    if outs["cuda"] != outs["torch"]:
+        raise AssertionError("progressive: info or band widths differ "
+                             "between cuda and torch")
+    base = load_baseline("gemm", n, machine)
+    if base is None:
+        print(f"progressive: no baseline for gemm({n}); MRC error not "
+              "checked")
+    else:
+        err = mrc_l1_error(want[1], aet_mrc(
+            cri_distribute(base["state"], T, T), machine))
+        print(f"progressive: MRC L1 error vs baselines/gemm{n}.json.gz: "
+              f"{err!r}")
+        if not err <= MRC_L1_LIMIT:
+            raise AssertionError(f"progressive: MRC L1 error {err}")
+    print("progressive: full schedules equal run_sampled's host-draw "
+          "PRIState and MRC bytes under cuda and torch, with equal info "
+          "and band widths; tolerance 10 stopped after round 1")
+    return b1_total
 
 
 def phase_cold_warm(n: int, cfg) -> None:
@@ -1572,6 +2027,10 @@ def main(argv=None) -> int:
     ap.add_argument("--tri-n", type=int, default=1536,
                     help="syrk-tri size of the triangular path (the "
                     "size of its serial-walk baseline by default)")
+    ap.add_argument("--scaling-only", action="store_true",
+                    help="build, then only the sharded engine's fused "
+                    "form over 1, 2, ... every visible card at GEMM n and "
+                    "2n (the multi-card measurement); no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -1592,8 +2051,20 @@ def main(argv=None) -> int:
         gemm,
         syrk_tri,
     )
-    from pluss_sampler_optimization_torch.sampler.sampled import warmup
+    from pluss_sampler_optimization_torch.sampler.sampled import (
+        run_sampled,
+        warmup,
+    )
 
+    if args.scaling_only:
+        wants = []
+        for n in (args.n, 2 * args.n):
+            warmup(gemm(n), MachineConfig(), cfg)
+            wants.append(_state_mrc(run_sampled(gemm(n), MachineConfig(),
+                                                cfg)[0], MachineConfig()))
+        phase_scaling((args.n, 2 * args.n), cfg, wants)
+        print(card)
+        return 0
     phase_cold_warm(args.n, cfg)
     # every kernel the timed runs launch, built, loaded and launched once
     t0 = time.perf_counter()
@@ -1632,14 +2103,17 @@ def main(argv=None) -> int:
     b1_launches += raw_b1
     b3["launches"] += raw_b3
     phase_checkpoints(args.n, cfg, main_path)
-    phase_main_path("host draw", args.n // 2,
-                    dataclasses.replace(cfg, device_draw=False),
-                    MAIN_PATH_ORDER)
-    b2_launches, inputs = phase_sharded(args.n, cfg, main_path)
+    _, host_path = phase_main_path(
+        "host draw", args.n // 2, dataclasses.replace(cfg, device_draw=False),
+        MAIN_PATH_ORDER)
+    launches, b1_sharded, inputs = phase_sharded(
+        args.n, cfg, main_path, k["b3_launches"], args.n // 2)
     b2 = phase_b2_engine(inputs, b2_err)
-    b2["launches"] = b2_launches
     del inputs
-    phase_two_shards(cfg)
+    runs = [launches, phase_sharded_headline(2 * args.n, cfg, head),
+            phase_scaling((args.n, 2 * args.n), cfg, (main_path, head)),
+            phase_two_shards(cfg)]
+    b1_launches += phase_progressive(args.n // 2, cfg, host_path)
     # the triangular path: syrk-tri through B3's tri draw and B1's
     # triangular walk, its dispatches held against the plain version
     kt = phase_kernels(syrk_tri(args.tri_n), cfg, dev, "tri kernels")
@@ -1663,7 +2137,11 @@ def main(argv=None) -> int:
     print(f"B3 vs plain: all {len(tri_calls)} B3 calls of the triangular "
           "runs (syrk-tri, trmm, trisolv, covariance) equal")
     del tri_calls
-    phase_two_shards(cfg, *TWO_SHARD_TRI)
+    runs.append(phase_two_shards(cfg, *TWO_SHARD_TRI))
+    b1_launches += sum(r[0] for r in runs)
+    b2["launches"] = sum(r[1] for r in runs)
+    b3["launches"] += sum(r[2] for r in runs)
+    _b1_summary("sharded kernels (phase 10, all)", b1_sharded)
     b1 = _b1_entry([k, kt])
     b1["launches"] = b1_launches
     print(json.dumps({"kernels": [b1, b2, b3]}))

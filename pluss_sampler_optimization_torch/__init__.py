@@ -10,13 +10,14 @@ LRU miss-ratio curve.
 This package is the PyTorch port of the JAX package beside it, which
 stays the reference: every ported piece gives that package's exact
 answer on the same inputs. It imports neither JAX nor the JAX package.
-So far it runs the sampled engine (sampler/sampled.py) through the
-hand-written CUDA kernel csrc/sampled_hist.cu on an NVIDIA Hopper card,
-and the mesh-sharded sampled engine (parallel/sharded.py) through the
-kernel csrc/pow2_hist.cu; both draw their samples on the card by
-default (sampler/draw.py, jax.random's threefry streams on the kernel
-csrc/threefry_draw.cu), with plain torch versions of every kernel on
-the CPU. Entry points run on CUDA unless
+So far it runs the sampled engine (sampler/sampled.py, with its
+progressive-precision rounds) through the hand-written CUDA kernel
+csrc/sampled_hist.cu on an NVIDIA Hopper card, and the mesh-sharded
+sampled engine (parallel/sharded.py, its fused and per-ref forms)
+through the same kernel's raw-noshare form and csrc/pow2_hist.cu; both
+draw their samples on the card by default (sampler/draw.py,
+jax.random's threefry streams on the kernel csrc/threefry_draw.cu),
+with plain torch versions of every kernel on the CPU. Entry points run on CUDA unless
 the caller asks for the CPU (device="cpu", --device cpu), and raise
 where CUDA is absent.
 """

@@ -4,17 +4,24 @@
     python -m pluss_sampler_optimization_torch sample --n 16 --device cpu
     python -m pluss_sampler_optimization_torch sample --engine sharded
     python -m pluss_sampler_optimization_torch sample --runtime v2 --r10
+    python -m pluss_sampler_optimization_torch sample --max-rounds 3
 
 `--engine sharded` runs the mesh-sharded engine over every visible card
-(one CPU device with `--device cpu`); its lines equal `--engine
-sampled`'s. `--device-draw/--no-device-draw` picks the draw (default
+(one CPU device with `--device cpu`), in its fused form where
+`--fuse-refs` resolves on (by default on CUDA) and its per-ref form
+otherwise; its lines equal `--engine sampled`'s. `--tolerance`,
+`--max-rounds` and `--round-schedule` run `--engine sampled`
+progressively (sampler/sampled.py::run_sampled_progressive, always on
+the host draw) and print `progressive: rounds a/b, band w, converged c`
+on stderr; a full schedule prints the lines of the one-shot run on the
+host draw. `--device-draw/--no-device-draw` picks the draw (default
 auto: the device draw on CUDA, the host draw on the CPU), as the JAX
 CLI's flag does for its sampled and sharded engines. `--runtime v2`
 keeps noshare reuse raw in the state, `--r10` distributes with the r10
 generated code's per-ref quirk copies and prints each per-ref
 histogram; both take the sampled engine's raw route. `--fuse-refs`,
-`--pipeline-depth` and `--checkpoint-dir` are the sampled engine's
-runner, pipeline and resume knobs; none changes a printed line.
+`--pipeline-depth` and `--checkpoint-dir` are the engines' runner,
+pipeline and resume knobs; none changes a printed line.
 
 Prints the lines the JAX package's `sample` mode prints, in its order:
 one line per tracked ref, the noshare and share private-reuse dumps, the
@@ -26,6 +33,7 @@ the miss-ratio curve and the sample count. Runs on CUDA unless
 from __future__ import annotations
 
 import argparse
+import sys
 
 from .config import KERNEL_BACKENDS, MachineConfig, SamplerConfig
 
@@ -78,9 +86,37 @@ def _parser() -> argparse.ArgumentParser:
                     help="distribute with the r10 generated-code quirk "
                     "copies per reference (...rs-ri-opt-r10.cpp:42-131) "
                     "instead of the runtime-v1 CRI model")
+    ap.add_argument("--tolerance", type=float, default=None,
+                    help="sampled engine: run progressively — rounds "
+                    "of increasing sample-stream prefixes — and stop "
+                    "early once the bootstrap MRC confidence band is "
+                    "narrower than this width (0 disables early stop "
+                    "but still streams per-round bands; a full "
+                    "schedule is bit-identical to the one-shot run)")
+    ap.add_argument("--max-rounds", type=int, default=None,
+                    help="progressive sampled engine: schedule length "
+                    "when --round-schedule is not given (geometric "
+                    "doubling 1/2^(R-1)..1; default 4)")
+    ap.add_argument("--round-schedule", default=None,
+                    help="progressive sampled engine: explicit "
+                    "comma-separated increasing fractions of the "
+                    "final sample count, ending at 1.0 — e.g. "
+                    "0.25,0.5,1.0")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap
+
+
+def _parse_round_schedule(spec: str) -> tuple:
+    """"0.25,0.5,1.0" -> (0.25, 0.5, 1.0); validation happens where
+    the schedule is resolved (sampler/confidence.py)."""
+    try:
+        return tuple(float(f) for f in spec.split(",") if f.strip())
+    except ValueError:
+        raise SystemExit(
+            f"--round-schedule wants comma-separated floats, got "
+            f"{spec!r}"
+        )
 
 
 def _run(program, machine, cfg, device, engine: str, v2: bool, raw: bool,
@@ -147,10 +183,33 @@ def main(argv=None) -> int:
     kw = {}
     if args.pipeline_depth is not None:  # None = keep the config default
         kw["pipeline_depth"] = args.pipeline_depth
+    progressive = any(
+        v is not None for v in (args.tolerance, args.max_rounds,
+                                args.round_schedule)
+    )
+    if args.round_schedule is not None:
+        kw["round_schedule"] = _parse_round_schedule(args.round_schedule)
     cfg = SamplerConfig(
         ratio=args.ratio, seed=args.seed, device_draw=args.device_draw,
-        kernel_backend=args.kernel_backend, fuse_refs=args.fuse_refs, **kw,
+        kernel_backend=args.kernel_backend, fuse_refs=args.fuse_refs,
+        tolerance=args.tolerance, max_rounds=args.max_rounds, **kw,
     )
+    if args.engine == "sampled" and progressive:
+        from .sampler.sampled import run_sampled_progressive
+
+        state, per_ref, info = run_sampled_progressive(
+            program, machine, cfg, v2=args.runtime == "v2",
+            device=args.device,
+        )
+        print(
+            f"progressive: rounds "
+            f"{info['rounds']}/{info['rounds_total']}, band "
+            f"{info['band_width']:.6f}, converged "
+            f"{info['converged']}",
+            file=sys.stderr,
+        )
+        report.emit(result_lines(state, per_ref, machine, args.r10))
+        return 0
     report.emit(sample_lines(program, machine, cfg, args.device,
                              args.engine, args.runtime, args.r10,
                              args.checkpoint_dir))

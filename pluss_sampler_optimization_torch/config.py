@@ -90,16 +90,16 @@ class SamplerConfig:
     # sample sets, and the device draw's depend on the batch.
     device_draw: bool | None = None
     # Which kernels the sampled engines run: "cuda" (the hand-written
-    # kernels: csrc/sampled_hist.cu for run_sampled's classify+histogram,
-    # csrc/pow2_hist.cu for the sharded engine's pow2 histogram,
-    # csrc/threefry_draw.cu for the device draw's streams in both),
-    # "torch" (plain tensor code: sampled_hist_plain, exp_hist in the
-    # sharded engine, sampler/threefry.py's streams), or None/"auto":
-    # "cuda" on a CUDA device, "torch" on the CPU. Every backend draws
-    # the same sample sets and folds to bit-identical PRIStates/MRCs. In
-    # the sharded engine's histogram this is the JAX package's
-    # use_pallas_hist: "torch" is use_pallas_hist=False (exp_hist), and
-    # "auto"/"cuda" launch the kernel on CUDA tensors.
+    # kernels: csrc/sampled_hist.cu for the classify of run_sampled, of
+    # the progressive rounds and of the sharded engine's shards (its
+    # raw-noshare form there), csrc/pow2_hist.cu for the sharded
+    # engine's pow2 histogram of the gathered pairs,
+    # csrc/threefry_draw.cu for the device draw's streams), "torch"
+    # (plain tensor code: sampled_hist_plain, the sharded engine's plain
+    # classify with exp_hist and fixed_k_unique as in the JAX package,
+    # sampler/threefry.py's streams), or None/"auto": "cuda" on a CUDA
+    # device, "torch" on the CPU. Every backend draws the same sample
+    # sets and folds to bit-identical PRIStates/MRCs.
     kernel_backend: str | None = None
     # Cross-ref fused dispatch: refs sharing a kernel-signature bucket
     # (sampler/sampled.py::_kernel_sig) stack along a leading ref axis and
@@ -115,6 +115,23 @@ class SamplerConfig:
     # the oldest. Each in-flight dispatch keeps its residual and inputs
     # alive on the device. A forced drain counts as `pipeline_stalls`.
     pipeline_depth: int = 4
+    # Progressive-precision knobs (sampler/sampled.py::
+    # run_sampled_progressive + sampler/confidence.py). The engine
+    # splits the FINAL ratio's per-ref sample stream into prefix
+    # rounds; after every round a seeded bootstrap over the per-ref
+    # round sub-histograms yields an MRC confidence band. tolerance:
+    # stop early once the band's max width is <= this (None = run the
+    # whole schedule). round_schedule: increasing fractions of the
+    # final per-ref sample count, last entry 1.0 (None = geometric
+    # doubling over max_rounds). max_rounds: schedule length when
+    # round_schedule is None (None = DEFAULT_MAX_ROUNDS). Because the
+    # rounds are prefix slices of the SAME seed-derived stream, a run
+    # that completes its schedule folds to MRC bytes bit-identical to
+    # the one-shot sampled run at cfg.ratio — so, like fuse_refs/
+    # pipeline_depth, these knobs stay OUT of the checkpoint tag.
+    tolerance: float | None = None
+    max_rounds: int | None = None
+    round_schedule: tuple | None = None
 
     def __post_init__(self) -> None:
         kb = self.kernel_backend

@@ -9,7 +9,10 @@ Port of the JAX package's ops/histogram.py:
   the kernel's residual stream with it), so plain torch — one sort plus
   a segmented sum — is the whole implementation here;
 - `fixed_k_unique`: the same three outputs under the name the sharded
-  engine uses (see its docstring).
+  engine uses (see its docstring), counting occurrences or summing
+  weights;
+- `merge_pair_sets`: two (key, count) pair sets folded into one, the
+  sharded scan and fused forms' merge between steps.
 """
 
 from __future__ import annotations
@@ -82,11 +85,25 @@ def sorted_k_unique(values, valid, k: int, weights=None):
     return keys[:k], counts[:k], n_unique
 
 
-def fixed_k_unique(values, valid, k: int):
+def fixed_k_unique(values, valid, k: int, weights=None):
     """Exact sparse histogram with capacity k over masked int64 values:
     (keys[k] ascending, counts[k], n_unique), empty slots -1/0, entries
     beyond capacity dropped while n_unique stays the true distinct
-    count. The JAX package reaches these outputs by scatter-max hash
-    rounds, a TPU device for avoiding a sort; they are the sorted
-    reduction's outputs, so the port sorts."""
-    return sorted_k_unique(values, valid, k)
+    count. `weights=None` counts occurrences; an int64 tensor sums
+    weights per key instead (weights >= 0, a valid entry's > 0: the
+    merge form). The JAX package reaches these outputs by scatter-max
+    hash rounds, a TPU device for avoiding a sort, with the sorted
+    reduction as its fallback; they are the sorted reduction's outputs,
+    so the port sorts. Empty slots are identified by count 0."""
+    return sorted_k_unique(values, valid, k, weights)
+
+
+def merge_pair_sets(ck, cc, k2, c2, capacity: int):
+    """Fold two fixed-capacity (key, count) pair sets into one: the
+    weighted unique over the concatenated pairs, with the JAX package's
+    rule that empty slots are those with count 0 (validity is
+    `counts > 0`). Returns (keys[capacity], counts[capacity], n_unique);
+    n_unique above capacity means the merged set was cut."""
+    counts = torch.cat([cc, c2])
+    return fixed_k_unique(torch.cat([ck, k2]), counts > 0, capacity,
+                          weights=counts)

@@ -1,11 +1,12 @@
 """Multi-device execution of the port.
 
-The sampled engine shards the sample axis of each chunk over a mesh of
-torch devices (`mesh.py`); the JAX package's psum and all_gather become
-a sum and a stack on the mesh's first device in one process, and
-torch.distributed all_reduce/all_gather across processes
-(`distributed.py`: NCCL on CUDA, gloo on the CPU). The sharded results
-are bit-identical to the single-device engine's (`sharded.py`).
+The sampled engine shards the sample axis of each bucket's (or ref's)
+drawn buffer over a mesh of torch devices (`mesh.py`); the JAX
+package's psum and all_gather become a sum and a stack on the mesh's
+first device in one process, and torch.distributed all_reduce/
+all_gather across processes (`distributed.py`: NCCL on CUDA, gloo on
+the CPU). The sharded results are bit-identical to the single-device
+engine's in both forms, fused and per-ref (`sharded.py`).
 """
 
 from .distributed import build_global_mesh, initialize_distributed

@@ -1,48 +1,65 @@
 """Mesh-sharded sampled engine.
 
-Port of the JAX package's parallel/sharded.py in its per-ref form (the
-form that package runs for `fuse_refs=False` and in every multi-process
-run), with both of its draws, chosen by SamplerConfig.device_draw as in
-run_sampled (None: the device draw on CUDA, the host draw on the CPU):
+Port of the JAX package's parallel/sharded.py, in its two forms and with
+its routing between them (`_use_fused(cfg, device) and n_proc == 1`
+takes the fused form; by default that means a mesh of CUDA devices, and
+fuse_refs=True takes it on the CPU):
 
-- the device draw (sampler/draw.py): each ref's drawn (B,) buffer and
-  its `chosen` mask are cut into `batch`-row steps. Across processes,
-  every rank replays the identical draw on its own device and keeps
-  only its rows, so no draw traffic crosses ranks. The draw needs a mesh
-  size dividing the batch: an explicit device_draw=True raises
-  otherwise, and the auto default falls back to the host draw with a
-  warning, as in the JAX package;
-- the host draw: the host-drawn keys go to the mesh in padded
-  `batch`-row chunks.
+- the fused form (`_sampled_outputs_sharded_fused`, the JAX package's
+  function of that name): refs are grouped into run_sampled's
+  kernel-signature buckets; each bucket's stacked [R, B] keys and masks
+  (its device-drawn rows, grouped by buffer size, or its host-drawn
+  keys padded with each row's first key and masked) are split over the
+  shards along the sample axis, and each shard scans its [R, B/n_dev]
+  columns in `batch/n_dev`-column steps. One mesh reduction and one
+  read back per group, with its own capacity regrow;
+- the per-ref form (fuse_refs=False, and every multi-process run): under
+  the device draw each ref's drawn (B,) buffer and `chosen` mask are
+  split into n_dev contiguous blocks, and each shard scans its block in
+  `batch/n_dev`-row steps, as the JAX package's scan form; one mesh
+  reduction and one read back per ref. Across processes every rank
+  replays the identical draw on its own device and keeps only its block,
+  so no draw traffic crosses ranks. Under the host draw the keys go to
+  the mesh in padded `batch`-row chunks, one reduction and read back per
+  chunk.
 
-Shard i of a step or chunk takes rows [i*local_b, (i+1)*local_b) on its
-own device and, there:
+A shard's step is, on its own device:
 
-- decodes and classifies them with the plain torch classify
-  (sampler/sampled.py::classify_samples; the JAX package runs it in
-  XLA here, not through its fused kernel);
-- bins its noshare samples into the dense 64-bin pow2 histogram with
-  `pow2_hist_auto` — kernel B2 (csrc/pow2_hist.cu) on CUDA tensors —
-  weighted by the rows' mask (the chosen lanes, or the chunk's valid
-  prefix);
-- counts its cold samples and reduces its found samples to exact
-  (packed key, count) pairs with `fixed_k_unique`.
+- on the kernel route (kernel_backend "cuda", or "auto" on CUDA
+  devices): kernel B1's raw-noshare form (csrc/sampled_hist.cu, through
+  sampler/sampled.py::bucket_dispatch(raw=True)) on the step's column
+  span, every chosen lane coming back as an exact (packed key, count)
+  pair with its raw reuse value, `cold` counting the rest;
+- on the plain route (kernel_backend "torch", or a mesh of CPU
+  devices): the JAX package's own body, the plain classify
+  (sampler/sampled.py::classify_samples), `exp_hist` of max(ri, 1) over
+  the noshare lanes and `fixed_k_unique` of the found lanes.
 
-The mesh reduction is the JAX package's psum and all_gather: the
-histograms and cold counts are summed and the pairs stacked in shard
-order — on the mesh's first device in one process, by torch.distributed
+The step's pairs merge into the shard's running pair set
+(`merge_pair_sets`), and its cold count (and the plain route's
+histogram) add up there, with no host read between steps. `max_nu`
+tracks every step's and every merge's distinct count: above the
+capacity some set was cut, so the whole group reruns at
+max(4 * capacity, max_nu), which then sticks, and a cut set is never
+folded.
+
+The mesh reduction is the JAX package's psum and all_gather: cold
+counts (and histograms) summed and the pair sets stacked in shard order,
+on the mesh's first device in one process, by torch.distributed
 all_reduce/all_gather across processes (one mesh device per rank), so
-every rank decodes identical results. The pairs keep raw reuse values,
-so the per-ref results fold to run_sampled's PRIState exactly (and to
-the runtime-v2 state with v2=True); the psum'd pow2 histogram comes
-back beside them, for observability.
+every rank decodes identical results and takes the same regrow. The
+pairs keep raw reuse values, so the per-ref results fold to
+run_sampled's PRIState exactly (and to the runtime-v2 state with
+v2=True). Each ref's dense pow2 noshare histogram comes back beside
+them, for observability: the plain route's psum'd `exp_hist`, and on the
+kernel route the binning of the gathered noshare pairs, max(ri, 1)
+weighted by the count, through kernel B2 (csrc/pow2_hist.cu) — equal
+bin for bin.
 
-Triangular nests run as in run_sampled (the plain classify takes the
-triangular solver); one with a non-unit step raises NotImplementedError
-at `_program_rows`, the JAX package's unit-step gate. Not ported yet:
-the fused sharded form, the scan form's on-device pair merges
-(merge_pair_sets), the sharded exact engines and replica placement are
-listed in ROADMAP.md (A5, A6).
+Triangular nests run as in run_sampled; one with a non-unit step raises
+NotImplementedError at `_program_rows`, the JAX package's unit-step
+gate. Not ported yet: the sharded exact engines and replica placement
+(ROADMAP.md, A5 and A6).
 """
 
 from __future__ import annotations
@@ -55,18 +72,31 @@ import torch.distributed as dist
 
 from ..config import MachineConfig, SamplerConfig
 from ..ir import Program
-from ..ops.histogram import N_EXP_BINS, fixed_k_unique
+from ..ops.histogram import (
+    N_EXP_BINS,
+    exp_hist,
+    fixed_k_unique,
+    merge_pair_sets,
+)
 from ..ops.pow2_hist import pow2_hist_auto
-from ..ops.sampled_hist import torch_vals
+from ..ops.sampled_hist import build_descriptor, torch_vals, tri_table
 from ..runtime.hist import PRIState
-from ..sampler.draw import draw_sample_keys_device
+from ..sampler.draw import draw_bucket_keys_device, draw_sample_keys_device
 from ..sampler.sampled import (
+    _NOSHARE_SLOT,
+    _RATIO_SLOTS,
     DEFAULT_CAPACITY,
     SampledRefResult,
+    _bucket_rows,
+    _count,
+    _host_fuse_plan,
     _pad_highs,
     _program_rows,
+    _sample_highs,
     _span,
     _use_device_draw,
+    _use_fused,
+    bucket_dispatch,
     check_packed_ratios,
     classify_samples,
     decode_pairs,
@@ -112,27 +142,77 @@ def _process_grid(mesh: Mesh) -> tuple[int, int]:
     return n_proc, dist.get_rank()
 
 
-def _classify(tnt, ref_idx: int, keys, w, highs, backend: str):
-    """One shard's rows -> (pow2 noshare histogram and cold count as one
-    (65,) int64 tensor, packed keys, their validity), on the shard's
-    device. Rows where the bool weights `w` are False weigh nothing
-    (padding, or lanes the device draw did not choose) and are decoded
-    as key 0."""
-    samples = decode_sample_keys(torch.where(w, keys, 0), highs)
-    packed, ri, is_share, found = classify_samples(
-        tnt, ref_idx, samples, ref_idx
+def _kernel_route(backend: str, mesh: Mesh) -> bool:
+    """Whether the shards run kernel B1's raw form: backend "cuda", or
+    "auto" on a mesh of CUDA devices ("cuda" on CPU devices raises at
+    the launch)."""
+    return backend == "cuda" or (
+        backend == "auto" and mesh.devices[0].type == "cuda"
     )
-    nosh = pow2_hist_auto(torch.clamp(ri, min=1), found & ~is_share & w,
-                          backend)
-    cold = (~found & w).sum().reshape(1)
-    return torch.cat([nosh, cold]), packed, found & w
 
 
-def _pairs(packed, valid, cap: int):
-    """fixed_k_unique's (keys, counts, n_unique) as one (2*cap+1,)
-    int64 tensor, so one all_gather carries them."""
-    keys, counts, n_unique = fixed_k_unique(packed, valid, cap)
-    return torch.cat([keys, counts, n_unique.reshape(1)])
+class _Body:
+    """One shard step of a bucket (or of one ref, R = 1) on each of the
+    run's devices: kernel B1's raw form or the plain body (see the
+    module docstring). The descriptor is made once; the triangular base
+    table and the value overlay once per device."""
+
+    def __init__(self, nt, ref_idx: int, highs, devices, backend: str,
+                 kernel: bool):
+        self.nt, self.ref_idx, self.backend = nt, ref_idx, backend
+        self.kernel = kernel
+        self.ph = _pad_highs(highs)
+        if kernel:
+            self.desc = build_descriptor(nt, ref_idx)
+            self.tri = {d: tri_table(nt, d) for d in devices}
+        else:
+            self.tnt = {d: nt.with_vals(torch_vals(nt.vals, d))
+                        for d in devices}
+
+    def step(self, keys, mask, rx, cap: int):
+        """keys/mask [R, b] on one device (rows of contiguous lanes, a
+        fixed stride apart), rx [R] there -> (histogram [R, 64] or None
+        on the kernel route, cold [R], pair keys [R, cap], pair counts
+        [R, cap], distinct counts [R])."""
+        dev = keys.device
+        if self.kernel:
+            (pk, pc, nu, cold, _hist), _ = bucket_dispatch(
+                self.nt, self.ref_idx, keys, mask, self.ph, rx, cap,
+                self.backend, self.desc, self.tri[dev], raw=True,
+            )
+            return None, cold, pk, pc, nu
+        tnt = self.tnt[dev]
+        rows = []
+        for r in range(keys.shape[0]):
+            w = mask[r]
+            samples = decode_sample_keys(torch.where(w, keys[r], 0),
+                                         self.ph)
+            packed, ri, is_share, found = classify_samples(
+                tnt, self.ref_idx, samples, rx[r]
+            )
+            rows.append((
+                exp_hist(torch.clamp(ri, min=1), found & ~is_share & w),
+                (~found & w).sum(),
+                *fixed_k_unique(packed, found & w, cap),
+            ))
+        return tuple(torch.stack([x[i] for x in rows]) for i in range(5))
+
+
+def _merge(acc, out, cap: int):
+    """Fold one step's outputs into a shard's running (histogram or
+    None, cold, pair keys, pair counts, max_nu), all [R, ...]; the
+    first step is the running set as it is."""
+    nh, cold, pk, pc, nu = out
+    if acc is None:
+        return nh, cold, pk, pc, nu
+    anh, acold, ak, ac, max_nu = acc
+    merged = [merge_pair_sets(ak[j], ac[j], pk[j], pc[j], cap)
+              for j in range(pk.shape[0])]
+    mk, mc, mnu = (torch.stack([m[i] for m in merged]) for i in range(3))
+    return (
+        None if nh is None else anh + nh, acold + cold, mk, mc,
+        torch.maximum(max_nu, torch.maximum(nu, mnu)),
+    )
 
 
 def _psum(xs: list, mesh: Mesh, n_proc: int):
@@ -157,6 +237,88 @@ def _all_gather(xs: list, mesh: Mesh, n_proc: int):
     out = [torch.empty_like(x) for _ in range(n_proc)]
     dist.all_gather(out, x)
     return torch.stack(out)
+
+
+def dense_from_pairs(keys, counts, backend: str = "auto"):
+    """The pow2 noshare histogram of pair sets: every noshare pair (slot
+    15 of its packed key) binned at max(reuse, 1), weighted by its count,
+    through pow2_hist_auto (kernel B2 on CUDA tensors, with int64
+    weights). keys/counts [..., R, cap] -> [R, 64]; one launch per row R.
+    It equals `exp_hist(max(ri, 1), found & ~is_share & w)` over the
+    samples the pairs count (a reuse below 1 lands in bin 0)."""
+    R = keys.shape[-2]
+    keys = keys.transpose(0, -2).reshape(R, -1)
+    counts = counts.transpose(0, -2).reshape(R, -1)
+    values = torch.clamp(torch.div(keys, _RATIO_SLOTS, rounding_mode="floor"),
+                         min=1)
+    weights = torch.where(keys % _RATIO_SLOTS == _NOSHARE_SLOT, counts, 0)
+    return torch.stack([pow2_hist_auto(values[j], weights[j], backend)
+                        for j in range(R)])
+
+
+class _Group:
+    """One mesh reduction: every shard's steps, given as {shard: [(keys
+    [R, b], mask [R, b]), ...]} on the shards' devices, with the members'
+    rx per device."""
+
+    def __init__(self, body: _Body, steps: dict, rx: dict):
+        self.body, self.steps, self.rx = body, steps, rx
+
+    def run(self, cap, mesh, n_proc, spans, counters):
+        """Enqueue every step, merge on the shards, reduce over the mesh
+        and read back once: (histograms [R, 64], cold [R], pair keys and
+        counts [n_dev, R, cap], max_nu), numpy."""
+        body = self.body
+        with _span(spans, "dispatch_psum"):
+            _count(counters, "dispatches")
+            accs = []
+            for i, steps in self.steps.items():
+                acc = None
+                for keys, mask in steps:
+                    acc = _merge(acc, body.step(keys, mask,
+                                                self.rx[keys.device], cap),
+                                 cap)
+                accs.append(acc)
+            R = accs[0][1].shape[0]
+            summed = _psum(
+                [a[1][:, None] if a[0] is None
+                 else torch.cat([a[0], a[1][:, None]], 1) for a in accs],
+                mesh, n_proc)
+            pairs = _all_gather(
+                [torch.cat([a[2], a[3], a[4][:, None]], 1) for a in accs],
+                mesh, n_proc)
+            parts = [summed.reshape(-1), pairs.reshape(-1)]
+            if body.kernel:
+                parts.append(dense_from_pairs(
+                    pairs[:, :, :cap], pairs[:, :, cap:2 * cap],
+                    body.backend).reshape(-1))
+            flat = torch.cat(parts)
+        with _span(spans, "gather_fetch"):
+            _count(counters, "fetches")
+            flat = flat.cpu().numpy()
+        a, b = summed.numel(), summed.numel() + pairs.numel()
+        host_sum = flat[:a].reshape(R, -1)
+        host_pairs = flat[a:b].reshape(pairs.shape)
+        dense = (flat[b:].reshape(R, N_EXP_BINS) if body.kernel
+                 else host_sum[:, :N_EXP_BINS])
+        return (dense, host_sum[:, -1], host_pairs[:, :, :cap],
+                host_pairs[:, :, cap:2 * cap],
+                int(host_pairs[:, :, -1].max()))
+
+
+def _run_group(group: _Group, cap_box: list, mesh, n_proc, spans,
+               counters):
+    """A group's reduction with its capacity regrow: rerun the whole
+    group at max(4 * capacity, max_nu) until no set was cut; the grown
+    capacity sticks for later groups (cap_box)."""
+    while True:
+        out = group.run(cap_box[0], mesh, n_proc, spans, counters)
+        if out[-1] <= cap_box[0]:
+            return out
+        # rare: some shard saw (or merged) more distinct (reuse, class)
+        # pairs than slots — every rank sees the same gathered max_nu
+        _count(counters, "capacity_regrows")
+        cap_box[0] = max(cap_box[0] * 4, out[-1])
 
 
 def _device_draw_on_mesh(cfg: SamplerConfig, mesh: Mesh, batch: int) -> bool:
@@ -188,6 +350,37 @@ def _device_draw_on_mesh(cfg: SamplerConfig, mesh: Mesh, batch: int) -> bool:
     return use
 
 
+def _column_steps(keys, mask, shards, mesh, n_chunks: int, spans):
+    """Split [R, W] keys and mask along the sample axis: shard i takes
+    columns [i*W/n_dev, (i+1)*W/n_dev) on its own device (a view where
+    the device is the buffers'), scanned in n_chunks column spans (views):
+    {shard: [(keys, mask), ...]}."""
+    n_dev = mesh.size
+    w = keys.shape[1] // n_dev
+    b = w // n_chunks
+    out = {}
+    with _span(spans, "shard_put"):
+        for i in shards:
+            dev = mesh.devices[i]
+            k = keys[:, i * w:(i + 1) * w].to(dev)
+            m = mask[:, i * w:(i + 1) * w].to(dev)
+            out[i] = [(k[:, s * b:(s + 1) * b], m[:, s * b:(s + 1) * b])
+                      for s in range(n_chunks)]
+    return out
+
+
+def _rx_on(members_ri, devices) -> dict:
+    """The members' ref indices as an int64 tensor on each device."""
+    return {d: torch.tensor(members_ri, dtype=torch.int64, device=d)
+            for d in devices}
+
+
+def _devices(mesh: Mesh, shards) -> set:
+    """The shards' devices as their tensors report them ("cuda" becomes
+    "cuda:<current>"), the keys of _Body's and _rx_on's tables."""
+    return {torch.empty(0, device=mesh.devices[i]).device for i in shards}
+
+
 def sampled_outputs_sharded(
     program: Program,
     machine: MachineConfig,
@@ -197,37 +390,49 @@ def sampled_outputs_sharded(
     capacity: int = DEFAULT_CAPACITY,
     device=None,
     spans: dict | None = None,
+    counters: dict | None = None,
 ):
     """Sharded sampled engine -> per-ref SampledRefResult (exact) plus
-    the psum'd dense noshare histograms (per ref, for observability).
+    the dense pow2 noshare histograms (per ref, for observability).
 
     Runs on `mesh`, by default every visible card, or one CPU device
-    with device="cpu". `spans`, when given, gathers host seconds per
-    stage: "draw" (the device draw ends in its host read of its
-    counts), "shard_put" (padding and the copy to the shards),
-    "dispatch_psum" (classify, histogram, pairs and the reductions as
-    enqueued), "gather_fetch" (the copy back) and "merge" (into the
-    host dicts)."""
+    with device="cpu"; in the fused form where `_use_fused` holds on the
+    mesh's devices in one process, else in the per-ref form (module
+    docstring). `spans`, when given, gathers host seconds per stage:
+    "draw" (the device draw ends in its host read of its counts),
+    "shard_put" (padding and the copies to the shards), "dispatch_psum"
+    (the shards' steps and merges and the mesh reduction, as enqueued),
+    "gather_fetch" (the one copy back per reduction) and "merge" (into
+    the host dicts). `counters`, when given, counts "dispatches" (mesh
+    reductions, reruns included), "fetches" (read backs),
+    "capacity_regrows", and in the fused form "dispatches_fused" and
+    "ref_buckets", and sets "fuse_refs", "expected_chunks" and
+    "refs_per_dispatch" (the JAX package's telemetry names)."""
     cfg = cfg or SamplerConfig()
     mesh = _resolve_mesh(mesh, device)
     backend = cfg.kernel_backend or "auto"  # validated by SamplerConfig
     if batch is None:
         batch = default_batch(mesh.devices[0])
-    n_dev = mesh.size
     n_proc, pid = _process_grid(mesh)
-    shards = list(range(n_dev)) if n_proc == 1 else [pid]
     use_dev_draw = _device_draw_on_mesh(cfg, mesh, batch)
-    # every process draws on a device of its own (the same draw)
-    draw_dev = mesh.devices[shards[0]]
     trace, rows = _program_rows(program, machine)
     for nt in trace.nests:
         check_packed_ratios(nt)
+    kernel = _kernel_route(backend, mesh)
+    if _use_fused(cfg, mesh.devices[0]) and n_proc == 1:
+        return _sampled_outputs_sharded_fused(
+            trace, rows, cfg, mesh, batch, capacity, use_dev_draw, backend,
+            kernel, spans, counters)
+    n_dev = mesh.size
+    shards = list(range(n_dev)) if n_proc == 1 else [pid]
+    devices = _devices(mesh, shards)
+    # every process draws on a device of its own (the same draw)
+    draw_dev = mesh.devices[shards[0]]
+    cap_box = [capacity]
     results = []
     dense_noshare = []
     for idx, (k, ri, _sig) in enumerate(rows):
         nt = trace.nests[k]
-        tnts = {d: nt.with_vals(torch_vals(nt.vals, d))
-                for d in {mesh.devices[i] for i in shards}}
         seed = cfg.seed * 1000003 + idx
         drawn = None
         if use_dev_draw:
@@ -238,46 +443,30 @@ def sampled_outputs_sharded(
             with _span(spans, "draw"):
                 keys_all, highs = draw_sample_keys(nt, ri, cfg, seed=seed)
             n_samples = len(keys_all)
-            steps = _host_steps(keys_all, n_dev, batch, shards, mesh, spans)
         else:
             keys_all, mask_all, n_samples, highs = drawn
-            steps = _device_steps(keys_all, mask_all, n_dev, batch, shards,
-                                  mesh, spans)
+        body = _Body(nt, ri, highs, devices, backend, kernel)
+        rx = _rx_on([ri], devices)
+        if drawn is None:
+            groups = (_Group(body, steps, rx) for steps in
+                      _host_chunks(keys_all, n_dev, batch, shards, mesh,
+                                   spans))
+        else:
+            groups = [_Group(body, _column_steps(
+                keys_all[None], mask_all[None], shards, mesh,
+                keys_all.shape[0] // batch, spans), rx)]
         noshare: dict[int, float] = {}
         share: dict[int, dict[int, float]] = {}
         cold = 0.0
         dense = np.zeros(N_EXP_BINS, dtype=np.int64)
-        cap = capacity  # regrows 4x, sticky for the ref's later steps
-        ph = _pad_highs(highs)
-        for parts in steps:
-            with _span(spans, "dispatch_psum"):
-                outs = [
-                    _classify(tnts[mesh.devices[i]], ri, *parts[i], ph,
-                              backend)
-                    for i in shards
-                ]
-                nh_cold = _psum([o[0] for o in outs], mesh, n_proc)
-            while True:
-                with _span(spans, "dispatch_psum"):
-                    pairs = _all_gather(
-                        [_pairs(o[1], o[2], cap) for o in outs], mesh, n_proc
-                    )
-                with _span(spans, "gather_fetch"):
-                    pairs = pairs.cpu().numpy()
-                n_unique = pairs[:, -1]
-                if int(n_unique.max()) <= cap:
-                    break
-                # rare: some shard saw more distinct (reuse, class)
-                # pairs than slots — regrow and reduce again
-                cap = max(cap * 4, int(n_unique.max()))
-            with _span(spans, "gather_fetch"):
-                nh_cold = nh_cold.cpu().numpy()
-            dense += nh_cold[:N_EXP_BINS]
-            cold += float(nh_cold[N_EXP_BINS])
+        for group in groups:
+            nh, c, pk, pc, _ = _run_group(group, cap_box, mesh, n_proc,
+                                          spans, counters)
+            dense += nh[0]
+            cold += float(c[0])
             with _span(spans, "merge"):
                 for d in range(n_dev):
-                    decode_pairs(pairs[d, :cap], pairs[d, cap:2 * cap],
-                                 noshare, share)
+                    decode_pairs(pk[d, 0], pc[d, 0], noshare, share)
         results.append(
             SampledRefResult(
                 name=nt.tables.ref_names[ri], noshare=noshare, share=share,
@@ -288,11 +477,11 @@ def sampled_outputs_sharded(
     return results, dense_noshare
 
 
-def _host_steps(keys_all, n_dev, batch, shards, mesh, spans):
-    """The host draw's chunks: for each, {shard: (keys, weights)} on the
-    shards' devices. A chunk is `step` keys padded so that it splits
-    evenly (every chunk of a ref longer than one is padded to `step`);
-    the weights mark the unpadded prefix."""
+def _host_chunks(keys_all, n_dev, batch, shards, mesh, spans):
+    """The host draw's chunks: for each, {shard: [(keys [1, b], mask [1,
+    b])]} on the shards' devices. A chunk is `step` keys padded so that
+    it splits evenly (every chunk of a ref longer than one is padded to
+    `step`); the mask marks the unpadded prefix."""
     step = max(n_dev, (batch // n_dev) * n_dev)
     n_samples = len(keys_all)
     for s0 in range(0, n_samples, step):
@@ -308,25 +497,125 @@ def _host_steps(keys_all, n_dev, batch, shards, mesh, spans):
                 keys = torch.from_numpy(
                     chunk[i * local_b : (i + 1) * local_b]).to(dev)
                 base = i * local_b
-                parts[i] = (keys, base + torch.arange(local_b, device=dev)
-                            < n_valid)
+                mask = base + torch.arange(local_b, device=dev) < n_valid
+                parts[i] = [(keys[None], mask[None])]
         yield parts
 
 
-def _device_steps(keys_all, mask_all, n_dev, batch, shards, mesh, spans):
-    """The device draw's steps: each `batch` rows of the drawn buffer
-    (B is a multiple of batch), split over the shards in contiguous
-    rows, with the chosen mask as the weights: {shard: (keys, mask)}."""
-    local_b = batch // n_dev
-    for s0 in range(0, keys_all.shape[0], batch):
-        with _span(spans, "shard_put"):
-            parts = {}
-            for i in shards:
-                lo = s0 + i * local_b
-                dev = mesh.devices[i]
-                parts[i] = (keys_all[lo:lo + local_b].to(dev),
-                            mask_all[lo:lo + local_b].to(dev))
-        yield parts
+def _sampled_outputs_sharded_fused(trace, rows, cfg, mesh, batch, capacity,
+                                   use_dev_draw, backend, kernel, spans,
+                                   counters):
+    """Cross-ref fused form of sampled_outputs_sharded (one process):
+    refs grouped into run_sampled's kernel-signature buckets, each
+    group's stacked [R, B] buffers split over the shards along the sample
+    axis, one mesh reduction and one read back per group, the capacity
+    regrow per group (sticky for later groups). Same draw streams, same
+    exact merges: results equal to the per-ref form's and run_sampled's.
+    """
+    n_dev = mesh.size
+    shards = list(range(n_dev))
+    devices = _devices(mesh, shards)
+    noshare = [{} for _ in rows]
+    share = [{} for _ in rows]
+    cold = [0.0] * len(rows)
+    dense = [np.zeros(N_EXP_BINS, dtype=np.int64) for _ in rows]
+    n_samples_of = [0] * len(rows)
+    cap_box = [capacity]
+    n_buckets = max_bucket_dispatches = n_fused = n_refs_fused = 0
+
+    def run(group, mem):
+        nonlocal n_fused, n_refs_fused
+        nh, c, pk, pc, _ = _run_group(group, cap_box, mesh, 1, spans,
+                                      counters)
+        _count(counters, "dispatches_fused")
+        n_fused += 1
+        n_refs_fused += len(mem)
+        with _span(spans, "merge"):
+            for j, idx in enumerate(mem):
+                dense[idx] += nh[j]
+                cold[idx] += float(c[j])
+                for d in range(n_dev):
+                    decode_pairs(pk[d, j], pc[d, j], noshare[idx],
+                                 share[idx])
+
+    step = max(n_dev, (batch // n_dev) * n_dev)
+    for (k, _sig), members in _bucket_rows(trace, rows).items():
+        nt = trace.nests[k]
+        ri0 = members[0][1]
+        highs, s = _sample_highs(nt, ri0, cfg)
+        if s == 0:  # no drawable points (degenerate triangular ref)
+            continue
+        n_buckets += 1
+        _count(counters, "ref_buckets")
+        bucket_dispatches = 0
+        body = _Body(nt, ri0, highs, devices, backend, kernel)
+        host_members = members
+        if use_dev_draw:
+            with _span(spans, "draw"):
+                drawn = draw_bucket_keys_device(
+                    nt, [ri for _, ri in members], cfg,
+                    [cfg.seed * 1000003 + idx for idx, _ in members],
+                    batch, mesh.devices[0],
+                )
+            taken = {p for g in drawn for p in g.positions}
+            host_members = [m for p, m in enumerate(members)
+                            if p not in taken]
+            # each group is one buffer size B: a run of the bucket's
+            # [R, B] draw, or one member whose retry grew its buffer
+            for g in drawn:
+                mem = [members[p] for p in g.positions]
+                for idx, _ri in mem:
+                    n_samples_of[idx] = g.s
+                steps = _column_steps(g.keys, g.chosen, shards, mesh,
+                                      g.keys.shape[1] // batch, spans)
+                run(_Group(body, steps, _rx_on([ri for _, ri in mem],
+                                               devices)),
+                    [idx for idx, _ in mem])
+                bucket_dispatches += 1
+            del drawn
+        if host_members:
+            with _span(spans, "draw"):
+                keys_list = []
+                for idx, ri in host_members:
+                    ka, _hi = draw_sample_keys(
+                        nt, ri, cfg, seed=cfg.seed * 1000003 + idx)
+                    n_samples_of[idx] = len(ka)
+                    keys_list.append(ka)
+            g, n_groups = _host_fuse_plan(len(keys_list[0]), step)
+            span_len = g * step
+            rx = _rx_on([ri for _, ri in host_members], devices)
+            mem = [idx for idx, _ in host_members]
+            for gi in range(n_groups):
+                lo = gi * span_len
+                with _span(spans, "shard_put"):
+                    buf = np.empty((len(keys_list), span_len),
+                                   dtype=np.int64)
+                    msk = np.zeros((len(keys_list), span_len), dtype=bool)
+                    for j, ka in enumerate(keys_list):
+                        seg = ka[lo:lo + span_len]
+                        buf[j, :len(seg)] = seg
+                        buf[j, len(seg):] = ka[0]  # decodable padding
+                        msk[j, :len(seg)] = True
+                steps = _column_steps(torch.from_numpy(buf),
+                                      torch.from_numpy(msk), shards, mesh,
+                                      g, spans)
+                run(_Group(body, steps, rx), mem)
+                bucket_dispatches += 1
+        max_bucket_dispatches = max(max_bucket_dispatches,
+                                    bucket_dispatches)
+    if counters is not None:
+        counters["fuse_refs"] = 1
+        counters["expected_chunks"] = max_bucket_dispatches
+        if n_fused:
+            counters["refs_per_dispatch"] = n_refs_fused / n_fused
+    results = [
+        SampledRefResult(
+            name=trace.nests[k].tables.ref_names[ri], noshare=noshare[idx],
+            share=share[idx], cold=cold[idx], n_samples=n_samples_of[idx],
+        )
+        for idx, (k, ri, _sig) in enumerate(rows)
+    ]
+    return results, dense
 
 
 def run_sampled_sharded(
@@ -339,10 +628,10 @@ def run_sampled_sharded(
 ) -> tuple[PRIState, list[SampledRefResult]]:
     """Sharded engine -> (PRIState, per-ref results); bit-identical to
     run_sampled at any mesh size under the same draw and batch (the same
-    sample sets, exact merges).
+    sample sets, exact merges), in either form (cfg.fuse_refs).
     The per-ref results keep raw reuse values, so v2=True folds the
     runtime-v2 state. Keyword arguments go to sampled_outputs_sharded
-    (device, batch, capacity, spans)."""
+    (device, batch, capacity, spans, counters)."""
     cfg = cfg or SamplerConfig()
     results, _ = sampled_outputs_sharded(program, machine, cfg, mesh, **kw)
     return fold_results(results, machine.thread_num, v2), results

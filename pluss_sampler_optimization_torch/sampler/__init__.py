@@ -2,6 +2,7 @@
 (sampler/draw.py, on the threefry streams of sampler/threefry.py)."""
 
 from .draw import draw_sample_keys_device
-from .sampled import run_sampled, sampled_outputs
+from .sampled import run_sampled, run_sampled_progressive, sampled_outputs
 
-__all__ = ["draw_sample_keys_device", "run_sampled", "sampled_outputs"]
+__all__ = ["draw_sample_keys_device", "run_sampled",
+           "run_sampled_progressive", "sampled_outputs"]

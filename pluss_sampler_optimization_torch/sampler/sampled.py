@@ -35,6 +35,10 @@ Two runners share one drain (sampled_outputs): the bucket runner
 (cfg.fuse_refs, auto on CUDA) and the serial per-ref runner (auto on the
 CPU), with depth-bounded pipelining of the copies back
 (cfg.pipeline_depth) and per-ref checkpoints (checkpoint_dir).
+run_sampled_progressive classifies the host draw's sample sets in
+rounds of growing prefixes through the raw-noshare form, with a
+bootstrap MRC band between rounds (sampler/confidence.py) and an early
+stop at cfg.tolerance.
 
 Each sample's reuse interval is the forward distance, in its simulated
 thread's private access clock, to the next same-array touch of its
@@ -55,6 +59,7 @@ import collections
 import contextlib
 import dataclasses
 import time
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -1193,3 +1198,241 @@ def run_sampled(
     with _span(spans, "fold"):
         state = fold_results(results, machine.thread_num, v2)
     return state, results
+
+
+def _stream_order(keys: np.ndarray, seed: int) -> np.ndarray:
+    """Deterministic uniform round-assignment order for one ref's
+    drawn key set: argsort by a splitmix64 hash of (key, seed).
+
+    draw_sample_keys returns the sample SET sorted by key (np.unique),
+    so a plain prefix would be the smallest iteration points — a
+    biased subsample no confidence band could speak for. Hashing makes
+    every prefix of the reordered stream an (exchangeable) uniform
+    subset of the full set, while the UNION over all rounds is the set
+    itself — which is all the final-round bit-identity needs (every
+    consumer of the folded histograms iterates in sorted-key order,
+    and integer-count float accumulation is exact, so processing
+    order never reaches the MRC bytes). Pure integer arithmetic:
+    replays exactly from (keys, seed) on every platform."""
+    x = keys.astype(np.uint64) + np.uint64(seed & ((1 << 64) - 1))
+    x = x + np.uint64(0x9E3779B97F4A7C15)
+    x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    x = x ^ (x >> np.uint64(31))
+    # lexsort's final key (the hash) is primary; ties (hash collisions)
+    # break on the raw key so the order is total and deterministic
+    return np.lexsort((keys, x))
+
+
+def _classify_slice(ref: dict, keys: np.ndarray, batch: int, cap_box: list,
+                    dev: torch.device, backend: str, spans: dict | None,
+                    counters: dict | None):
+    """Classify one contiguous slice of a ref's (reordered) key stream
+    in `batch`-key chunks, each one dispatch of kernel B1's raw-noshare
+    form (the plain raw route on the CPU or under "torch") with every
+    lane live and one read back, into a fresh sub-histogram block; the
+    JAX package's chunk/fetch/regrow loop over its plain per-ref kernel,
+    whose pairs keep raw noshare values too. `cap_box` is the run-wide
+    mutable [capacity] so a regrow sticks for later slices. Returns
+    (noshare, share, cold)."""
+    noshare: dict[int, float] = {}
+    share: dict[int, dict[int, float]] = {}
+    cold = 0.0
+    for s0 in range(0, len(keys), batch):
+        with _span(spans, "stage"):
+            chunk = torch.from_numpy(keys[s0:s0 + batch]).to(dev)[None]
+        _count(counters, "dispatches")
+        with _span(spans, "dispatch"):
+            out, reduce = bucket_dispatch(
+                ref["nt"], ref["ri"], chunk, None, ref["ph"], ref["rx"],
+                cap_box[0], backend, ref["desc"], ref["tri"], raw=True,
+            )
+            pk, pc, nu, c, _hist = (x.cpu().numpy() for x in out)
+            while int(nu[0]) > cap_box[0]:
+                cap_box[0] = max(cap_box[0] * 4, int(nu[0]))
+                _count(counters, "capacity_regrows")
+                pk, pc, nu = (x.cpu().numpy() for x in reduce(cap_box[0]))
+        cold += float(c[0])
+        with _span(spans, "decode"):
+            decode_pairs(pk[0], pc[0], noshare, share)
+    return noshare, share, cold
+
+
+def _sum_blocks(blocks) -> tuple:
+    """Union of sub-histogram blocks (sorted-key accumulation; counts
+    are integers, so the float sums are exact and order-free)."""
+    noshare: dict[int, float] = {}
+    share: dict[int, dict[int, float]] = {}
+    cold = 0.0
+    for ns, sh, c in blocks:
+        for k in sorted(ns):
+            noshare[k] = noshare.get(k, 0.0) + ns[k]
+        for ratio in sorted(sh):
+            d = share.setdefault(ratio, {})
+            h = sh[ratio]
+            for k in sorted(h):
+                d[k] = d.get(k, 0.0) + h[k]
+        cold += c
+    return noshare, share, cold
+
+
+def run_sampled_progressive(
+    program: Program,
+    machine: MachineConfig,
+    cfg: SamplerConfig | None = None,
+    v2: bool = False,
+    *,
+    batch: int | None = None,
+    capacity: int = DEFAULT_CAPACITY,
+    on_round=None,
+    should_stop=None,
+    device=None,
+    spans: dict | None = None,
+    counters: dict | None = None,
+) -> tuple[PRIState, list[SampledRefResult], dict]:
+    """Round-based sampled engine with confidence-banded early exit.
+
+    Each ref draws its FULL final-ratio sample stream once, with the
+    one-shot host-draw convention (numpy PCG, seed = cfg.seed *
+    1000003 + row index) — so the stream IS the one-shot sample set —
+    then classifies it across rounds of increasing prefixes of a
+    seeded reorder (_stream_order) of that stream. Per round, each
+    ref's new slice lands in SUB_BLOCKS_PER_ROUND independent
+    sub-histogram blocks (_classify_slice: kernel B1's raw-noshare form
+    on CUDA); sampler/confidence.py bootstraps an MRC band over them
+    between rounds. The run stops early when the band width drops under
+    cfg.tolerance, or at a round boundary when `should_stop()` returns
+    True; either way the cumulative union state is returned. A run that
+    completes the whole schedule folds the exact one-shot sample set,
+    so its PRIState/MRC is bit-identical to run_sampled at the same
+    (ratio, seed) on the host draw, and its per-ref results equal
+    sampled_outputs(raw_noshare=True) there.
+
+    `on_round(info)` fires after every completed round with the round
+    index, cumulative (state, results), interim MRC, and the
+    monotone-clamped band width. Runs on CUDA unless `device="cpu"`;
+    `spans` gathers host seconds per stage ("draw", "stage",
+    "dispatch", "decode", "fold", "bootstrap") and `counters` counts
+    "progressive_rounds", "dispatches" and "capacity_regrows". The JAX
+    package's `fault_key` (the service's `round_exec` chaos site) waits
+    for the service.
+
+    Returns (state, results, info) with info = {"rounds" completed,
+    "rounds_total", "band_width", "converged", "stopped"
+    (None | "converged" | "deadline")}.
+    """
+    from ..ops.sampled_hist import build_descriptor, tri_table
+    from . import confidence
+
+    cfg = cfg or SamplerConfig()
+    dev = resolve_device(device)
+    backend = cfg.kernel_backend or "auto"  # validated by SamplerConfig
+    kernel = backend != "torch" and dev.type == "cuda"
+    if batch is None:
+        batch = default_batch(dev)
+    if _use_device_draw(cfg, dev):
+        # the progressive stream is the HOST draw stream: prefix
+        # extension needs the whole set materialized host-side, and
+        # the bit-identity anchor is the host-path one-shot run
+        warnings.warn(
+            "progressive sampling always draws on the host; "
+            "device_draw ignored for this run",
+            stacklevel=2,
+        )
+    schedule = confidence.resolve_schedule(cfg)
+    n_rounds = len(schedule)
+    tol = getattr(cfg, "tolerance", None)
+    trace, rows = _program_rows(program, machine)
+    for nt in trace.nests:
+        check_packed_ratios(nt)
+    cap_box = [capacity]
+    refs = []
+    for idx, (k, ri, _sig) in enumerate(rows):
+        nt = trace.nests[k]
+        with _span(spans, "draw"):
+            keys_all, highs = draw_sample_keys(
+                nt, ri, cfg, seed=cfg.seed * 1000003 + idx
+            )
+            order = _stream_order(keys_all, cfg.seed * 1000003 + idx)
+        refs.append({
+            "nt": nt,
+            "ri": ri,
+            "name": nt.tables.ref_names[ri],
+            "keys": keys_all[order],
+            "ph": _pad_highs(highs),
+            "rx": torch.tensor([ri], dtype=torch.int64, device=dev),
+            "desc": build_descriptor(nt, ri) if kernel else None,
+            "tri": tri_table(nt, dev) if kernel else None,
+            "counts": confidence.round_counts(len(keys_all), schedule),
+        })
+    blocks: list[list] = [[] for _ in refs]
+    state = None
+    results: list[SampledRefResult] = []
+    band_width = None
+    stopped = None
+    done = 0
+    for r in range(n_rounds):
+        if r > 0 and should_stop is not None and should_stop():
+            stopped = "deadline"
+            break
+        _count(counters, "progressive_rounds")
+        for ref, ref_blocks in zip(refs, blocks):
+            lo = 0 if r == 0 else ref["counts"][r - 1]
+            hi = ref["counts"][r]
+            for a, b in confidence.block_bounds(lo, hi):
+                ref_blocks.append(_classify_slice(
+                    ref, ref["keys"][a:b], batch, cap_box, dev, backend,
+                    spans, counters,
+                ))
+        done = r + 1
+        results = [
+            SampledRefResult(
+                name=ref["name"], noshare=ns, share=sh, cold=cold,
+                n_samples=ref["counts"][r],
+            )
+            for ref, (ns, sh, cold) in zip(
+                refs, (_sum_blocks(rb) for rb in blocks)
+            )
+        ]
+        with _span(spans, "fold"):
+            state = fold_results(results, machine.thread_num, v2)
+        with _span(spans, "bootstrap"):
+            raw = confidence.bootstrap_band(
+                blocks, machine, seed=cfg.seed, round_idx=r, v2=v2,
+            )
+        # monotone non-widening by construction: more samples
+        # never REPORT more uncertainty than an earlier round did
+        band_width = (
+            raw if band_width is None else min(band_width, raw)
+        )
+        early = (
+            tol is not None and band_width < tol
+            and r < n_rounds - 1
+        )
+        if on_round is not None:
+            on_round({
+                "round": done,
+                "rounds_total": n_rounds,
+                "band_width": band_width,
+                "converged": early or done == n_rounds,
+                "state": state,
+                "results": results,
+                "mrc": confidence.mrc_from_state(state, machine),
+            })
+        if early:
+            stopped = "converged"
+            break
+    converged = stopped == "converged" or done == n_rounds
+    if state is None:
+        # should_stop before any round completed — nothing to return;
+        # the caller treats this like any engine failure
+        raise RuntimeError(
+            "progressive run stopped before its first round completed"
+        )
+    return state, results, {
+        "rounds": done,
+        "rounds_total": n_rounds,
+        "band_width": band_width,
+        "converged": converged,
+        "stopped": stopped,
+    }

@@ -159,28 +159,48 @@ def test_device_draw_dispatches_are_masked_views():
 
 @pytest.mark.parametrize("n_dev", [1, 2, 8])
 def test_sharded_device_draw_matches_jax_and_run_sampled(n_dev):
-    """The per-ref device-draw form: each batch step of the drawn buffer
-    split over the shards, 2 pair slots (regrows). The fold equals
-    run_sampled's state and MRC bytes at the same batch; on 8 shards the
-    raw per-ref results and pow2 histograms also equal the JAX package's
-    (its scan form on its virtual 8-device mesh)."""
+    """The per-ref device-draw form (the scan form: each shard's block
+    of the drawn buffer in batch/n_dev-row steps, merged on the shard),
+    2 pair slots (regrows). The fold equals run_sampled's state and MRC
+    bytes at the same batch, with one read back per ref and per regrow;
+    on 8 shards the raw per-ref results and pow2 histograms also equal
+    the JAX package's (its scan form on its virtual 8-device mesh), and
+    so do the port's fused form's and those of the kernel route's logic
+    (B1's plain raw form per step, the histogram of the gathered
+    pairs)."""
     prog, m = T_MODELS["gemm"](16), T.MachineConfig()
     cfg = T.SamplerConfig(ratio=0.25, seed=3, device_draw=True)
     batch = 64
+    counters: dict = {}
     tres, td = TSH.sampled_outputs_sharded(
         prog, m, cfg, build_mesh(devices=["cpu"] * n_dev), batch=batch,
-        capacity=2)
+        capacity=2, counters=counters)
+    assert counters["fetches"] == len(tres) + counters.get(
+        "capacity_regrows", 0)
     if n_dev == 8:
         jres, jd = j_outputs_sharded(
             J_MODELS["gemm"](16), J.MachineConfig(),
             J.SamplerConfig(ratio=0.25, seed=3, device_draw=True,
                             fuse_refs=False),
             mesh=j_build_mesh(n_dev), batch=batch)
-        assert [(r.name, r.noshare, r.share, r.cold, r.n_samples)
-                for r in tres] == [(r.name, r.noshare, r.share, r.cold,
-                                    r.n_samples) for r in jres]
-        assert [list(map(int, a)) for a in jd] == [list(map(int, b))
-                                                    for b in td]
+        want = [(r.name, r.noshare, r.share, r.cold, r.n_samples)
+                for r in jres]
+        want_d = [list(map(int, b)) for b in jd]
+        fused = TSH.sampled_outputs_sharded(
+            prog, m, dataclasses.replace(cfg, fuse_refs=True),
+            build_mesh(devices=["cpu"] * n_dev), batch=batch, capacity=2)
+        route = TSH._kernel_route
+        TSH._kernel_route = lambda backend, mesh: True
+        try:
+            kernel_logic = TSH.sampled_outputs_sharded(
+                prog, m, cfg, build_mesh(devices=["cpu"] * n_dev),
+                batch=batch, capacity=2)
+        finally:
+            TSH._kernel_route = route
+        for res, dense in ((tres, td), fused, kernel_logic):
+            assert [(r.name, r.noshare, r.share, r.cold, r.n_samples)
+                    for r in res] == want
+            assert [list(map(int, a)) for a in dense] == want_d
     want, _ = T.run_sampled(prog, m, cfg, device="cpu", batch=batch)
     state = TS.fold_results(tres, m.thread_num)
     assert t_state_json(state) == t_state_json(want)

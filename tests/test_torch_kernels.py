@@ -386,14 +386,22 @@ def test_pow2_hist_kernel_is_one_device_operation(cuda):
     assert all("pow2_hist_kernel" in x for x in dev), dev
 
 
-def test_two_shards_on_one_card_fold_like_run_sampled(cuda):
-    """The host draw: any batch gives the same sample sets."""
+@pytest.mark.parametrize("fuse", [None, False])
+def test_two_shards_on_one_card_fold_like_run_sampled(fuse, cuda):
+    """The host draw: any batch gives the same sample sets. Both sharded
+    forms (None: the fused form, the default on CUDA) launch B1's raw
+    form on the shards and B2 over the gathered pairs, one per ref row
+    and chunk."""
     prog, m = REGISTRY["gemm"](64), T.MachineConfig()
-    cfg = T.SamplerConfig(ratio=0.2, seed=0, device_draw=False)
-    n0 = p2.LAUNCHES
+    cfg = T.SamplerConfig(ratio=0.2, seed=0, device_draw=False,
+                          fuse_refs=fuse)
+    n0, n1 = p2.LAUNCHES, sh.LAUNCHES
+    counters: dict = {}
     st_s, res = run_sampled_sharded(
-        prog, m, cfg, build_mesh(devices=["cuda:0", "cuda:0"]), batch=512)
-    assert p2.LAUNCHES > n0
+        prog, m, cfg, build_mesh(devices=["cuda:0", "cuda:0"]), batch=512,
+        counters=counters)
+    assert p2.LAUNCHES > n0 and sh.LAUNCHES > n1
+    assert ("dispatches_fused" in counters) == (fuse is None)
     st, _ = T.run_sampled(prog, m, cfg)
     st_c, res_c = run_sampled_sharded(prog, m, cfg, device="cpu")
     assert state_to_json(st_s) == state_to_json(st) == state_to_json(st_c)
@@ -410,19 +418,24 @@ def cards(cuda):
     return n
 
 
+@pytest.mark.parametrize("fuse", [None, False])
 @pytest.mark.parametrize("device_draw", [False, True])
-def test_sharded_over_every_card_folds_like_run_sampled(device_draw, cards):
-    """One process, one shard per card: the reduction gathers onto
-    cuda:0 across cards. The device draw runs on cuda:0 and each shard
-    takes its rows on its own card; its sample sets depend on the batch,
-    so every run here takes the same one, which the mesh divides."""
+def test_sharded_over_every_card_folds_like_run_sampled(device_draw, fuse,
+                                                        cards):
+    """One process, one shard per card, in either form: each card runs
+    B1 on its own columns, and the reduction gathers onto cuda:0. The
+    device draw runs on cuda:0 and each shard takes its columns on its
+    own card; its sample sets depend on the batch, so every run here
+    takes the same one, which the mesh divides."""
     prog, m = REGISTRY["gemm"](256), T.MachineConfig()
-    cfg = T.SamplerConfig(ratio=0.2, seed=0, device_draw=device_draw)
+    cfg = T.SamplerConfig(ratio=0.2, seed=0, device_draw=device_draw,
+                          fuse_refs=fuse)
     mesh, batch = build_mesh(), 1024 * cards
     assert mesh.size == cards
-    n0, b3 = p2.LAUNCHES, td.LAUNCHES
+    n0, n1, b3 = p2.LAUNCHES, sh.LAUNCHES, td.LAUNCHES
     st_s, res = run_sampled_sharded(prog, m, cfg, mesh, batch=batch)
     assert p2.LAUNCHES > n0
+    assert sh.LAUNCHES - n1 >= cards
     assert (td.LAUNCHES > b3) == device_draw
     st, _ = T.run_sampled(prog, m, cfg, batch=batch)
     _, res_1 = run_sampled_sharded(prog, m, cfg, build_mesh(1), batch=batch)
@@ -442,26 +455,56 @@ def test_nccl_processes_match_the_single_process_engine(cards):
 
 def test_two_shards_on_one_card_device_draw(cuda):
     """The device draw at one batch: two shards, run_sampled and the CPU
-    all draw the same sample sets; B2 launches once per shard per batch
-    step of every ref's buffer."""
+    all draw the same sample sets. In the per-ref (scan) form B1
+    launches once per shard per batch step of every ref's buffer and B2
+    once per ref, and each ref is read back once."""
     prog, m = REGISTRY["gemm"](64), T.MachineConfig()
-    cfg = T.SamplerConfig(ratio=0.2, seed=0, device_draw=True)
+    cfg = T.SamplerConfig(ratio=0.2, seed=0, device_draw=True,
+                          fuse_refs=False)
     mesh = build_mesh(devices=["cuda:0", "cuda:0"])
-    n0, n3 = p2.LAUNCHES, td.LAUNCHES
-    st_s, res = run_sampled_sharded(prog, m, cfg, mesh, batch=512)
+    n0, n1, n3 = p2.LAUNCHES, sh.LAUNCHES, td.LAUNCHES
+    counters: dict = {}
+    st_s, res = run_sampled_sharded(prog, m, cfg, mesh, batch=512,
+                                    counters=counters)
     assert td.LAUNCHES > n3
     steps = 0
     trace, rows = S._program_rows(prog, m)
     for idx, (k, ri, _) in enumerate(rows):
         B = D.plan_draw(trace.nests[k], ri, cfg, 512)[0]
         steps += B // 512
-    assert p2.LAUNCHES == n0 + 2 * steps
+    assert sh.LAUNCHES == n1 + 2 * steps
+    assert p2.LAUNCHES == n0 + len(rows)
+    assert counters["fetches"] == len(rows)
+    fused, _ = run_sampled_sharded(
+        prog, m, dataclasses.replace(cfg, fuse_refs=True), mesh, batch=512)
+    assert state_to_json(fused) == state_to_json(st_s)
     st, _ = T.run_sampled(prog, m, cfg, batch=512)
     st_c, res_c = run_sampled_sharded(prog, m, cfg, device="cpu", batch=512)
     assert state_to_json(st_s) == state_to_json(st) == state_to_json(st_c)
     assert [dataclasses.asdict(r) for r in res] == [
         dataclasses.asdict(r) for r in res_c
     ]
+
+
+def test_progressive_on_card_equals_cpu(cuda):
+    """Progressive precision on the card (B1's raw form per chunk) gives
+    the CPU's states, results, info and band widths, and launches B1 once
+    per chunk."""
+    prog, m = REGISTRY["gemm"](64), T.MachineConfig()
+    cfg = T.SamplerConfig(ratio=0.2, seed=0, max_rounds=3)
+    outs = []
+    for device in ("cuda", "cpu"):
+        bands: list = []
+        counters: dict = {}
+        n1 = sh.LAUNCHES
+        st, res, info = S.run_sampled_progressive(
+            prog, m, cfg, device=device, batch=512, counters=counters,
+            on_round=lambda i, bands=bands: bands.append(i["band_width"]))
+        assert sh.LAUNCHES - n1 == (counters["dispatches"]
+                                    if device == "cuda" else 0)
+        outs.append((state_to_json(st), [dataclasses.asdict(r) for r in res],
+                     info, bands))
+    assert outs[0] == outs[1]
 
 
 def test_nccl_processes_device_draw(cards):

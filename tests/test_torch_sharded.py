@@ -417,14 +417,22 @@ def test_sample_cli_sharded_prints_the_jax_lines(capsys):
 
 
 def test_sharded_path_imports_no_jax():
+    """Both sharded forms and progressive precision run with neither
+    jax nor the JAX package in sys.modules."""
     code = (
         "import sys\n"
         "import pluss_sampler_optimization_torch as T\n"
         "from pluss_sampler_optimization_torch.models import gemm\n"
         "from pluss_sampler_optimization_torch.parallel import (\n"
         "    build_mesh, initialize_distributed, run_sampled_sharded)\n"
-        "run_sampled_sharded(gemm(8), T.MachineConfig(), T.SamplerConfig(),"
-        " build_mesh(devices=['cpu', 'cpu']))\n"
+        "from pluss_sampler_optimization_torch.sampler.sampled import (\n"
+        "    run_sampled_progressive)\n"
+        "for fuse in (None, True):\n"
+        "    run_sampled_sharded(gemm(8), T.MachineConfig(),"
+        " T.SamplerConfig(fuse_refs=fuse),"
+        " build_mesh(devices=['cpu', 'cpu']), batch=64)\n"
+        "run_sampled_progressive(gemm(8), T.MachineConfig(),"
+        " T.SamplerConfig(max_rounds=2), device='cpu')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'pluss_sampler_optimization_tpu'))]\n"
         "assert not bad, bad\n"
