@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # GEMM N=2048, ratio 0.1, seed 0
     python3 chip_smoke.py --n 256 --tri-n 256   # quicker (no baselines)
     python3 chip_smoke.py --scaling-only   # the fused sharded form, 1..all cards
+    python3 chip_smoke.py --exact-only     # the exact engines (phase 17)
 
 SamplerConfig() resolves to the device draw on the card (threefry on
 kernel B3), as the JAX package's auto does on an accelerator. Phases,
@@ -144,11 +145,34 @@ each printing its own lines; any failure exits non-zero:
    trisolv(2000) and covariance(1200, 1400), with "cuda" and "torch":
    B1 and B3 launched, equal states and MRC bytes, every B3 call of the
    "cuda" run bit-equal to plain;
-16. two shards on one card, as phase 12, on trmm(256).
+16. two shards on one card, as phase 12, on trmm(256);
+17. the exact engines at full width, each run with its wall time, host
+   spans and B1 launches (no B2 or B3 launch may occur): a. kernel B1's
+   raw form on the analytic path's keys: of every B1 launch of 17c's
+   run_exact runs, the first 16 and the 4 largest are held bit-equal
+   (residual, histogram, cold) against the plain raw form on the card
+   and timed against their bound ("exact kernels" lines); b. periodic:
+   run_exact(gemm(4096)) and run_exact(gemm(1024)) must take the
+   periodic engine and equal baselines/gemm<N>.json.gz, every key, count
+   and the access total, MRC L1 error exactly 0, windows printed; c.
+   analytic: run_exact(syrk(1024)) and run_exact(syrk-tri(1536)) must
+   take the analytic engine, launch B1 and equal their baselines;
+   syrk-tri(384) under kernel_backend "cuda" and "torch": equal states,
+   B1 launched under "cuda" only; d. run_stream(gemm(1024)) equals its
+   baseline; run_dense(gemm(256)) equals run_periodic(gemm(256));
+   run_dense(gemm(1024)) routes past the card's free memory (its stderr
+   line printed) and equals the baseline; a triangular nest with a step
+   of 2 goes through run_exact to dense, and dense and stream equal
+   run_numpy; e. two shards on one card: run_exact_sharded of
+   gemm(1024) (periodic) and syrk(512) (analytic, B1 once per shard per
+   chunk) equal the single-device runs (the B1 launches of both
+   counted); f. the CLI `acc --engine exact --model syrk --n 128`
+   prints the same lines on the card (B1 launched) and with --device
+   cpu.
 
 Then one JSON line of kernel numbers (B1 timed over the dispatches of
 phases 5 and 13, its launches those of phases 7, 8b's serial run, 8c,
-10, 11b, 11c, 12, 12b, 14, 15 and 16; B2 timed on phase 10's inputs,
+10, 11b, 11c, 12, 12b, 14, 15, 16 and 17; B2 timed on phase 10's inputs,
 its launches those of phases 10-12 and 16; B3 timed on the 8 calls of
 GEMM-2048's draw, its launches those of phases 7, 8, 8c, 10-12 and
 14-16), the nvidia-smi line,
@@ -2019,6 +2043,306 @@ def phase_checkpoints(n: int, cfg, main_path) -> None:
           f"redid {name} alone); every state and MRC equals the main path's")
 
 
+# Phase 17, the exact engines: the serial-walk baselines each exact run
+# must reproduce to the last count (model, N), the sizes of the other
+# runs, and how many of the analytic runs' B1 launches are held against
+# the plain raw form on the card (the first ones and the largest ones).
+EXACT_BASELINES = (("gemm", 4096), ("gemm", 1024), ("syrk", 1024),
+                   ("syrk-tri", 1536))
+EXACT_TRI = "syrk-tri"
+EXACT_SMALL_TRI_N = 384
+EXACT_DENSE_N = 256
+EXACT_SHARDED = (("gemm", 1024, "periodic"), ("syrk", 512, "analytic"))
+EXACT_CLI_ARGS = ("acc", "--engine", "exact", "--model", "syrk", "--n",
+                  "128")
+EXACT_B1_FIRST, EXACT_B1_LARGEST = 16, 4
+
+
+def _b1_sample_recording():
+    """Wrap B1's launch so that copies of the first EXACT_B1_FIRST
+    launches and of the EXACT_B1_LARGEST largest later ones are kept
+    (arguments and outputs, as _b1_recording); returns (a function
+    giving the kept launches, a function restoring the original)."""
+    import pluss_sampler_optimization_torch.ops.sampled_hist as sh
+
+    first, largest = [], []
+    launch = sh.sampled_hist_cuda
+
+    def recording(nt, ref_idx, keys, mask, highs, rx, desc=None,
+                  tri_base=None, raw=False):
+        out = launch(nt, ref_idx, keys, mask, highs, rx, desc, tri_base,
+                     raw)
+        keep = len(first) < EXACT_B1_FIRST
+        if not keep:
+            largest.sort(key=lambda c: -c[0][2].numel())
+            keep = (len(largest) < EXACT_B1_LARGEST
+                    or keys.numel() > largest[-1][0][2].numel())
+            if keep and len(largest) == EXACT_B1_LARGEST:
+                largest.pop()
+        if keep:
+            call = ((nt, ref_idx, keys.clone(),
+                     None if mask is None else mask.clone(), highs,
+                     rx.clone(), desc, tri_base, raw),
+                    tuple(o.clone() for o in out))
+            (first if len(first) < EXACT_B1_FIRST else largest).append(call)
+        return out
+
+    sh.sampled_hist_cuda = recording
+
+    def restore():
+        sh.sampled_hist_cuda = launch
+
+    return (lambda: first + largest), restore
+
+
+def _same_state(a, b) -> bool:
+    return (a.thread_num == b.thread_num and a.noshare == b.noshare
+            and a.share == b.share)
+
+
+def _exact_run(label: str, fn, *a, **kw):
+    """One exact engine run on the card with its launches reset before
+    and read after: (result, wall seconds, B1 launches, spans)."""
+    import torch
+
+    spans: dict = {}
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn(*a, spans=spans, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b1, b2, b3 = _launches()
+    if b2 or b3:
+        raise AssertionError(f"exact: {label}: {b2} B2 and {b3} B3 "
+                             "launches (the exact engines draw and bin "
+                             "nothing on them)")
+    shown = ", ".join(f"{k} {v:.3f} s" if isinstance(v, float)
+                      else f"{k} {v}" for k, v in sorted(spans.items()))
+    print(f"exact: {label}: engine {getattr(res, 'engine', '-')}, "
+          f"{res.total_accesses} accesses, wall {wall:.3f} s, "
+          f"{b1} B1 launches; {shown}")
+    return res, wall, b1, spans
+
+
+def _exact_vs_baseline(label: str, model: str, n: int, res) -> None:
+    """`res` equals baselines/<model><n>.json.gz's serial-walk state,
+    every key and count, and total; MRC L1 error exactly 0."""
+    from pluss_sampler_optimization_torch.config import MachineConfig
+    from pluss_sampler_optimization_torch.runtime.aet import (
+        aet_mrc,
+        mrc_l1_error,
+    )
+    from pluss_sampler_optimization_torch.runtime.baseline import (
+        load_baseline,
+    )
+    from pluss_sampler_optimization_torch.runtime.cri import cri_distribute
+
+    machine = MachineConfig()
+    T = machine.thread_num
+    base = load_baseline(model, n, machine)
+    if base is None:
+        raise AssertionError(f"exact: baselines/{model}{n}.json.gz is "
+                             "missing")
+    if not _same_state(res.state, base["state"]):
+        raise AssertionError(f"exact: {label}: PRIState differs from "
+                             f"baselines/{model}{n}.json.gz")
+    if res.total_accesses != base["total_accesses"]:
+        raise AssertionError(
+            f"exact: {label}: {res.total_accesses} accesses, the baseline "
+            f"{base['total_accesses']}")
+    t0 = time.perf_counter()
+    mrc = aet_mrc(cri_distribute(res.state, T, T), machine)
+    t1 = time.perf_counter()
+    err = mrc_l1_error(mrc, aet_mrc(cri_distribute(base["state"], T, T),
+                                    machine))
+    if err != 0.0 or not np.isfinite(mrc).all():
+        raise AssertionError(f"exact: {label}: MRC L1 error {err!r} vs "
+                             f"baselines/{model}{n}.json.gz")
+    print(f"exact: {label}: PRIState and {res.total_accesses} accesses "
+          f"equal baselines/{model}{n}.json.gz, MRC L1 error {err!r} "
+          f"(cri + aet {t1 - t0:.3f} s)")
+
+
+def _tri_step2():
+    """A triangular nest with a step of 2 (the closed form needs unit
+    steps), built from the port's IR: only dense and stream run it."""
+    from pluss_sampler_optimization_torch.ir import (
+        Loop,
+        ParallelNest,
+        Program,
+        Ref,
+    )
+
+    return Program(name="tri-step2", nests=(ParallelNest(
+        loops=(Loop(8, step=2), Loop(trip=1, trip_coeff=1)),
+        refs=(Ref("A0", "A", level=1, coeffs=(8, 1)),),
+    ),))
+
+
+def phase_exact() -> tuple:
+    """Phase 17: the exact engines at full width on the card (see the
+    module docstring). Returns (B1 launches of the phase, seconds)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from pluss_sampler_optimization_torch.cli import main as cli_main
+    from pluss_sampler_optimization_torch.config import MachineConfig
+    from pluss_sampler_optimization_torch.models import REGISTRY
+    from pluss_sampler_optimization_torch.oracle import run_numpy
+    from pluss_sampler_optimization_torch.parallel import (
+        build_mesh,
+        run_exact_sharded,
+    )
+    from pluss_sampler_optimization_torch.sampler.analytic import (
+        run_analytic,
+    )
+    from pluss_sampler_optimization_torch.sampler.dense import run_dense
+    from pluss_sampler_optimization_torch.sampler.periodic import (
+        run_exact,
+        run_periodic,
+    )
+    from pluss_sampler_optimization_torch.sampler.stream import run_stream
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    machine = MachineConfig()
+    b1_total = 0
+    # b. periodic at the baselines' sizes
+    for model, n in EXACT_BASELINES[:2]:
+        res, _, b1, spans = _exact_run(f"run_exact({model}({n}))", run_exact,
+                                       REGISTRY[model](n), machine)
+        if res.engine != "periodic" or b1:
+            raise AssertionError(f"exact: {model}({n}) took {res.engine} "
+                                 f"with {b1} B1 launches, not periodic")
+        _exact_vs_baseline(f"periodic {model}({n}), {spans['windows']} "
+                           "windows", model, n, res)
+        torch.cuda.empty_cache()
+    # c (and a). analytic: every B1 launch of these runs counted, the
+    # first and the largest held against the plain raw form
+    kept, restore = _b1_sample_recording()
+    try:
+        for model, n in EXACT_BASELINES[2:]:
+            res, wall, b1, spans = _exact_run(
+                f"run_exact({model}({n}))", run_exact, REGISTRY[model](n),
+                machine)
+            b1_total += b1
+            if res.engine != "analytic" or not b1:
+                raise AssertionError(f"exact: {model}({n}) took "
+                                     f"{res.engine} with {b1} B1 launches")
+            _exact_vs_baseline(f"analytic {model}({n})", model, n, res)
+        calls = kept()
+    finally:
+        restore()
+    tot = phase_b1_recorded("exact kernels (analytic, first "
+                            f"{EXACT_B1_FIRST} and largest "
+                            f"{EXACT_B1_LARGEST})", calls)
+    del calls
+    # kernel_backend "cuda" against "torch" on a small triangular box set
+    prog = REGISTRY[EXACT_TRI](EXACT_SMALL_TRI_N)
+    got = {}
+    for backend in ("cuda", "torch"):
+        got[backend], _, b1, _ = _exact_run(
+            f"run_analytic({EXACT_TRI}({EXACT_SMALL_TRI_N}), "
+            f"kernel_backend={backend!r})", run_analytic, prog, machine,
+            kernel_backend=backend)
+        b1_total += b1
+        if (b1 > 0) != (backend == "cuda"):
+            raise AssertionError(f"exact: kernel_backend={backend!r}: {b1} "
+                                 "B1 launches")
+    if not _same_state(got["cuda"].state, got["torch"].state):
+        raise AssertionError("exact: analytic states differ between "
+                             "kernel_backend 'cuda' and 'torch'")
+    print(f"exact: {EXACT_TRI}({EXACT_SMALL_TRI_N}): 'cuda' and 'torch' "
+          "PRIStates equal")
+    # d. stream and dense
+    res, *_ = _exact_run("run_stream(gemm(1024))", run_stream,
+                         REGISTRY["gemm"](1024), machine)
+    _exact_vs_baseline("stream gemm(1024)", "gemm", 1024, res)
+    torch.cuda.empty_cache()
+    prog = REGISTRY["gemm"](EXACT_DENSE_N)
+    dense, *_ = _exact_run(f"run_dense(gemm({EXACT_DENSE_N}))", run_dense,
+                           prog, machine)
+    per, *_ = _exact_run(f"run_periodic(gemm({EXACT_DENSE_N}))",
+                         run_periodic, prog, machine)
+    if not _same_state(dense.state, per.state):
+        raise AssertionError("exact: dense and periodic states differ at "
+                             f"gemm({EXACT_DENSE_N})")
+    print(f"exact: dense gemm({EXACT_DENSE_N}) equals periodic")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        res, *_ = _exact_run("run_dense(gemm(1024))", run_dense,
+                             REGISTRY["gemm"](1024), machine)
+    line = err.getvalue().strip()
+    print(f"exact: run_dense(gemm(1024)) stderr: {line}")
+    if "routing to the periodic engine" not in line:
+        raise AssertionError("exact: run_dense(gemm(1024)) did not route "
+                             "past the card's memory")
+    _exact_vs_baseline("dense gemm(1024), routed", "gemm", 1024, res)
+    step2 = _tri_step2()
+    want = run_numpy(step2, machine)
+    res, *_ = _exact_run("run_exact(tri-step2)", run_exact, step2, machine)
+    if res.engine != "dense":
+        raise AssertionError(f"exact: tri-step2 took {res.engine}")
+    for label, fn in (("dense", run_dense), ("stream", run_stream)):
+        got_s = res if label == "dense" else _exact_run(
+            "run_stream(tri-step2)", fn, step2, machine)[0]
+        if not _same_state(got_s.state, want.state) or (
+                got_s.total_accesses != want.total_accesses):
+            raise AssertionError(f"exact: {label} tri-step2 differs from "
+                                 "run_numpy")
+    print("exact: tri-step2 routed to dense; dense and stream equal "
+          "run_numpy")
+    # e. two shards on one card
+    mesh = build_mesh(devices=["cuda:0", "cuda:0"])
+    for model, n, engine in EXACT_SHARDED:
+        prog = REGISTRY[model](n)
+        one, _, b1_one, _ = _exact_run(f"run_exact({model}({n}))",
+                                       run_exact, prog, machine)
+        two, _, b1, _ = _exact_run(f"run_exact_sharded({model}({n}), "
+                                   "2 shards on cuda:0)", run_exact_sharded,
+                                   prog, machine, mesh)
+        b1_total += b1_one + b1
+        if two.engine != engine or one.engine != engine:
+            raise AssertionError(f"exact: {model}({n}) took {one.engine} / "
+                                 f"{two.engine}, not {engine}")
+        if engine == "analytic" and (b1 == 0 or b1 % 2):
+            raise AssertionError(f"exact: sharded {model}({n}): {b1} B1 "
+                                 "launches, not one per shard per chunk")
+        if not _same_state(one.state, two.state):
+            raise AssertionError(f"exact: sharded {model}({n}) differs from "
+                                 "the single-device run")
+        print(f"exact: two shards: {model}({n}) {engine} equals one device")
+    # f. the CLI on the card and on the CPU
+    outs = {}
+    for device in ("cuda", "cpu"):
+        buf = io.StringIO()
+        _reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main([*EXACT_CLI_ARGS, "--device", device])
+        b1 = _launches()[0]
+        if device == "cuda":
+            b1_total += b1
+        outs[device] = buf.getvalue()
+        print(f"exact: cli {' '.join(EXACT_CLI_ARGS)} --device {device}: "
+              f"rc {rc}, {len(outs[device].splitlines())} lines, {b1} B1 "
+              f"launches, {time.perf_counter() - t0:.3f} s")
+        if rc != 0 or (b1 > 0) != (device == "cuda"):
+            raise AssertionError(f"exact: cli on {device}: rc {rc}, {b1} "
+                                 "B1 launches")
+    if outs["cuda"] != outs["cpu"]:
+        raise AssertionError("exact: the CLI's lines differ between the "
+                             "card and the CPU")
+    print("exact: the CLI's lines are equal on the card and on the CPU")
+    seconds = time.perf_counter() - t_phase
+    print(f"exact: phase 17 took {seconds:.3f} s, {b1_total} B1 launches "
+          f"(kernels over the held launches: {tot['ms']:.3f} ms)")
+    return b1_total, seconds
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=2048,
@@ -2027,6 +2351,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tri-n", type=int, default=1536,
                     help="syrk-tri size of the triangular path (the "
                     "size of its serial-walk baseline by default)")
+    ap.add_argument("--exact-only", action="store_true",
+                    help="build, then only the exact engines' phase 17; "
+                    "no result line")
     ap.add_argument("--scaling-only", action="store_true",
                     help="build, then only the sharded engine's fused "
                     "form over 1, 2, ... every visible card at GEMM n and "
@@ -2063,6 +2390,10 @@ def main(argv=None) -> int:
             wants.append(_state_mrc(run_sampled(gemm(n), MachineConfig(),
                                                 cfg)[0], MachineConfig()))
         phase_scaling((args.n, 2 * args.n), cfg, wants)
+        print(card)
+        return 0
+    if args.exact_only:
+        phase_exact()
         print(card)
         return 0
     phase_cold_warm(args.n, cfg)
@@ -2138,6 +2469,7 @@ def main(argv=None) -> int:
           "runs (syrk-tri, trmm, trisolv, covariance) equal")
     del tri_calls
     runs.append(phase_two_shards(cfg, *TWO_SHARD_TRI))
+    b1_launches += phase_exact()[0]
     b1_launches += sum(r[0] for r in runs)
     b2["launches"] = sum(r[1] for r in runs)
     b3["launches"] += sum(r[2] for r in runs)

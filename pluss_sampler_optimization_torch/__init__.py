@@ -17,9 +17,13 @@ sampled engine (parallel/sharded.py, its fused and per-ref forms)
 through the same kernel's raw-noshare form and csrc/pow2_hist.cu; both
 draw their samples on the card by default (sampler/draw.py,
 jax.random's threefry streams on the kernel csrc/threefry_draw.cu),
-with plain torch versions of every kernel on the CPU. Entry points run on CUDA unless
-the caller asks for the CPU (device="cpu", --device cpu), and raise
-where CUDA is absent.
+with plain torch versions of every kernel on the CPU. The exact engines
+(sampler/dense.py, stream.py, periodic.py, analytic.py and the router
+sampler/periodic.py::run_exact) give exact MRCs with no sampling, the
+analytic one classifying through the same kernel's raw form, and the
+serial and numpy oracles (oracle/) are the JAX package's own code.
+Entry points run on CUDA unless the caller asks for the CPU
+(device="cpu", --device cpu), and raise where CUDA is absent.
 """
 
 from .config import MachineConfig, SamplerConfig

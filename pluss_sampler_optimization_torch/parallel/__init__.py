@@ -6,12 +6,21 @@ package's psum and all_gather become a sum and a stack on the mesh's
 first device in one process, and torch.distributed all_reduce/
 all_gather across processes (`distributed.py`: NCCL on CUDA, gloo on
 the CPU). The sharded results are bit-identical to the single-device
-engine's in both forms, fused and per-ref (`sharded.py`).
+engine's in both forms, fused and per-ref (`sharded.py`). The exact
+engines' sharded forms split their independent work over the shards:
+periodic windows, analytic classify chunks, dense threads.
 """
 
 from .distributed import build_global_mesh, initialize_distributed
 from .mesh import SAMPLE_AXIS, Mesh, build_mesh, local_device_count
-from .sharded import run_sampled_sharded, sampled_outputs_sharded
+from .sharded import (
+    run_analytic_sharded,
+    run_dense_sharded,
+    run_exact_sharded,
+    run_periodic_sharded,
+    run_sampled_sharded,
+    sampled_outputs_sharded,
+)
 
 __all__ = [
     "SAMPLE_AXIS",
@@ -20,6 +29,10 @@ __all__ = [
     "build_global_mesh",
     "initialize_distributed",
     "local_device_count",
+    "run_analytic_sharded",
+    "run_dense_sharded",
+    "run_exact_sharded",
+    "run_periodic_sharded",
     "run_sampled_sharded",
     "sampled_outputs_sharded",
 ]

@@ -58,8 +58,9 @@ bin for bin.
 
 Triangular nests run as in run_sampled; one with a non-unit step raises
 NotImplementedError at `_program_rows`, the JAX package's unit-step
-gate. Not ported yet: the sharded exact engines and replica placement
-(ROADMAP.md, A5 and A6).
+gate. The exact engines' sharded forms (run_periodic_sharded,
+run_analytic_sharded, run_dense_sharded, run_exact_sharded) are at the
+end of this module. Not ported yet: replica placement (ROADMAP.md, A6).
 """
 
 from __future__ import annotations
@@ -635,3 +636,125 @@ def run_sampled_sharded(
     cfg = cfg or SamplerConfig()
     results, _ = sampled_outputs_sharded(program, machine, cfg, mesh, **kw)
     return fold_results(results, machine.thread_num, v2), results
+
+
+def run_periodic_sharded(
+    program: Program,
+    machine: MachineConfig,
+    mesh: Mesh | None = None,
+    max_share: int = 64,
+    device=None,
+    spans: dict | None = None,
+):
+    """Periodic exact engine with each nest's merged windows split over
+    the mesh: the windows of one kind (pair or final) are padded with
+    repeats of the last one to a multiple of the shard count, shard i
+    evaluates its contiguous block on its own device, and the padding's
+    outputs are dropped. Outputs come back per window (the per-tid
+    multiplicity scaling happens on the host, as in run_periodic), so
+    there is no cross-device reduction and the result is the
+    single-device engine's: every window is the same integer
+    computation on whichever device runs it."""
+    from ..sampler.periodic import _compiled_nest, run_periodic
+
+    mesh = _resolve_mesh(mesh, device)
+    n_dev = mesh.size
+
+    def window_eval(prog, nest_index, nt, merged):
+        _, kernels = _compiled_nest(prog, nest_index, machine, max_share)
+        outs: dict = {}
+        for pair in (True, False):
+            items = [
+                (key, v0) for key, v0 in merged.items()
+                if (key[0] is not None) == pair
+            ]
+            if not items:
+                continue
+            padded = items + [items[-1]] * ((-len(items)) % n_dev)
+            per = len(padded) // n_dev
+            launched = []
+            for i, dev in enumerate(mesh.devices):
+                for key, v0 in padded[i * per:(i + 1) * per]:
+                    v0b = v0 + (key[0] or 0)
+                    launched.append(kernels[pair](v0, v0b, dev))
+            with _span(spans, "gather_fetch"):
+                got = [tuple(o.cpu().numpy() for o in out)
+                       for out in launched]
+            for (key, _v0), out in zip(items, got):
+                outs[key] = out
+        return outs
+
+    return run_periodic(program, machine, max_share,
+                        window_eval=window_eval, spans=spans)
+
+
+def run_analytic_sharded(
+    program: Program,
+    machine: MachineConfig,
+    mesh: Mesh | None = None,
+    batch: int | None = None,
+    seed: int = 0,
+    host_cutoff: int | None = None,
+    device=None,
+    **kw,
+):
+    """Analytic exact engine with every classify chunk's keys split over
+    the mesh (sampler/analytic.py::_classify_keys): equal slices, one
+    launch per shard on its own device (kernel B1's raw form on CUDA),
+    reassembled by position. Each key's closed-form solve is
+    independent, so the fits, the folds and the state are the
+    single-device engine's. Nests under the host-fold cutoff stay on
+    the host lexsort (no device work exists to shard there); pass
+    host_cutoff=0 to force the sharded path. Keyword arguments go to
+    run_analytic (kernel_backend, spans, counters)."""
+    from ..sampler.analytic import run_analytic
+
+    mesh = _resolve_mesh(mesh, device)
+    return run_analytic(program, machine, batch=batch, seed=seed,
+                        mesh=mesh, host_cutoff=host_cutoff, **kw)
+
+
+def run_exact_sharded(
+    program: Program,
+    machine: MachineConfig,
+    mesh: Mesh | None = None,
+    max_share: int = 64,
+    device=None,
+    spans: dict | None = None,
+):
+    """The exact router (periodic -> analytic -> dense) with whichever
+    engine it picks running mesh-sharded; `res.engine` records the
+    choice, the contract of sampler/periodic.py::run_exact."""
+    from ..sampler.periodic import run_exact
+
+    mesh = _resolve_mesh(mesh, device)
+    return run_exact(program, machine, max_share, mesh=mesh, spans=spans)
+
+
+def run_dense_sharded(
+    program: Program,
+    machine: MachineConfig,
+    mesh: Mesh | None = None,
+    max_share: int = 64,
+    device=None,
+    spans: dict | None = None,
+):
+    """Dense engine with the simulated threads split over the mesh:
+    shard i sorts threads [i * P/n, (i+1) * P/n) on its own device.
+    Requires thread_num % mesh size == 0 (each shard owns an equal
+    slice of the threads). Returns sampler/dense.py::run_dense's
+    OracleResult; the memory route does not apply."""
+    from ..sampler.dense import run_dense
+
+    mesh = _resolve_mesh(mesh, device)
+    n_dev = mesh.size
+    if machine.thread_num % n_dev != 0:
+        raise ValueError(
+            f"thread_num {machine.thread_num} not divisible by mesh size "
+            f"{n_dev}; use build_mesh(n_devices=...) with a divisor"
+        )
+    per = machine.thread_num // n_dev
+    tid_devices = [mesh.devices[tid // per]
+                   for tid in range(machine.thread_num)]
+    return run_dense(program, machine, max_share, tid_devices=tid_devices,
+                     spans=spans)

@@ -50,7 +50,7 @@ Triangular nests (inner bounds affine in the parallel value) take the
 per-thread base table for positions (core/trace.py::tri_position) and
 nextuse.py's triangular solver; the closed form needs unit steps there,
 and a triangular nest with another step raises NotImplementedError, as
-in the JAX package.
+in the JAX package (the dense and stream engines run it).
 """
 
 from __future__ import annotations
@@ -517,7 +517,8 @@ def _program_rows(program: Program, machine: MachineConfig):
         if nt.tri and any(lp.step != 1 for lp in nt.nest.loops):
             raise NotImplementedError(
                 f"{program.name}: the closed-form next-use supports "
-                "triangular nests with unit steps only"
+                "triangular nests with unit steps only; use the dense "
+                "or stream engine"
             )
         for ri in range(nt.tables.n_refs):
             rows.append((k, ri, _ref_sig_digest(nt, ri)))

@@ -59,7 +59,10 @@ COPIED = (
     + [f"models/{f}" for f in sorted(os.listdir(os.path.join(TPU, "models")))
        if f.endswith(".py")]
     + [f"runtime/{f}" for f in ("hist.py", "pristate_typing.py", "cri.py",
-                                "aet.py", "report.py", "baseline.py")]
+                                "aet.py", "report.py", "baseline.py",
+                                "timing.py", "debug.py")]
+    + [f"oracle/{f}" for f in ("__init__.py", "serial.py", "numpy_ref.py",
+                               "profiler.py")]
 )
 
 
@@ -159,9 +162,20 @@ def test_port_imports_no_jax():
         "from pluss_sampler_optimization_torch.models import gemm\n"
         "import pluss_sampler_optimization_torch.ops.sampled_hist\n"
         "import pluss_sampler_optimization_torch.ops._build\n"
+        "import pluss_sampler_optimization_torch.oracle.profiler\n"
+        "import pluss_sampler_optimization_torch.runtime.debug\n"
+        "import pluss_sampler_optimization_torch.runtime.timing\n"
+        "from pluss_sampler_optimization_torch.parallel import "
+        "run_exact_sharded\n"
+        "from pluss_sampler_optimization_torch.sampler import analytic, "
+        "dense, stream\n"
+        "from pluss_sampler_optimization_torch.sampler.periodic import "
+        "run_exact\n"
         "import chip_smoke\n"
         "T.run_sampled(gemm(8), T.MachineConfig(), T.SamplerConfig(),"
         " device='cpu')\n"
+        "assert run_exact(gemm(8), T.MachineConfig(), device='cpu')"
+        ".engine == 'periodic'\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'pluss_sampler_optimization_tpu'))]\n"
         "assert not bad, bad\n"
