@@ -5,6 +5,7 @@
     python3 chip_smoke.py --n 256 --tri-n 256   # quicker (no baselines)
     python3 chip_smoke.py --scaling-only   # the fused sharded form, 1..all cards
     python3 chip_smoke.py --exact-only     # the exact engines (phase 17)
+    python3 chip_smoke.py --frontend-only  # the frontend (phase 18)
 
 SamplerConfig() resolves to the device draw on the card (threefry on
 kernel B3), as the JAX package's auto does on an accelerator. Phases,
@@ -13,12 +14,14 @@ each printing its own lines; any failure exits non-zero:
 1. card: the name and power limit nvidia-smi reports;
 2. build: csrc/sampled_hist.cu (kernel B1), csrc/pow2_hist.cu (kernel
    B2) and csrc/threefry_draw.cu (kernel B3) for sm_90a, one nvcc each,
-   started together; build seconds, and ptxas' registers, stack frame
-   and spill bytes for every kernel instantiation (B1 has 12,
+   started together, and csrc/sampled_hist_buf.cu (B1's buffer form)
+   beside them, left building until phase 18 needs it; build seconds, and ptxas' registers, stack frame and spill
+   bytes for every kernel instantiation (B1 has 12,
    sampled_hist_kernel<LV, NHMAX, TRI>: source-ref level 0-2 by most
    band-plan heads per sink group, 1 for at most one, 3 for up to
    three, by rectangular or triangular nest, each taking the launch flag
-   of its raw-noshare form; B2 has 2, pow2_hist_kernel<BOOL_W> for bool
+   of its raw-noshare form, and 6 of the buffer form,
+   sampled_hist_kernel_buf<LV, TRI>; B2 has 2, pow2_hist_kernel<BOOL_W> for bool
    and int64 weights; B3 has 10, randint_kernel<KIND, EDGE> by the span's
    remainder record (0 a power of two, 1 above 2^32, 2 below it) and
    bits_kernel<EDGE, MASK>), with each B3 instantiation's SASS
@@ -168,14 +171,34 @@ each printing its own lines; any failure exits non-zero:
    chunk) equal the single-device runs (the B1 launches of both
    counted); f. the CLI `acc --engine exact --model syrk --n 128`
    prints the same lines on the card (B1 launched) and with --device
-   cpu.
+   cpu;
+18. the frontend: a. the made nests past B1's old descriptor limits
+   (tests/_torch_made.py: 64 refs of distinct maps on one array, a
+   descriptor of 2,463 words in the buffer form; 9 and 17 refs of one
+   map, sink groups cut into sub-groups of 8; a triangular nest of 9
+   refs of one map) at N=256 through run_sampled with "cuda" and
+   "torch": equal PRIStates and MRC bytes, every B1 launch recorded
+   (descriptor length and form printed), held bit-equal against the
+   plain version and timed, and each parameter-form launch relaunched in
+   the buffer form (equal outputs) and timed in both forms; then
+   run_exact of each at N=64 equal to run_serial_native (every key,
+   count and total); b. 25 fuzz seeds (frontend/fuzz.py::run_seeds) on
+   the card with kernel_backends ("torch",): the exact engine equal to
+   the numpy oracle, the sampled drift within its bound, "cuda" (B1, B3)
+   bit-identical to "torch", every mutant rejected; c. the
+   verify_analytic twin on syrk, syrk-tri and trmm at N=256: every
+   point of every period classified by B1's raw form and equal to the
+   analytic engine's fits; d. the CLI `acc --program-json` of a dumped
+   gemm N=128 prints what `acc --model gemm --n 128` prints and
+   `--mrc-out` writes the same bytes; `analyze --model syrk-tri` exits
+   0. The phase's B1 and B3 launches are counted in the kernels line.
 
 Then one JSON line of kernel numbers (B1 timed over the dispatches of
 phases 5 and 13, its launches those of phases 7, 8b's serial run, 8c,
-10, 11b, 11c, 12, 12b, 14, 15, 16 and 17; B2 timed on phase 10's inputs,
-its launches those of phases 10-12 and 16; B3 timed on the 8 calls of
-GEMM-2048's draw, its launches those of phases 7, 8, 8c, 10-12 and
-14-16), the nvidia-smi line,
+10, 11b, 11c, 12, 12b, 14, 15, 16, 17 and 18; B2 timed on phase 10's
+inputs, its launches those of phases 10-12 and 16; B3 timed on the 8
+calls of GEMM-2048's draw, its launches those of phases 7, 8, 8c, 10-12,
+14-16 and 18), the nvidia-smi line,
 and last the result line {"ok": true, "device": {...}}. Imports nothing
 of JAX.
 """
@@ -371,28 +394,63 @@ def _launches() -> tuple[int, int, int]:
     return sh.LAUNCHES, p2.LAUNCHES, td.LAUNCHES
 
 
-def phase_build() -> dict:
-    """Build the three sources together; returns B3's SASS counts per
-    instantiation (ops/_build.py::sass_counts). Raises unless every B3
-    entry has 0 B stack and spills."""
+def _build_one(name: str):
+    """(library path, ptxas log, seconds) of a forced build of csrc/<name>.cu."""
+    from pluss_sampler_optimization_torch.ops import _build
+
+    t0 = time.perf_counter()
+    path, log = _build.build(name, force=True)
+    return path, log, time.perf_counter() - t0
+
+
+def _print_build(path: str, log: str, secs: float) -> None:
+    from pluss_sampler_optimization_torch.ops import _build
+
+    print(f"build: {os.path.relpath(path)} in {secs:.2f} s")
+    for k in _build.ptxas_report(log):
+        print(f"build: {k['name']}: {k.get('registers')} registers, "
+              f"{k.get('stack')} B stack frame, {k.get('spill_stores')} "
+              f"B spill stores, {k.get('spill_loads')} B spill loads")
+
+
+# B1's buffer form (csrc/sampled_hist_buf.cu), built in the background
+# from phase 2 on: only phase 18 launches it (joined there).
+_BUFFER_BUILD = None
+
+
+def _buffer_form_built() -> None:
+    """Wait for the buffer form's build and print its lines (once)."""
+    global _BUFFER_BUILD
+    if _BUFFER_BUILD is None:
+        return
+    ex, fut = _BUFFER_BUILD
+    _BUFFER_BUILD = None
+    t0 = time.perf_counter()
+    built = fut.result()
+    ex.shutdown()
+    _print_build(*built)
+    print(f"build: waited {time.perf_counter() - t0:.2f} s for it")
+
+
+def phase_build(buffer_form: bool = True) -> dict:
+    """Build the sources together (B1's buffer form, with `buffer_form`,
+    started beside them and left building: `_buffer_form_built`);
+    returns B3's SASS counts per instantiation
+    (ops/_build.py::sass_counts). Raises unless every B3 entry has 0 B
+    stack and spills."""
     from concurrent.futures import ThreadPoolExecutor
 
     from pluss_sampler_optimization_torch.ops import _build
 
-    def one(name):
-        t0 = time.perf_counter()
-        path, log = _build.build(name, force=True)
-        return path, log, time.perf_counter() - t0
-
+    global _BUFFER_BUILD
+    if buffer_form:
+        ex = ThreadPoolExecutor(1)
+        _BUFFER_BUILD = ex, ex.submit(_build_one, "sampled_hist_buf")
     names = ("sampled_hist", "pow2_hist", "threefry_draw")
     with ThreadPoolExecutor(len(names)) as ex:
-        built = list(ex.map(one, names))
+        built = list(ex.map(_build_one, names))
     for path, log, secs in built:
-        print(f"build: {os.path.relpath(path)} in {secs:.2f} s")
-        for k in _build.ptxas_report(log):
-            print(f"build: {k['name']}: {k.get('registers')} registers, "
-                  f"{k.get('stack')} B stack frame, {k.get('spill_stores')} "
-                  f"B spill stores, {k.get('spill_loads')} B spill loads")
+        _print_build(path, log, secs)
     path, log, _ = built[2]
     for k in _build.ptxas_report(log):
         if k.get("stack") or k.get("spill_stores") or k.get("spill_loads"):
@@ -1078,12 +1136,12 @@ def _b1_recording():
     launch = sh.sampled_hist_cuda
 
     def recording(nt, ref_idx, keys, mask, highs, rx, desc=None,
-                  tri_base=None, raw=False):
+                  tri_base=None, raw=False, desc_dev=None, form=None):
         out = launch(nt, ref_idx, keys, mask, highs, rx, desc, tri_base,
-                     raw)
+                     raw, desc_dev, form)
         calls.append(((nt, ref_idx, keys.clone(),
                        None if mask is None else mask.clone(), highs,
-                       rx.clone(), desc, tri_base, raw),
+                       rx.clone(), desc, tri_base, raw, desc_dev, form),
                       tuple(o.clone() for o in out)))
         return out
 
@@ -1248,9 +1306,10 @@ def _b1_need(d_nt, desc, highs, ref_idx, keys, mask, hist, cold):
 def phase_b1_recorded(label: str, calls: list) -> dict:
     """B1 vs plain on recorded launches (_b1_recording): each launch's
     arguments through the plain version on the card, residual, hist and
-    cold bit-equal to what the launch gave; then all of them timed, the
-    kernel with CUDA events over KERNEL_SHARDED_REPS passes, the plain
-    version over one; returns the totals (as phase_kernels')."""
+    cold bit-equal to what the launch gave, that pass of the plain
+    version timed with CUDA events; then the kernel over all of them,
+    with CUDA events over KERNEL_SHARDED_REPS passes; returns the totals
+    (as phase_kernels')."""
     import torch
 
     from pluss_sampler_optimization_torch.ops.sampled_hist import (
@@ -1260,9 +1319,15 @@ def phase_b1_recorded(label: str, calls: list) -> dict:
 
     tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
     max_err = lanes = live = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     for i, (args, got) in enumerate(calls):
-        nt, ref_idx, keys, mask, highs, rx, desc, tri, raw = args
+        nt, ref_idx, keys, mask, highs, rx, desc, tri, raw = args[:9]
+        start.record()
         want = sampled_hist_plain(nt, ref_idx, keys, mask, highs, rx, raw)
+        end.record()
+        torch.cuda.synchronize()
+        tot["plain_ms"] += start.elapsed_time(end)
         for name, a, b in zip(("residual", "hist", "cold"), got, want):
             err = int((a - b).abs().max()) if a.numel() else 0
             max_err = max(max_err, err)
@@ -1280,12 +1345,7 @@ def phase_b1_recorded(label: str, calls: list) -> dict:
         for args, _ in calls:
             sampled_hist_cuda(*args)
 
-    def plain():
-        for args, _ in calls:
-            sampled_hist_plain(*args[:6], args[8])
-
     tot["ms"] = _time_ms(kern, KERNEL_SHARDED_REPS)
-    tot["plain_ms"] = _time_ms(plain, 1)
     tot.update(max_abs_err=max_err, dispatches=len(calls))
     print(f"{label}: all {len(calls)} B1 launches bit-equal to the plain "
           f"raw form ({lanes} lanes, {live} chosen)")
@@ -1806,7 +1866,7 @@ def phase_raw_route(n: int, cfg, dispatches: int, main_path) -> tuple:
         b1, b2, b3 = _launches()
         got = (state_to_json(state),
                result_lines(fold_results(per_ref, machine.thread_num),
-                            per_ref, machine, r10=True),
+                            per_ref, machine, r10=True)[0],
                state_to_json(fold_results(per_ref, machine.thread_num)))
         keys = sum(len(r.noshare) for r in per_ref)
         print(f"raw route: gemm({n}) v2 kernel_backend={backend} "
@@ -2069,9 +2129,9 @@ def _b1_sample_recording():
     launch = sh.sampled_hist_cuda
 
     def recording(nt, ref_idx, keys, mask, highs, rx, desc=None,
-                  tri_base=None, raw=False):
+                  tri_base=None, raw=False, desc_dev=None, form=None):
         out = launch(nt, ref_idx, keys, mask, highs, rx, desc, tri_base,
-                     raw)
+                     raw, desc_dev, form)
         keep = len(first) < EXACT_B1_FIRST
         if not keep:
             largest.sort(key=lambda c: -c[0][2].numel())
@@ -2082,7 +2142,7 @@ def _b1_sample_recording():
         if keep:
             call = ((nt, ref_idx, keys.clone(),
                      None if mask is None else mask.clone(), highs,
-                     rx.clone(), desc, tri_base, raw),
+                     rx.clone(), desc, tri_base, raw, desc_dev, form),
                     tuple(o.clone() for o in out))
             (first if len(first) < EXACT_B1_FIRST else largest).append(call)
         return out
@@ -2343,6 +2403,233 @@ def phase_exact() -> tuple:
     return b1_total, seconds
 
 
+# Phase 18, the frontend: the made nests past kernel B1's old descriptor
+# limits (tests/_torch_made.py) at FRONTEND_N through run_sampled, their
+# exact runs at FRONTEND_EXACT_N against the native serial walk; the
+# fuzz seeds; the verify_analytic twin's models at its default size; the
+# CLI's --program-json and --mrc-out beside --model.
+FRONTEND_N, FRONTEND_EXACT_N = 256, 64
+FRONTEND_SEEDS = 25
+FRONTEND_AUDITS = (("syrk", 256), ("syrk-tri", 256), ("trmm", 256))
+FRONTEND_CLI = ("acc", "--model", "gemm", "--n", "128")
+
+
+def _made_nests(n: int) -> list:
+    """The made nests past both old limits, built from the port's IR."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from _torch_made import past_limits_programs
+
+    from pluss_sampler_optimization_torch.ir import (
+        Loop,
+        ParallelNest,
+        Program,
+        Ref,
+    )
+
+    return past_limits_programs(Loop, ParallelNest, Program, Ref, n)
+
+
+def _same_exact(a, b) -> bool:
+    return (_same_state(a.state, b.state)
+            and a.total_accesses == b.total_accesses
+            and a.per_tid_accesses == b.per_tid_accesses)
+
+
+def phase_frontend() -> tuple:
+    """Phase 18 (see the module docstring): returns (B1 launches, B3
+    launches, the held B1 launches' totals, seconds)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    import pluss_sampler_optimization_torch.ops.sampled_hist as sh
+    from pluss_sampler_optimization_torch.cli import main as cli_main
+    from pluss_sampler_optimization_torch.config import (
+        MachineConfig,
+        SamplerConfig,
+    )
+    from pluss_sampler_optimization_torch.frontend import fuzz
+    from pluss_sampler_optimization_torch.native import run_serial_native
+    from pluss_sampler_optimization_torch.sampler.periodic import run_exact
+    from pluss_sampler_optimization_torch.sampler.sampled import (
+        run_sampled,
+        warmup,
+    )
+    from pluss_sampler_optimization_torch.tools import verify_analytic
+
+    _buffer_form_built()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    machine = MachineConfig()
+    cfg = SamplerConfig(ratio=0.1, seed=0)
+    b1_total = b3_total = 0
+    calls: list = []
+    # a. the made nests through run_sampled, "cuda" (every B1 launch
+    # recorded) against "torch"
+    for prog in _made_nests(FRONTEND_N):
+        warmup(prog, machine, cfg)
+        got = {}
+        for backend in ("cuda", "torch"):
+            c = dataclasses.replace(cfg, kernel_backend=backend)
+            rec, restore = (_b1_recording() if backend == "cuda"
+                            else ([], lambda: None))
+            try:
+                _reset_launches()
+                sh.BUFFER_LAUNCHES = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, results = run_sampled(prog, machine, c,
+                                             device="cuda")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                restore()
+            b1, b2, b3 = _launches()
+            got[backend] = _state_mrc(state, machine)
+            samples = sum(r.n_samples for r in results)
+            forms = sorted({(len(a[6]), sh.desc_form(a[6])) for a, _ in rec})
+            print(f"frontend: {prog.name} N={FRONTEND_N} "
+                  f"kernel_backend={backend}: {wall:.3f} s, {samples} "
+                  f"samples, {b1} B1 launches ({sh.BUFFER_LAUNCHES} in the "
+                  f"buffer form), {b3} B3 launches"
+                  + (f"; descriptors (words, form): {forms}"
+                     if backend == "cuda" else ""))
+            if backend == "cuda":
+                if not b1 or not b3 or b2 or len(rec) != b1:
+                    raise AssertionError(f"frontend: {prog.name}: {b1} B1, "
+                                         f"{b2} B2, {b3} B3 launches")
+                b1_total += b1
+                b3_total += b3
+                calls += rec
+            elif b1 or b2 or b3:
+                raise AssertionError(f"frontend: {prog.name} under torch "
+                                     "launched a kernel")
+        if (got["cuda"][0] != got["torch"][0]
+                or got["cuda"][1].tobytes() != got["torch"][1].tobytes()):
+            raise AssertionError(f"frontend: {prog.name}: 'cuda' and "
+                                 "'torch' PRIStates or MRC bytes differ")
+        print(f"frontend: {prog.name}: 'cuda' and 'torch' PRIStates and "
+              "MRC bytes equal")
+    if not any(sh.desc_form(a[6]) == "buffer" for a, _ in calls):
+        raise AssertionError("frontend: no launch took the buffer form")
+    tot = phase_b1_recorded("frontend kernels (made nests, "
+                            f"N={FRONTEND_N})", calls)
+    # the buffer form beside the parameter form on the same launches
+    # (each descriptor uploaded once, before the timing): equal outputs,
+    # then both timed
+    param = [(args[:9], torch.as_tensor(args[6], device="cuda"), want)
+             for args, want in calls if sh.desc_form(args[6]) == "param"]
+    for args, desc_dev, want in param:
+        out = sh.sampled_hist_cuda(*args, desc_dev, form="buffer")
+        if not all(torch.equal(x, y) for x, y in zip(out, want)):
+            raise AssertionError("frontend: the buffer form differs from "
+                                 "the parameter form")
+    for form in ("param", "buffer"):
+        def run_form(form=form):
+            for args, desc_dev, _ in param:
+                sh.sampled_hist_cuda(*args, desc_dev, form=form)
+
+        tot[f"{form}_ms"] = _time_ms(run_form, KERNEL_SHARDED_REPS)
+    print(f"frontend kernels: the {len(param)} parameter-form launches in "
+          f"the parameter form {tot['param_ms']:.3f} ms, in the buffer "
+          f"form {tot['buffer_ms']:.3f} ms")
+    del calls, param
+    for prog in _made_nests(FRONTEND_EXACT_N):
+        _reset_launches()
+        t0 = time.perf_counter()
+        res = run_exact(prog, machine, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = run_serial_native(prog, machine)
+        t2 = time.perf_counter()
+        b1 = _launches()[0]
+        b1_total += b1
+        print(f"frontend: run_exact({prog.name}, N={FRONTEND_EXACT_N}): "
+              f"{res.engine}, {res.total_accesses} accesses, {t1 - t0:.3f} "
+              f"s, {b1} B1 launches; run_serial_native {t2 - t1:.3f} s")
+        if not _same_exact(res, want):
+            raise AssertionError(f"frontend: run_exact({prog.name}) differs "
+                                 "from run_serial_native")
+    print("frontend: every run_exact equals run_serial_native (keys, "
+          "counts, totals)")
+    # b. the fuzz seeds on the card: B1 against plain, exact against numpy
+    t0 = time.perf_counter()
+    _reset_launches()
+    summary = fuzz.run_seeds(FRONTEND_SEEDS, kernel_backends=("torch",),
+                             device="cuda")
+    b1, _, b3 = _launches()
+    b1_total += b1
+    b3_total += b3
+    print(f"frontend: fuzz: {summary['passed']}/{FRONTEND_SEEDS} seeds "
+          f"passed on the card (kernel_backends ('torch',), worst drift "
+          f"{summary['worst_drift']} at seed {summary['worst_drift_seed']}), "
+          f"{b1} B1 and {b3} B3 launches, "
+          f"{time.perf_counter() - t0:.3f} s")
+    if summary["failed"] or not b1 or not b3:
+        raise AssertionError(f"frontend: fuzz failures "
+                             f"{summary['failures']}")
+    # c. the verify_analytic twin: every point of every period
+    for model, n in FRONTEND_AUDITS:
+        buf = io.StringIO()
+        _reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = verify_analytic.main(["--model", model, "--n", str(n)])
+        b1 = _launches()[0]
+        b1_total += b1
+        out = buf.getvalue().strip()
+        print(f"frontend: verify_analytic {model} N={n}: rc {rc}, {b1} B1 "
+              f"launches, {time.perf_counter() - t0:.3f} s: "
+              f"{out.splitlines()[-1] if out else ''}")
+        if rc != 0 or not out.startswith("PASS") or not b1:
+            raise AssertionError(f"frontend: verify_analytic {model}: "
+                                 f"{out}")
+    # d. the CLI: a dumped document through --program-json, --mrc-out
+    with tempfile.TemporaryDirectory() as tmp:
+        doc = os.path.join(tmp, "gemm.json")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["--dump-ir", "gemm", "--n", FRONTEND_CLI[4]])
+        with open(doc, "w") as f:
+            f.write(buf.getvalue())
+        outs = {}
+        for label, argv in (("model", list(FRONTEND_CLI)),
+                            ("program-json", ["acc", "--program-json",
+                                              doc])):
+            buf = io.StringIO()
+            mrc_path = os.path.join(tmp, f"{label}.mrc")
+            _reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main([*argv, "--mrc-out", mrc_path])
+            b1 = _launches()[0]
+            b1_total += b1
+            with open(mrc_path, "rb") as f:
+                outs[label] = (rc, buf.getvalue(), f.read())
+            print(f"frontend: cli {' '.join(argv)} --mrc-out: rc {rc}, "
+                  f"{len(outs[label][1].splitlines())} lines, MRC file "
+                  f"{len(outs[label][2])} B, "
+                  f"{time.perf_counter() - t0:.3f} s")
+        if outs["model"][0] != 0 or outs["model"] != outs["program-json"]:
+            raise AssertionError("frontend: --program-json's stdout or "
+                                 "--mrc-out bytes differ from --model's")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["analyze", "--model", "syrk-tri"])
+        print(f"frontend: cli analyze --model syrk-tri: rc {rc}: "
+              f"{buf.getvalue().splitlines()[0]}")
+        if rc != 0:
+            raise AssertionError("frontend: analyze --model syrk-tri failed")
+    print("frontend: the CLI's --program-json stdout and --mrc-out bytes "
+          "equal --model's")
+    seconds = time.perf_counter() - t_phase
+    print(f"frontend: phase 18 took {seconds:.3f} s, {b1_total} B1 and "
+          f"{b3_total} B3 launches")
+    return b1_total, b3_total, tot, seconds
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=2048,
@@ -2354,6 +2641,9 @@ def main(argv=None) -> int:
     ap.add_argument("--exact-only", action="store_true",
                     help="build, then only the exact engines' phase 17; "
                     "no result line")
+    ap.add_argument("--frontend-only", action="store_true",
+                    help="build, then only the frontend's phase 18; no "
+                    "result line")
     ap.add_argument("--scaling-only", action="store_true",
                     help="build, then only the sharded engine's fused "
                     "form over 1, 2, ... every visible card at GEMM n and "
@@ -2370,7 +2660,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     card = _card_line()
     print(f"card: {card}")
-    sass = phase_build()
+    sass = phase_build(buffer_form=not (args.scaling_only
+                                        or args.exact_only))
     cfg = SamplerConfig(ratio=0.1, seed=0)  # auto: the device draw here
     from pluss_sampler_optimization_torch.config import MachineConfig
     from pluss_sampler_optimization_torch.models import (
@@ -2394,6 +2685,10 @@ def main(argv=None) -> int:
         return 0
     if args.exact_only:
         phase_exact()
+        print(card)
+        return 0
+    if args.frontend_only:
+        phase_frontend()
         print(card)
         return 0
     phase_cold_warm(args.n, cfg)
@@ -2470,6 +2765,9 @@ def main(argv=None) -> int:
     del tri_calls
     runs.append(phase_two_shards(cfg, *TWO_SHARD_TRI))
     b1_launches += phase_exact()[0]
+    fe_b1, fe_b3, _, _ = phase_frontend()
+    b1_launches += fe_b1
+    b3["launches"] += fe_b3
     b1_launches += sum(r[0] for r in runs)
     b2["launches"] = sum(r[1] for r in runs)
     b3["launches"] += sum(r[2] for r in runs)

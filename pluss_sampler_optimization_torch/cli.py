@@ -1,4 +1,4 @@
-"""Command line of the port: the `acc`, `speed`, `sample` and `trace` modes.
+"""Command line of the port: the `acc`, `speed`, `sample`, `trace` and `analyze` modes.
 
     python -m pluss_sampler_optimization_torch acc --model gemm --n 128
     python -m pluss_sampler_optimization_torch acc --engine exact --shard
@@ -9,6 +9,11 @@
     python -m pluss_sampler_optimization_torch sample --engine sharded
     python -m pluss_sampler_optimization_torch sample --runtime v2 --r10
     python -m pluss_sampler_optimization_torch sample --max-rounds 3
+    python -m pluss_sampler_optimization_torch acc --engine native
+    python -m pluss_sampler_optimization_torch analyze --model syrk-tri
+    python -m pluss_sampler_optimization_torch --list-models
+    python -m pluss_sampler_optimization_torch --dump-ir gemm --n 64 > g.json
+    python -m pluss_sampler_optimization_torch acc --program-json g.json
 
 The modes of the JAX package's CLI, with its lines in its order:
 
@@ -17,7 +22,9 @@ The modes of the JAX package's CLI, with its lines in its order:
   distributed reuse-time dump, the miss-ratio curve and the
   max-iteration count (...ri-omp-seq.cpp:334-362). Engines: `oracle`
   (the serial walk; `--schedule dynamic` and `--runtime v2` apply to it
-  alone), `numpy`, `dense`, `stream`, `periodic`, `analytic`, `exact`
+  alone), `numpy`, `native` and `native-par` (the C++ serial walk of
+  native/ and its one-thread-per-simulated-thread form, built with make
+  at first use), `dense`, `stream`, `periodic`, `analytic`, `exact`
   (the router: periodic, then analytic, then dense), `sampled`,
   `sharded`. `--shard` runs periodic, analytic and exact mesh-sharded
   over every visible card (one CPU device with `--device cpu`).
@@ -40,11 +47,23 @@ The modes of the JAX package's CLI, with its lines in its order:
   `--pipeline-depth` and `--checkpoint-dir` change no printed line;
 - `trace`: thread `--tid`'s access stream and its reuse pairs of at
   least `--min-reuse`, `--limit` rows each (the reference's -DDEBUG
-  logs, runtime/debug.py).
+  logs, runtime/debug.py);
+- `analyze`: the static preflight passes (analysis/): well-formedness
+  diagnostics, the dependence and race verdict and the locality bounds,
+  as a summary or, with `--analysis-json`, the whole report; no engine
+  runs. Exit 0 when the program can be simulated.
+
+`--program-json PATH` takes the program from a frontend document
+(frontend/) instead of `--model`/`--n`/`--tsteps` in acc, speed, sample
+and analyze, its machine knobs over `--threads`/`--chunk`; a rejected
+document exits with the frontend's diagnostics. `--list-models` prints
+the registry, `--dump-ir MODEL` its frontend document and
+`--dump-ir-dir DIR` every model's, each without a mode. `--mrc-out PATH`
+also writes the run's MRC there.
 
 The engines run on CUDA unless `--device cpu` is given, and fail where
-CUDA is absent; the oracle and numpy engines and `trace` are host code.
-`native` and `native-par` are not ported yet.
+CUDA is absent; the oracle, numpy and native engines, `trace` and
+`analyze` are host code.
 """
 
 from __future__ import annotations
@@ -57,8 +76,6 @@ from .config import KERNEL_BACKENDS, MachineConfig, SamplerConfig
 
 ENGINES = ("oracle", "numpy", "native", "native-par", "dense", "stream",
            "periodic", "analytic", "exact", "sampled", "sharded")
-_DIFF_ENGINES = tuple(e for e in ENGINES
-                      if e not in ("native", "native-par"))
 _SHARDED_EXACT = ("periodic", "analytic", "exact")
 
 
@@ -66,11 +83,30 @@ def _parser() -> argparse.ArgumentParser:
     from .models import REGISTRY
 
     ap = argparse.ArgumentParser(prog="pluss_sampler_optimization_torch")
-    ap.add_argument("mode", choices=["acc", "speed", "sample", "trace"])
+    ap.add_argument("mode", nargs="?",
+                    choices=["acc", "speed", "sample", "trace", "analyze"])
+    ap.add_argument("--list-models", action="store_true",
+                    help="print the model registry (nest/ref geometry "
+                    "+ exact-router analytic audit status, from "
+                    "sampler/analytic.py::AUDITED_FAMILIES) and exit")
     ap.add_argument("--model", default="gemm", choices=sorted(REGISTRY))
     ap.add_argument("--n", type=int, default=128)
     ap.add_argument("--tsteps", type=int, default=1,
                     help="time steps (jacobi-2d, fdtd-2d, heat-3d, adi)")
+    ap.add_argument("--dump-ir", default=None, metavar="MODEL",
+                    help="print MODEL's canonical IR as a frontend "
+                    "JSON document (at --n/--tsteps) and exit; the "
+                    "dump round-trips through --program-json")
+    ap.add_argument("--dump-ir-dir", default=None, metavar="DIR",
+                    help="write every registry model's frontend JSON "
+                    "to DIR/<model>.json (at --n) and exit")
+    ap.add_argument("--program-json", default=None, metavar="PATH",
+                    help="load the program from a frontend JSON "
+                    "document instead of the model registry "
+                    "(acc|speed|sample|analyze; overrides --model/"
+                    "--n/--tsteps; document machine knobs override "
+                    "--threads/--chunk). Rejections print the "
+                    "frontend's machine-readable diagnostics")
     ap.add_argument("--threads", type=int, default=4)
     ap.add_argument("--chunk", type=int, default=4)
     ap.add_argument("--schedule", choices=["static", "dynamic"],
@@ -110,7 +146,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--kernel-backend", default=None, choices=KERNEL_BACKENDS,
                     help="kernel implementation of the sampled engines and "
                     "the analytic engine (default auto: the CUDA kernels "
-                    "on the card, plain torch on the CPU)")
+                    "on the card, plain torch on the CPU; native: the "
+                    "sampled engine's CPU route through the native "
+                    "library)")
     ap.add_argument("--pipeline-depth", type=int, default=None,
                     help="sampled engine: max in-flight dispatches "
                     "awaiting their device->host copy before the oldest "
@@ -151,6 +189,13 @@ def _parser() -> argparse.ArgumentParser:
                     help="trace mode reuse-pair threshold (DEBUG >= 512)")
     ap.add_argument("--limit", type=int, default=50,
                     help="trace mode row limit")
+    ap.add_argument("--mrc-out", default=None,
+                    help="also write the MRC to this file")
+    ap.add_argument("--analysis-json", action="store_true",
+                    help="analyze mode: emit the full machine-"
+                    "readable analysis report (diagnostics, "
+                    "classified dependences, bounds) as JSON instead "
+                    "of the summary table")
     ap.add_argument("--diff-against", default=None, metavar="ENGINE",
                     help="run a second engine and fail unless its dumps "
                     "are byte-identical (the reference's output.txt diff "
@@ -242,11 +287,14 @@ def _run_engine(engine: str, program, machine, args):
         from .oracle.numpy_ref import run_numpy
 
         return run_numpy(program, machine), None
-    if engine in ("native", "native-par"):
-        raise NotImplementedError(
-            f"--engine {engine}: the native CPU path (native/) is not "
-            "ported yet (ROADMAP.md A6, 'The native CPU path')"
-        )
+    if engine == "native":
+        from . import native
+
+        return native.run_serial_native(program, machine), None
+    if engine == "native-par":
+        from . import native
+
+        return native.run_parallel_native(program, machine), None
     if engine in _SHARDED_EXACT and args.shard:
         from .parallel.sharded import (
             _resolve_mesh,
@@ -294,13 +342,14 @@ def _run_engine(engine: str, program, machine, args):
 
 def result_lines(state, per_ref, machine, r10: bool = False,
                  total: int | None = None,
-                 ref_lines: bool = True) -> list[str]:
-    """The dump lines of one run's folded state: the per-ref lines of a
-    sampled run (`ref_lines`, sample mode), the noshare and share
-    dumps, the per-ref r10 histograms under `r10` (results of the raw
-    route), the distributed reuse-time dump, the MRC, and the
-    max-iteration count (`total`, default the runs' samples; "samples"
-    for a sampled run, "accesses" for an exact one, per_ref None)."""
+                 ref_lines: bool = True) -> tuple[list[str], object]:
+    """(the dump lines, the MRC) of one run's folded state. The lines:
+    the per-ref lines of a sampled run (`ref_lines`, sample mode), the
+    noshare and share dumps, the per-ref r10 histograms under `r10`
+    (results of the raw route), the distributed reuse-time dump, the
+    MRC, and the max-iteration count (`total`, default the runs'
+    samples; "samples" for a sampled run, "accesses" for an exact one,
+    per_ref None)."""
     from .runtime import report
     from .runtime.aet import aet_mrc
     from .runtime.cri import cri_distribute, r10_distribute
@@ -322,12 +371,13 @@ def result_lines(state, per_ref, machine, r10: bool = False,
     else:
         rih = cri_distribute(state, machine.thread_num, machine.thread_num)
     lines += report.rih_dump(rih)
-    lines += report.mrc_lines(aet_mrc(rih, machine))
+    mrc = aet_mrc(rih, machine)
+    lines += report.mrc_lines(mrc)
     if total is None:
         total = sum(r.n_samples for r in per_ref)
     label = "samples" if per_ref is not None else "accesses"
     lines.append(f"max iteration count: {total} {label}")
-    return lines
+    return lines, mrc
 
 
 def _check_args(args, engine: str) -> None:
@@ -364,10 +414,10 @@ def _check_args(args, engine: str) -> None:
                 "--diff-against compares acc/sample dumps; it has no "
                 "meaning in speed or trace mode"
             )
-        if args.diff_against not in _DIFF_ENGINES:
+        if args.diff_against not in ENGINES:
             raise SystemExit(
                 f"unknown --diff-against engine {args.diff_against!r} "
-                f"(have {', '.join(_DIFF_ENGINES)})"
+                f"(have {', '.join(ENGINES)})"
             )
 
 
@@ -416,16 +466,167 @@ def _speed(args, program, machine, engine: str) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def _build_model(name: str, n: int, tsteps: int):
     from .models import build
-    from .runtime import report
 
-    args = _parser().parse_args(argv)
-    machine = MachineConfig(thread_num=args.threads, chunk_size=args.chunk)
     try:
-        program = build(args.model, args.n, args.tsteps)
+        return build(name, n, tsteps)
     except (KeyError, ValueError) as e:
         raise SystemExit(str(e.args[0] if e.args else e))
+
+
+def _dump_ir(args) -> int:
+    """`--dump-ir MODEL` / `--dump-ir-dir DIR`: registry models as
+    frontend JSON documents, which parse back to the registry's
+    programs (templates for custom nests)."""
+    import json
+    import os
+
+    from .frontend.schema import program_to_json
+    from .models import REGISTRY
+
+    if args.dump_ir:
+        prog = _build_model(args.dump_ir, args.n, args.tsteps)
+        print(json.dumps(program_to_json(prog), indent=2))
+        return 0
+    os.makedirs(args.dump_ir_dir, exist_ok=True)
+    for name in sorted(REGISTRY):
+        try:
+            prog = _build_model(name, args.n, args.tsteps)
+        except SystemExit:
+            # models without a time axis reject --tsteps != 1; dump
+            # them at their only valid tsteps instead of skipping
+            prog = _build_model(name, args.n, 1)
+        path = os.path.join(args.dump_ir_dir, f"{name}.json")
+        with open(path, "w") as f:
+            json.dump(program_to_json(prog), f, indent=2)
+            f.write("\n")
+        print(f"{name:<12} -> {path}")
+    return 0
+
+
+def _load_program_json(args, machine):
+    """A frontend document for --program-json, strictly parsed:
+    (program, the machine with the document's knobs). A rejection exits
+    with the frontend's diagnostics."""
+    import json
+
+    from .frontend.parse import parse_program_doc
+    from .frontend.schema import machine_from_doc
+
+    try:
+        with open(args.program_json) as f:
+            doc = json.load(f)
+    except (OSError, ValueError) as e:
+        raise SystemExit(
+            f"cannot read program JSON {args.program_json!r}: {e}"
+        )
+    res = parse_program_doc(doc)
+    if not res.ok:
+        lines = [f"{args.program_json}: frontend rejected program"]
+        lines += [
+            f"  [{d.severity}] {d.code} at {d.path or '/'}: "
+            f"{d.message}"
+            for d in res.errors()
+        ]
+        raise SystemExit("\n".join(lines))
+    return res.program, machine_from_doc(doc, machine)
+
+
+def _list_models() -> int:
+    """The 18-model registry with each family's exact-router audit
+    status (sampler/analytic.py::AUDITED_FAMILIES)."""
+    from .models import REGISTRY, build
+    from .sampler.analytic import audited_family
+
+    rows = []
+    for name in sorted(REGISTRY):
+        prog = build(name, 8)
+        rows.append((
+            name,
+            len(prog.nests),
+            sum(len(nest.refs) for nest in prog.nests),
+            max(nest.depth for nest in prog.nests),
+            any(nest.is_triangular for nest in prog.nests),
+            audited_family(prog.name),
+        ))
+    print(f"{'model':<12} {'nests':>5} {'refs':>4} {'depth':>5} "
+          f"{'triangular':>10} {'analytic-audit':>14}")
+    for name, nests, refs, depth, tri, audited in rows:
+        print(f"{name:<12} {nests:>5} {refs:>4} {depth:>5} "
+              f"{'yes' if tri else 'no':>10} "
+              f"{'audited' if audited else 'probe-backed':>14}")
+    print(
+        f"{len(rows)} models; 'audited' = exact-router analytic "
+        "exactness proven by tests/test_analytic.py or recorded "
+        "tools/verify_analytic.py audits (README \"Exactness "
+        "coverage\")"
+    )
+    return 0
+
+
+def _analyze(args, program, machine) -> int:
+    """`analyze` mode: the static preflight passes (analysis/) —
+    well-formedness diagnostics, the dependence and race verdict, and
+    the locality bounds — with no engine run. `--analysis-json` prints
+    the whole report instead of the summary. Exit 0 when the IR can be
+    simulated (verdict ok or race: a race is a property of the modeled
+    OpenMP program, not an input error), 1 when invalid."""
+    import json
+
+    from . import analysis
+
+    report = analysis.analyze_program(program, machine)
+    if args.analysis_json:
+        print(json.dumps(report.to_dict(), indent=2, sort_keys=True))
+        return 0 if report.ok else 1
+    print(f"{program.name}: verdict {report.verdict} "
+          f"({report.wall_s * 1e3:.1f} ms)")
+    for d in report.diagnostics:
+        print(f"  [{d.severity}] {d.code} at {d.path}: {d.message}")
+    if report.bounds is not None:
+        b = report.bounds
+        print(f"  accesses {b.total_accesses}, compulsory-miss lower "
+              f"bound {b.compulsory_lower} lines, "
+              + (f"cold footprint {b.cold_model} lines (exact), "
+                 f"MRC asymptote {b.asymptote:.6g}"
+                 if b.exact else
+                 "footprint bounded by interval analysis "
+                 "(domain too large for exact enumeration)"))
+        carried = sum(
+            1 for dep in report.dependences
+            if dep.kind == analysis.DEP_CARRIED
+        )
+        print(f"  dependences: {len(report.dependences)} classified "
+              f"pairs, {carried} carried, {len(report.races)} "
+              "race-flagged")
+    return 0 if report.ok else 1
+
+
+def main(argv=None) -> int:
+    from .runtime import report
+
+    ap = _parser()
+    args = ap.parse_args(argv)
+    if args.list_models:
+        return _list_models()
+    if args.dump_ir or args.dump_ir_dir:
+        return _dump_ir(args)
+    if args.mode is None:
+        ap.error("mode is required (acc|speed|sample|trace|analyze)")
+    if args.program_json and args.mode == "trace":
+        raise SystemExit(
+            "--program-json loads an inline frontend document for "
+            "acc|speed|sample|analyze; serve modes take a 'program' "
+            "field per request line instead"
+        )
+    machine = MachineConfig(thread_num=args.threads, chunk_size=args.chunk)
+    if args.program_json:
+        program, machine = _load_program_json(args, machine)
+    else:
+        program = _build_model(args.model, args.n, args.tsteps)
+    if args.mode == "analyze":
+        return _analyze(args, program, machine)
     engine = args.engine or ("sampled" if args.mode == "sample" else "dense")
     _check_args(args, engine)
     if args.mode == "trace":
@@ -433,19 +634,21 @@ def main(argv=None) -> int:
     if args.mode == "speed":
         return _speed(args, program, machine, engine)
 
-    def lines_of(eng: str) -> list[str]:
+    def lines_of(eng: str) -> tuple[list[str], object]:
         res, per_ref = _run_engine(eng, program, machine, args)
         return result_lines(res.state, per_ref, machine, args.r10,
                             total=res.total_accesses,
                             ref_lines=args.mode == "sample")
 
-    lines = lines_of(engine)
+    lines, mrc = lines_of(engine)
     report.emit(lines)
+    if args.mrc_out:
+        report.write_mrc_to_file(mrc, args.mrc_out)
     if args.diff_against:
         # the reference's acc protocol appends each implementation's
         # dumps to output.txt for manual inspection (run.sh:3-12,
         # README.md:10-12); this automates the comparison
-        other_lines = lines_of(args.diff_against)
+        other_lines, _ = lines_of(args.diff_against)
         if lines != other_lines:
             import difflib
 

@@ -55,7 +55,7 @@ class MachineConfig:
             raise ValueError("thread_num and chunk_size must be >= 1")
 
 
-KERNEL_BACKENDS = ("auto", "cuda", "torch")
+KERNEL_BACKENDS = ("auto", "cuda", "torch", "native")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,9 +97,11 @@ class SamplerConfig:
     # csrc/threefry_draw.cu for the device draw's streams), "torch"
     # (plain tensor code: sampled_hist_plain, the sharded engine's plain
     # classify with exp_hist and fixed_k_unique as in the JAX package,
-    # sampler/threefry.py's streams), or None/"auto": "cuda" on a CUDA
-    # device, "torch" on the CPU. Every backend draws the same sample
-    # sets and folds to bit-identical PRIStates/MRCs.
+    # sampler/threefry.py's streams), "native" (the sampled engine's
+    # CPU route: the plain classify reduced by the native library's C++
+    # pass, native/; it raises off the CPU), or None/"auto": "cuda" on a
+    # CUDA device, "torch" on the CPU. Every backend draws the same
+    # sample sets and folds to bit-identical PRIStates/MRCs.
     kernel_backend: str | None = None
     # Cross-ref fused dispatch: refs sharing a kernel-signature bucket
     # (sampler/sampled.py::_kernel_sig) stack along a leading ref axis and

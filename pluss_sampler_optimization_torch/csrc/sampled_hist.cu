@@ -82,11 +82,33 @@
 // A candidate that is not in the band contributes nothing there, so it
 // is skipped whole.
 //
+// Two forms of the launch carry the descriptor. The parameter form
+// (sampled_hist_launch, the 12 instantiations above) passes it by value,
+// up to MAX_DESC words. Longer descriptors (many refs of distinct maps,
+// or many modeled threads: the loop-count table has one word per thread)
+// take the buffer form (sampled_hist_launch_buf): the caller uploads the
+// descriptor once to a device buffer, and each block copies it into
+// shared memory before its walk (dynamic shared memory of the
+// descriptor's size; past the 48 KB a launch may take by default, with
+// the walk's own 17 KB, the launch asks for more, up to the card's
+// opt-in limit: about 26,000 words on an H100, where the frontend's 64
+// refs of a nest need about 2,540). It is one instantiation per
+// source-ref level and nest kind, with NHMAX 3, which serves any head
+// count: 6 more, built apart (csrc/sampled_hist_buf.cu includes this
+// file with SAMPLED_HIST_BUFFER_FORM defined, so nvcc compiles the two
+// forms as two libraries at once). A sink group of more than MAX_MEMBERS
+// refs reaches the kernel as consecutive sub-groups of at most
+// MAX_MEMBERS members, each repeating the group's heads
+// (build_descriptor); the walk keeps a member only where its position is
+// strictly below the best so far, in group and member order, so the
+// first of equal positions wins as in the unsplit group.
+//
 // The same file compiles as plain C++ (no __CUDACC__): it then exports
 // sampled_hist_host, a serial loop over the same per-sample code (every
-// instantiation), and sampled_hist_divmod, the floor division and
-// modulo by a record, which the CPU tests build with g++ and hold
-// against the plain version and Python's // and %.
+// instantiation), sampled_hist_host_buf, the buffer form's, and
+// sampled_hist_divmod, the floor division and modulo by a record, which
+// the CPU tests build with g++ and hold against the plain version and
+// Python's // and %.
 
 #include <stdint.h>
 
@@ -97,6 +119,8 @@
 #define HD __host__ __device__ __forceinline__
 #else
 #define HD static inline
+
+#include <vector>
 #endif
 #ifdef __CUDA_ARCH__
 #define UNROLL _Pragma("unroll")
@@ -1020,6 +1044,49 @@ struct Params {
     i64 desc[MAX_DESC];            // build_descriptor's words
 };
 
+// The buffer form's constants: the radices' records alone.
+struct ParamsBuf {
+    i64 hr[MAX_DEPTH * DIV_SIZE];
+};
+
+// One block's share of the launch, with the descriptor at d: row
+// blockIdx.y, a grid-stride loop over its lanes, then the block's
+// histogram and cold count flushed. s_hist arrives zeroed and synced.
+template <int LV, int NHMAX, bool TRI>
+__device__ __forceinline__ void block_rows(
+    const i64* d, const i64* hr, const i64* __restrict__ keys,
+    const unsigned char* __restrict__ mask, i64 B, i64 ld,
+    const i64* __restrict__ rx, const i64* __restrict__ tri, bool raw,
+    i64* __restrict__ residual, u64* __restrict__ hist,
+    u64* __restrict__ cold, i64* s_nb, u64* s_hist) {
+    const i64 r = blockIdx.y;
+    const i64 rxv = rx[r];
+    const i64 in = r * ld;   // row r of keys and mask
+    const i64 base = r * B;  // row r of residual
+    const i64 stride = (i64)gridDim.x * blockDim.x;
+    // b0 is the same for every thread of the block, so every lane of a
+    // warp runs every iteration and __match_any_sync sees the full warp
+    for (i64 b0 = (i64)blockIdx.x * blockDim.x; b0 < B; b0 += stride) {
+        const i64 b = b0 + threadIdx.x;
+        int bin = -1;
+        if (b < B) {
+            const bool mk = mask == nullptr || mask[in + b] != 0;
+            bin = sample_step<LV, NHMAX, TRI>(d, tri, keys[in + b], mk, hr,
+                                              rxv, s_nb + threadIdx.x, raw,
+                                              residual + base + b);
+        }
+        const unsigned peers = __match_any_sync(0xffffffffu, bin);
+        if (bin >= 0 && (int)(threadIdx.x & 31) == __ffs(peers) - 1)
+            atomicAdd(&s_hist[bin], (u64)__popc(peers));
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < N_BINS; i += blockDim.x)
+        if (s_hist[i]) atomicAdd(&hist[r * N_BINS + i], s_hist[i]);
+    if (threadIdx.x == 0 && s_hist[N_BINS])
+        atomicAdd(&cold[r], s_hist[N_BINS]);
+}
+
+#ifndef SAMPLED_HIST_BUFFER_FORM
 template <int LV, int NHMAX, bool TRI>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM(NHMAX, TRI))
 sampled_hist_kernel(const i64* __restrict__ keys,
@@ -1033,48 +1100,91 @@ sampled_hist_kernel(const i64* __restrict__ keys,
     __shared__ u64 s_hist[N_BINS + 1];  // + cold
     for (int i = threadIdx.x; i <= N_BINS; i += blockDim.x) s_hist[i] = 0;
     __syncthreads();
-    const i64 r = blockIdx.y;
-    const i64 rxv = rx[r];
-    const i64 in = r * ld;   // row r of keys and mask
-    const i64 base = r * B;  // row r of residual
-    const i64 stride = (i64)gridDim.x * blockDim.x;
-    // b0 is the same for every thread of the block, so every lane of a
-    // warp runs every iteration and __match_any_sync sees the full warp
-    for (i64 b0 = (i64)blockIdx.x * blockDim.x; b0 < B; b0 += stride) {
-        const i64 b = b0 + threadIdx.x;
-        int bin = -1;
-        if (b < B) {
-            const bool mk = mask == nullptr || mask[in + b] != 0;
-            bin = sample_step<LV, NHMAX, TRI>(pr.desc, tri, keys[in + b], mk,
-                                              pr.hr, rxv, s_nb + threadIdx.x,
-                                              raw, residual + base + b);
-        }
-        const unsigned peers = __match_any_sync(0xffffffffu, bin);
-        if (bin >= 0 && (int)(threadIdx.x & 31) == __ffs(peers) - 1)
-            atomicAdd(&s_hist[bin], (u64)__popc(peers));
-    }
+    block_rows<LV, NHMAX, TRI>(pr.desc, pr.hr, keys, mask, B, ld, rx, tri,
+                               raw, residual, hist, cold, s_nb, s_hist);
+}
+#else
+
+// The buffer form: the descriptor in a device buffer of desc_len words,
+// copied into the block's shared memory (the launch's dynamic shared
+// memory, desc_len words) before the walk.
+template <int LV, bool TRI>
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM(3, TRI))
+sampled_hist_kernel_buf(const i64* __restrict__ keys,
+                        const unsigned char* __restrict__ mask, i64 B,
+                        i64 ld, const __grid_constant__ ParamsBuf pr,
+                        const i64* __restrict__ desc, int desc_len,
+                        const i64* __restrict__ rx,
+                        const i64* __restrict__ tri, bool raw,
+                        i64* __restrict__ residual, u64* __restrict__ hist,
+                        u64* __restrict__ cold) {
+    extern __shared__ i64 s_desc[];
+    __shared__ i64 s_nb[MAX_MEMBERS * THREADS];
+    __shared__ u64 s_hist[N_BINS + 1];
+    for (int i = threadIdx.x; i < desc_len; i += blockDim.x)
+        s_desc[i] = desc[i];
+    for (int i = threadIdx.x; i <= N_BINS; i += blockDim.x) s_hist[i] = 0;
     __syncthreads();
-    for (int i = threadIdx.x; i < N_BINS; i += blockDim.x)
-        if (s_hist[i]) atomicAdd(&hist[r * N_BINS + i], s_hist[i]);
-    if (threadIdx.x == 0 && s_hist[N_BINS])
-        atomicAdd(&cold[r], s_hist[N_BINS]);
+    block_rows<LV, 3, TRI>(s_desc, pr.hr, keys, mask, B, ld, rx, tri, raw,
+                           residual, hist, cold, s_nb, s_hist);
+}
+#endif
+
+#define MAX_DEVICES 64
+// Dynamic shared memory a launch may take without asking: 48 KB less the
+// walk's static s_nb and s_hist.
+#define DEFAULT_DYNAMIC_SMEM \
+    (48 * 1024 - (MAX_MEMBERS * THREADS + N_BINS + 1) * sizeof(i64))
+
+// The launch's grid: as many blocks as the card holds at once (`slots`),
+// split over the R rows, no more per row than its lanes need.
+static dim3 grid_of(int slots, i64 R, i64 B) {
+    i64 bx = (slots + R - 1) / R;
+    const i64 need = (B + THREADS - 1) / THREADS;
+    if (bx > need) bx = need;
+    if (bx < 1) bx = 1;
+    return dim3((unsigned)bx, (unsigned)R);
 }
 
+// The card's SM count times `kernel`'s resident blocks per SM at `smem`
+// bytes of dynamic shared memory; 0 and the error code where a query
+// fails.
+template <typename K>
+static int resident_slots(K kernel, size_t smem, int* slots) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          THREADS, smem);
+    *slots = per_sm * sms > 0 ? per_sm * sms : 1;
+    return (int)e;
+}
+
+// Arguments either form refuses: a descriptor shorter than its header or
+// past the form's limit, rows the grid cannot hold, a row stride below
+// the row, a level or head count without an instantiation, and a base
+// table where the nest is not triangular (or none where it is).
+static bool bad_args(i64 R, i64 B, i64 ld, const i64* desc, int desc_len,
+                     int limit, const void* tri) {
+    return desc_len < D_HEADER || desc_len > limit || R < 1 || R > 65535
+           || B < 1 || ld < B || desc[D_LV] < 0 || desc[D_LV] >= MAX_DEPTH
+           || max_heads(desc) > MAX_DEPTH || (desc[D_TRI] != 0) != (tri != 0);
+}
+
+#ifndef SAMPLED_HIST_BUFFER_FORM
 typedef int (*LaunchFn)(const void*, const void*, i64, i64, i64,
                         const Params&, const void*, const void*, bool, void*,
                         void*, void*, cudaStream_t);
-
-#define MAX_DEVICES 64
 
 template <int LV, int NHMAX, bool TRI>
 static int launch(const void* keys, const void* mask, i64 R, i64 B, i64 ld,
                   const Params& pr, const void* rx, const void* tri,
                   bool raw, void* residual, void* hist, void* cold,
                   cudaStream_t stream) {
-    // as many blocks as the card holds at once, split over the R rows;
-    // the card's SM count times this instantiation's blocks per SM, asked
-    // once per device (0: not asked yet; every thread that asks gets the
-    // same answer)
+    // the resident blocks, asked once per device (0: not asked yet; every
+    // thread that asks gets the same answer)
     static std::atomic<int> resident[MAX_DEVICES];
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
@@ -1082,21 +1192,13 @@ static int launch(const void* keys, const void* mask, i64 R, i64 B, i64 ld,
     if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
     int slots = resident[dev].load(std::memory_order_relaxed);
     if (slots == 0) {
-        int sms = 0, per_sm = 0;
-        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        if (e == cudaSuccess)
-            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &per_sm, sampled_hist_kernel<LV, NHMAX, TRI>, THREADS, 0);
-        if (e != cudaSuccess) return (int)e;
-        slots = per_sm * sms > 0 ? per_sm * sms : 1;
+        const int rc =
+            resident_slots(sampled_hist_kernel<LV, NHMAX, TRI>, 0, &slots);
+        if (rc != 0) return rc;
         resident[dev].store(slots, std::memory_order_relaxed);
     }
-    i64 bx = (slots + R - 1) / R;
-    const i64 need = (B + THREADS - 1) / THREADS;
-    if (bx > need) bx = need;
-    if (bx < 1) bx = 1;
-    dim3 grid((unsigned)bx, (unsigned)R);
-    sampled_hist_kernel<LV, NHMAX, TRI><<<grid, THREADS, 0, stream>>>(
+    sampled_hist_kernel<LV, NHMAX, TRI><<<grid_of(slots, R, B), THREADS, 0,
+                                          stream>>>(
         (const i64*)keys, (const unsigned char*)mask, B, ld, pr, (const i64*)rx,
         (const i64*)tri, raw, (i64*)residual, (u64*)hist, (u64*)cold);
     return (int)cudaGetLastError();
@@ -1108,7 +1210,6 @@ static int launch(const void* keys, const void* mask, i64 R, i64 B, i64 ld,
 static const LaunchFn LAUNCH[2][MAX_DEPTH][2] = {
     {LAUNCH_ROW(0, false), LAUNCH_ROW(1, false), LAUNCH_ROW(2, false)},
     {LAUNCH_ROW(0, true), LAUNCH_ROW(1, true), LAUNCH_ROW(2, true)}};
-
 // keys: int64 [R, B] on the card, row r at keys + r * ld (ld >= B: a
 // column span of a wider buffer); mask: uint8 [R, B] with the same row
 // stride, or null when every lane is live; residual: int64 [R, B],
@@ -1127,9 +1228,7 @@ extern "C" int sampled_hist_launch(const void* keys, const void* mask,
                                    const void* rx, const void* tri, int raw,
                                    void* residual, void* hist, void* cold,
                                    void* stream) {
-    if (desc_len < D_HEADER || desc_len > MAX_DESC || R < 1 || R > 65535
-        || B < 1 || ld < B || desc[D_LV] < 0 || desc[D_LV] >= MAX_DEPTH
-        || max_heads(desc) > MAX_DEPTH || (desc[D_TRI] != 0) != (tri != 0))
+    if (bad_args(R, B, ld, desc, desc_len, MAX_DESC, tri))
         return (int)cudaErrorInvalidValue;
     Params pr;
     for (int i = 0; i < MAX_DEPTH * DIV_SIZE; ++i) pr.hr[i] = hrec[i];
@@ -1138,6 +1237,66 @@ extern "C" int sampled_hist_launch(const void* keys, const void* mask,
         keys, mask, R, B, ld, pr, rx, tri, raw != 0, residual, hist, cold,
         (cudaStream_t)stream);
 }
+
+#else
+typedef int (*LaunchBufFn)(const void*, const void*, i64, i64, i64,
+                           const ParamsBuf&, const void*, int, const void*,
+                           const void*, bool, void*, void*, void*,
+                           cudaStream_t);
+
+template <int LV, bool TRI>
+static int launch_buf(const void* keys, const void* mask, i64 R, i64 B,
+                      i64 ld, const ParamsBuf& pr, const void* desc,
+                      int desc_len, const void* rx, const void* tri, bool raw,
+                      void* residual, void* hist, void* cold,
+                      cudaStream_t stream) {
+    // the resident blocks depend on the descriptor's shared bytes: asked
+    // per launch (the buffer form is the rare one); past the default 48 KB
+    // a launch may take, the kernel is allowed the descriptor's size first
+    const size_t smem = (size_t)desc_len * sizeof(i64);
+    if (smem > DEFAULT_DYNAMIC_SMEM) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            sampled_hist_kernel_buf<LV, TRI>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    int slots = 0;
+    const int rc =
+        resident_slots(sampled_hist_kernel_buf<LV, TRI>, smem, &slots);
+    if (rc != 0) return rc;
+    sampled_hist_kernel_buf<LV, TRI><<<grid_of(slots, R, B), THREADS, smem,
+                                       stream>>>(
+        (const i64*)keys, (const unsigned char*)mask, B, ld, pr,
+        (const i64*)desc, desc_len, (const i64*)rx, (const i64*)tri,
+        raw, (i64*)residual, (u64*)hist, (u64*)cold);
+    return (int)cudaGetLastError();
+}
+
+// [TRI][LV]
+static const LaunchBufFn LAUNCH_BUF[2][MAX_DEPTH] = {
+    {launch_buf<0, false>, launch_buf<1, false>, launch_buf<2, false>},
+    {launch_buf<0, true>, launch_buf<1, true>, launch_buf<2, true>}};
+
+// The buffer form: as sampled_hist_launch, with desc_dev the same
+// desc_len words on the card (desc, the host's copy, picks the
+// instantiation); any length from the header up.
+extern "C" int sampled_hist_launch_buf(const void* keys, const void* mask,
+                                       i64 R, i64 B, i64 ld, const i64* desc,
+                                       int desc_len, const void* desc_dev,
+                                       const i64* hrec, const void* rx,
+                                       const void* tri, int raw,
+                                       void* residual, void* hist, void* cold,
+                                       void* stream) {
+    if (desc_dev == nullptr
+        || bad_args(R, B, ld, desc, desc_len, 0x7fffffff, tri))
+        return (int)cudaErrorInvalidValue;
+    ParamsBuf pr;
+    for (int i = 0; i < MAX_DEPTH * DIV_SIZE; ++i) pr.hr[i] = hrec[i];
+    return LAUNCH_BUF[desc[D_TRI] != 0][desc[D_LV]](
+        keys, mask, R, B, ld, pr, desc_dev, desc_len, rx, tri, raw != 0,
+        residual, hist, cold, (cudaStream_t)stream);
+}
+#endif
 
 #else
 
@@ -1181,6 +1340,26 @@ extern "C" int sampled_hist_host(const i64* keys, const unsigned char* mask,
     HOST[desc[D_TRI] != 0][desc[D_LV]][max_heads(desc) > 1](
         keys, mask, R, B, desc, hrec, rx, tri, raw != 0, residual, hist,
         cold);
+    return 0;
+}
+
+// Serial host twin of the buffer form: any descriptor length, the
+// instantiation with NHMAX 3, the descriptor read from a copy, as each
+// block of the card reads its shared copy.
+extern "C" int sampled_hist_host_buf(const i64* keys,
+                                     const unsigned char* mask, i64 R, i64 B,
+                                     const i64* desc, int desc_len,
+                                     const i64* hrec, const i64* rx,
+                                     const i64* tri, int raw, i64* residual,
+                                     i64* hist, i64* cold) {
+    if (desc_len < D_HEADER || R < 1 || B < 1 || desc[D_LV] < 0
+        || desc[D_LV] >= MAX_DEPTH || max_heads(desc) > MAX_DEPTH
+        || (desc[D_TRI] != 0) != (tri != 0))
+        return 1;
+    const std::vector<i64> staged(desc, desc + desc_len);
+    HOST[desc[D_TRI] != 0][desc[D_LV]][1](keys, mask, R, B, staged.data(),
+                                          hrec, rx, tri, raw != 0, residual,
+                                          hist, cold);
     return 0;
 }
 

@@ -3,9 +3,10 @@
 Each source in csrc/ is compiled on first use into
 build/torch_kernels/ under the repository root, as a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
-named by a digest of the source and the flags so an edited source
-rebuilds. `-Xptxas -v` output (registers, spills) is kept beside the
-library and returned by `build`.
+named by a digest of the source, the files it includes from csrc/
+(`#include "name"`) and the flags, so an edited source rebuilds.
+`-Xptxas -v` output (registers, spills) is kept beside the library and
+returned by `build`.
 """
 
 from __future__ import annotations
@@ -50,10 +51,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str, defines: tuple = ()) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        flags = " ".join(NVCC_FLAGS + tuple(defines))
-        h = hashlib.sha256(f.read() + flags.encode())
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        text = f.read()
+    flags = " ".join(NVCC_FLAGS + tuple(defines))
+    h = hashlib.sha256(text + flags.encode())
+    for inc in re.findall(rb'^#include "([^"]+)"', text, re.M):
+        with open(os.path.join(CSRC, inc.decode()), "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 

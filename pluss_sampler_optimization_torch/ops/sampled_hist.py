@@ -34,9 +34,14 @@ The kernel takes the classify's structure as a packed int64 descriptor
 every divisor the classify uses travels in it as a division record
 (`div_record`), and the key's radices as three more records passed at
 launch. The descriptor travels from the host as a kernel parameter (the
-card's constant bank), so the kernel keeps none of it in registers. The
-build holds one instantiation of the kernel per source-ref level
-(`desc[D_LV]`: 0, 1 or 2), per head-count class (groups of at most
+card's constant bank), so the kernel keeps none of it in registers, up
+to MAX_DESC words (the parameter form); a longer one (many refs of
+distinct maps, or many modeled threads) takes the buffer form, a device
+copy made once per bucket (`device_descriptor`) that each block stages
+in shared memory (csrc/sampled_hist_buf.cu, a library of its own). A
+sink group of more than MAX_MEMBERS refs travels as consecutive
+sub-groups (`descriptor_groups`). The build holds one instantiation of
+the kernel per source-ref level (`desc[D_LV]`: 0, 1 or 2), per head-count class (groups of at most
 one band-plan head, or up to three) and per nest kind (rectangular or
 triangular, `desc[D_TRI]`); the launch picks the one of its descriptor.
 A triangular nest's per-thread base table (core/trace.py::tri_base)
@@ -78,8 +83,12 @@ R_SIZE = 8  # off, coeff[3], const, thr, ratio, level
 H_SIZE = 4 + DIV_SIZE  # level, n_u, cv's division record, rmin, rmax
 G_FIXED = 7 + MAX_DEPTH * H_SIZE  # nmem, level, nheads, term, tlevel, tw, const, heads
 TERM_CHECK, TERM_INTERVAL, TERM_WINDOW = 0, 1, 2
+# the parameter form's most words (csrc/sampled_hist.cu's MAX_DESC), and
+# the most members of a sink group in the descriptor (MAX_MEMBERS)
 MAX_DESC = 2048
 MAX_MEMBERS = 8
+# Launches of the buffer form (a part of LAUNCHES).
+BUFFER_LAUNCHES = 0
 
 
 def div_record(d: int) -> list[int]:
@@ -151,6 +160,22 @@ def _tri_ref_offset(nest, r) -> int:
     return len(pre) + nest.refs_at(r.level, "post").index(r)
 
 
+def descriptor_groups(nt, ref_idx: int) -> list[tuple[int, list[int]]]:
+    """The sink groups of source ref `ref_idx` as the descriptor holds
+    them: (the group's first member, whose band plan serves it, and at
+    most MAX_MEMBERS members). A longer group of
+    sampler/sampled.py::_sink_groups is cut into consecutive sub-groups
+    in member order, each repeating the group's heads; since the kernel
+    takes a member only at a position strictly below the best so far,
+    groups and members in order, the first of equal positions wins as in
+    _best_sink's unsplit group."""
+    from ..sampler.sampled import _sink_groups
+
+    return [(sinks[0], sinks[i:i + MAX_MEMBERS])
+            for sinks in _sink_groups(nt, ref_idx)
+            for i in range(0, len(sinks), MAX_MEMBERS)]
+
+
 def build_descriptor(nt, ref_idx: int) -> np.ndarray:
     """The classify of source ref `ref_idx` as the kernel's int64
     descriptor: schedule and machine fields, loop tables, the division
@@ -158,15 +183,17 @@ def build_descriptor(nt, ref_idx: int) -> np.ndarray:
     by sink), and every sink group's band plan
     (sampler/nextuse.py::band_plan) with its per-head coefficient (as a
     division record) and residual span precomputed from the value
-    overlay. A triangular nest adds its header fields (`_tri_header`),
-    each ref's offset without its v0-dependent part and the post-slot
-    flags; its base table travels apart (`tri_table`). Raises where the
+    overlay, the groups as `descriptor_groups` cuts them. A triangular
+    nest adds its header fields (`_tri_header`), each ref's offset
+    without its v0-dependent part and the post-slot flags; its base table
+    travels apart (`tri_table`). Any length: one above MAX_DESC takes the
+    kernel's buffer form (`desc_form`). Raises where the
     kernel's arithmetic does not hold: a non-positive schedule or machine
     divisor or body size (the level-2 reduction relies on acc[2] > 0, the
     triangular one on a2 > 0), or a triangular nest with a non-unit
     step."""
     from ..sampler.nextuse import _ref_vars_static, band_plan
-    from ..sampler.sampled import _sink_groups, check_packed_ratios
+    from ..sampler.sampled import check_packed_ratios
 
     check_packed_ratios(nt)
     t, mach, sched, v = nt.tables, nt.machine, nt.schedule, nt.vals
@@ -222,15 +249,9 @@ def build_descriptor(nt, ref_idx: int) -> np.ndarray:
         d[D_OFF_POST] = len(d)
         d += [int(r.slot == "post") for r in nt.nest.refs]
     d[D_OFF_GROUPS] = len(d)
-    groups = _sink_groups(nt, ref_idx)
+    groups = descriptor_groups(nt, ref_idx)
     d[D_NGROUPS] = len(groups)
-    for sinks in groups:
-        if len(sinks) > MAX_MEMBERS:
-            raise NotImplementedError(
-                f"sink group of {len(sinks)} refs exceeds the kernel's "
-                f"{MAX_MEMBERS}"
-            )
-        s0 = sinks[0]
+    for s0, sinks in groups:
         nz = _ref_vars_static(nt, s0)
         coeff = [int(c) for c in v["coeff"][s0]]
         node = band_plan(nt, s0, W)
@@ -255,11 +276,24 @@ def build_descriptor(nt, ref_idx: int) -> np.ndarray:
         for k in range(MAX_DEPTH):
             rec += heads[k] if k < len(heads) else [0, 0, *div_record(1), 0, 0]
         d += rec + list(sinks)
-    if len(d) > MAX_DESC:
-        raise NotImplementedError(
-            f"descriptor of {len(d)} words exceeds the kernel's {MAX_DESC}"
-        )
     return np.asarray(d, dtype=np.int64)
+
+
+def desc_form(desc: np.ndarray) -> str:
+    """The launch form that carries this descriptor: "param" (a kernel
+    parameter) up to MAX_DESC words, else "buffer" (a device buffer,
+    `device_descriptor`)."""
+    return "param" if len(desc) <= MAX_DESC else "buffer"
+
+
+def device_descriptor(desc, device) -> torch.Tensor | None:
+    """The buffer form's copy of `desc` on `device` (a CUDA device), made
+    once per bucket or shard body beside the descriptor; None where the
+    parameter form carries it or the device is not a card."""
+    if desc is None or torch.device(device).type != "cuda" or (
+            desc_form(desc) == "param"):
+        return None
+    return torch.as_tensor(desc, device=device)
 
 
 def max_heads(desc: np.ndarray) -> int:
@@ -477,7 +511,8 @@ _VAR_DIV = 20
 
 
 def band_hits(nt, ref_idx: int, keys, mask, highs) -> list[tuple[int, int]]:
-    """Per sink group of a triangular source ref, over the chosen lanes
+    """Per descriptor group (`descriptor_groups`) of a triangular source
+    ref, over the chosen lanes
     of `keys` (every lane where `mask` is None): (band candidates in the
     band, iterations the walk visits without a later search), the two
     counts of the triangular walk that depend on the data
@@ -486,11 +521,7 @@ def band_hits(nt, ref_idx: int, keys, mask, highs) -> list[tuple[int, int]]:
     level 0 visits the sample's own iteration and searches a later one
     (the later visit is not counted: it depends on the search)."""
     from ..sampler.nextuse import _band_candidates
-    from ..sampler.sampled import (
-        _sample_geometry,
-        _sink_groups,
-        decode_sample_keys,
-    )
+    from ..sampler.sampled import _sample_geometry, decode_sample_keys
 
     tnt = nt.with_vals(torch_vals(nt.vals, keys.device))
     if mask is not None:
@@ -500,7 +531,7 @@ def band_hits(nt, ref_idx: int, keys, mask, highs) -> list[tuple[int, int]]:
     sched, W = nt.schedule, nt.machine.lines_per_element_block
     start0, trip0 = nt.nest.loops[0].start, nt.nest.loops[0].trip
     out = []
-    for sinks in _sink_groups(nt, ref_idx):
+    for s0, _members in descriptor_groups(nt, ref_idx):
         n = [0, 0]
 
         def emit(fixed_vals, ok):
@@ -511,7 +542,7 @@ def band_hits(nt, ref_idx: int, keys, mask, highs) -> list[tuple[int, int]]:
                     sched.owner_tid(n0) == tid)
             n[1] += int(ok.sum())
 
-        _band_candidates(tnt, sinks[0], line * W, W,
+        _band_candidates(tnt, s0, line * W, W,
                          torch.ones_like(tid, dtype=torch.bool), emit)
         out.append((n[0], n[1]))
     return out
@@ -654,18 +685,30 @@ def _check(name, x, dtype, shape, dev, ld=None):
                          f"elements apart, got strides {x.stride()}")
 
 
+_ARGTYPES_BUF = (
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int]
+    + [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+)
+
+
 def sampled_hist_cuda(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
-                      desc=None, tri_base=None, raw: bool = False):
+                      desc=None, tri_base=None, raw: bool = False,
+                      desc_dev=None, form: str | None = None):
     """Launch csrc/sampled_hist.cu on the current stream; raises on any
     argument the kernel does not take or a launch error. keys_RB (and
     mask_RB, with the same strides) may be a column span of a wider
     [R, B'] buffer: rows of contiguous lanes, a fixed stride apart. `desc` is
-    build_descriptor's output, a host int64 array (built here when None);
-    the launch passes it by value and launches the instantiation of its
-    source-ref level desc[D_LV], most heads per group and nest kind.
-    `tri_base` is a triangular nest's `tri_table` on the keys' device
-    (made here when None). `raw` launches the raw-noshare form."""
-    global LAUNCHES
+    build_descriptor's output, a host int64 array (built here when None).
+    `form` (None: `desc_form`'s) picks the launch: "param" passes the
+    descriptor by value and launches the instantiation of its source-ref
+    level desc[D_LV], most heads per group and nest kind; "buffer" reads
+    it from `desc_dev`, its `device_descriptor` copy (uploaded here when
+    None), through the instantiation of its level and nest kind with up
+    to three heads. `tri_base` is a triangular nest's `tri_table` on the
+    keys' device (made here when None). `raw` launches the raw-noshare
+    form."""
+    global LAUNCHES, BUFFER_LAUNCHES
     from . import _build
 
     dev = keys_RB.device
@@ -684,14 +727,28 @@ def sampled_hist_cuda(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
     if not (isinstance(desc, np.ndarray) and desc.dtype == np.int64
             and desc.ndim == 1 and desc.flags.c_contiguous):
         raise ValueError("desc: expected build_descriptor's int64 array")
+    form = form or desc_form(desc)
+    if form == "param" and len(desc) > MAX_DESC:
+        raise ValueError(f"desc: {len(desc)} words exceed the parameter "
+                         f"form's {MAX_DESC}")
+    if form == "buffer":
+        if desc_dev is None:
+            desc_dev = torch.as_tensor(desc, device=dev)
+        _check("desc_dev", desc_dev, torch.int64, desc.shape, dev)
+    elif form != "param":
+        raise ValueError(f"unknown form {form!r}")
     if nt.tri:
         if tri_base is None:
             tri_base = tri_table(nt, dev)
         _check("tri_base", tri_base, torch.int64, nt.tri_base.shape, dev)
     elif tri_base is not None:
         raise ValueError("tri_base: a rectangular nest has none")
-    fn = _build.load("sampled_hist").sampled_hist_launch
-    fn.argtypes = _ARGTYPES
+    if form == "param":
+        fn = _build.load("sampled_hist").sampled_hist_launch
+        fn.argtypes = _ARGTYPES
+    else:
+        fn = _build.load("sampled_hist_buf").sampled_hist_launch_buf
+        fn.argtypes = _ARGTYPES_BUF
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         residual = torch.empty_like(keys_RB)
@@ -700,21 +757,27 @@ def sampled_hist_cuda(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
         stream = torch.cuda.current_stream(dev).cuda_stream
         mask_ptr = None if mask_RB is None else mask_RB.data_ptr()
         tri_ptr = None if tri_base is None else tri_base.data_ptr()
-        rc = fn(keys_RB.data_ptr(), mask_ptr, R, B, ld,
-                desc.ctypes.data, desc.shape[0], hrec.ctypes.data,
-                rx_R.data_ptr(), tri_ptr, int(raw), residual.data_ptr(),
-                hist.data_ptr(), cold.data_ptr(), stream)
+        head = (keys_RB.data_ptr(), mask_ptr, R, B, ld, desc.ctypes.data,
+                desc.shape[0])
+        if form == "buffer":
+            head += (desc_dev.data_ptr(),)
+        rc = fn(*head, hrec.ctypes.data, rx_R.data_ptr(), tri_ptr, int(raw),
+                residual.data_ptr(), hist.data_ptr(), cold.data_ptr(),
+                stream)
         if rc != 0:
-            raise RuntimeError(f"sampled_hist_launch failed: CUDA error {rc}")
+            raise RuntimeError(f"sampled_hist_launch ({form} form) failed: "
+                               f"CUDA error {rc}")
         LAUNCHES += 1
+        BUFFER_LAUNCHES += form == "buffer"
     return residual, hist, cold
 
 
 def sampled_hist(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
                  backend: str = "auto", desc=None, tri_base=None,
-                 raw: bool = False):
+                 raw: bool = False, desc_dev=None):
     """(residual[R,B], hist[R,64], cold[R]) for one bucket dispatch
-    (`raw`: the raw-noshare form).
+    (`raw`: the raw-noshare form; `desc_dev`: the buffer form's device
+    copy of `desc`, see sampled_hist_cuda).
 
     backend "torch" takes the plain version; "auto" takes it for tensors
     on the CPU and launches the kernel for CUDA tensors; "cuda" always
@@ -727,4 +790,4 @@ def sampled_hist(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
     if backend not in ("auto", "cuda"):
         raise ValueError(f"unknown backend {backend!r}")
     return sampled_hist_cuda(nt, ref_idx, keys_RB, mask_RB, highs, rx_R,
-                             desc, tri_base, raw)
+                             desc, tri_base, raw, desc_dev)

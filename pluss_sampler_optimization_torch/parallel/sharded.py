@@ -80,7 +80,12 @@ from ..ops.histogram import (
     merge_pair_sets,
 )
 from ..ops.pow2_hist import pow2_hist_auto
-from ..ops.sampled_hist import build_descriptor, torch_vals, tri_table
+from ..ops.sampled_hist import (
+    build_descriptor,
+    device_descriptor,
+    torch_vals,
+    tri_table,
+)
 from ..runtime.hist import PRIState
 from ..sampler.draw import draw_bucket_keys_device, draw_sample_keys_device
 from ..sampler.sampled import (
@@ -99,6 +104,7 @@ from ..sampler.sampled import (
     _use_fused,
     bucket_dispatch,
     check_packed_ratios,
+    check_native,
     classify_samples,
     decode_pairs,
     decode_sample_keys,
@@ -155,7 +161,8 @@ def _kernel_route(backend: str, mesh: Mesh) -> bool:
 class _Body:
     """One shard step of a bucket (or of one ref, R = 1) on each of the
     run's devices: kernel B1's raw form or the plain body (see the
-    module docstring). The descriptor is made once; the triangular base
+    module docstring). The descriptor is made once; its buffer-form copy
+    (a descriptor past the parameter form's words), the triangular base
     table and the value overlay once per device."""
 
     def __init__(self, nt, ref_idx: int, highs, devices, backend: str,
@@ -166,6 +173,8 @@ class _Body:
         if kernel:
             self.desc = build_descriptor(nt, ref_idx)
             self.tri = {d: tri_table(nt, d) for d in devices}
+            self.desc_dev = {d: device_descriptor(self.desc, d)
+                             for d in devices}
         else:
             self.tnt = {d: nt.with_vals(torch_vals(nt.vals, d))
                         for d in devices}
@@ -180,6 +189,7 @@ class _Body:
             (pk, pc, nu, cold, _hist), _ = bucket_dispatch(
                 self.nt, self.ref_idx, keys, mask, self.ph, rx, cap,
                 self.backend, self.desc, self.tri[dev], raw=True,
+                desc_dev=self.desc_dev[dev],
             )
             return None, cold, pk, pc, nu
         tnt = self.tnt[dev]
@@ -412,6 +422,10 @@ def sampled_outputs_sharded(
     cfg = cfg or SamplerConfig()
     mesh = _resolve_mesh(mesh, device)
     backend = cfg.kernel_backend or "auto"  # validated by SamplerConfig
+    for d in mesh.devices:
+        check_native(backend, d)
+    if backend == "native":  # the CPU's plain body, as the JAX
+        backend = "torch"    # package's sharded engine ignores it
     if batch is None:
         batch = default_batch(mesh.devices[0])
     n_proc, pid = _process_grid(mesh)

@@ -59,9 +59,10 @@ import time
 import numpy as np
 import torch
 
+from ..analysis.validate import structural_signature
 from ..config import MachineConfig
 from ..core.trace import NestTrace
-from ..ir import Loop, Program, Ref
+from ..ir import Program
 from ..ops.histogram import SENTINEL
 from ..oracle.serial import OracleResult
 from ..runtime.hist import PRIState
@@ -71,6 +72,7 @@ from .sampled import (
     _RATIO_SLOTS,
     _pad_highs,
     _program_rows,
+    check_native,
     default_batch,
     resolve_device,
 )
@@ -147,18 +149,19 @@ def _registry_family_builders() -> dict:
 
 @functools.lru_cache(maxsize=None)
 def _audited_signatures(families: frozenset) -> frozenset:
-    """Structural signature digests of the audited families' IR (token
-    size n=8; signatures are size-invariant). Time-axis models are
-    seeded at tsteps in {1, 2, 3}: fdtd2d's first time step lacks the
-    previous iteration's state, so ts=1/ts=2/ts>=3 are three distinct
-    (all audited) signature variants."""
+    """Structural signatures (analysis/validate.py::structural_signature)
+    of the audited families' IR (token size n=8; signatures are
+    size-invariant). Time-axis models are seeded at tsteps in {1, 2, 3}:
+    fdtd2d's first time step lacks the previous iteration's state, so
+    ts=1/ts=2/ts>=3 are three distinct (all audited) signature
+    variants."""
     sigs = set()
     for fam, (fn, has_t) in _registry_family_builders().items():
         if fam not in families:
             continue
         for ts in (1, 2, 3) if has_t else (1,):
             prog = fn(8, tsteps=ts) if has_t else fn(8)
-            sigs.add(structural_signature_of(prog))
+            sigs.add(structural_signature(prog))
     return frozenset(sigs)
 
 
@@ -174,7 +177,7 @@ def audited_family(name_or_program) -> bool:
     families = AUDITED_FAMILIES  # module attr: tests monkeypatch it
     sigs = _audited_signatures(families)
     if isinstance(name_or_program, Program):
-        return structural_signature_of(name_or_program) in sigs
+        return structural_signature(name_or_program) in sigs
     name = name_or_program
     fam = re.split(r"-\d", name)[0]
     builders = _registry_family_builders()
@@ -182,72 +185,10 @@ def audited_family(name_or_program) -> bool:
         return fam in families
     fn, has_t = builders[fam]
     if not has_t:
-        return structural_signature_of(fn(8)) in sigs
+        return structural_signature(fn(8)) in sigs
     m = re.search(r"-t(\d+)$", name)
     ts = min(int(m.group(1)), 3) if m else 1
-    return structural_signature_of(fn(8, tsteps=max(ts, 1))) in sigs
-
-
-def _coeff_class(v: int) -> object:
-    """{0, 1, -1, "+", "-"}: literal unit strides stay distinguishable
-    from size-derived strides (n, n*n, ...) at any practical size."""
-    if v in (0, 1, -1):
-        return v
-    return "+" if v > 0 else "-"
-
-
-def _sign_class(v: int) -> object:
-    return 0 if v == 0 else ("+" if v > 0 else "-")
-
-
-def _loop_signature(lp: Loop) -> tuple:
-    step = lp.step if lp.step in (1, -1) else ("+" if lp.step > 0 else "-")
-    return (step, _sign_class(lp.start), _sign_class(lp.trip_coeff),
-            _sign_class(lp.start_coeff))
-
-
-def _ref_signature(ref: Ref, array_ids: dict[str, int]) -> tuple:
-    return (
-        array_ids[ref.array],
-        ref.level,
-        tuple(_coeff_class(c) for c in ref.coeffs),
-        _coeff_class(ref.const),
-        ref.slot,
-        ref.share_threshold is not None,
-    )
-
-
-def structural_signature(program: Program) -> tuple:
-    """Size- and tsteps-invariant shape of a program.
-
-    Nest signatures are deduplicated in first-seen order so time-model
-    unrollings ((nest_b, nest_a) * tsteps) collapse to one period; array
-    identity is program-wide first-occurrence order so multi-nest
-    producer/consumer structure (2mm vs gemm) stays distinguishable.
-    """
-    array_ids: dict[str, int] = {}
-    for nest in program.nests:
-        for r in nest.refs:
-            array_ids.setdefault(r.array, len(array_ids))
-    seen: dict[tuple, None] = {}
-    for nest in program.nests:
-        sig = (
-            len(nest.loops),
-            tuple(_loop_signature(lp) for lp in nest.loops),
-            tuple(_ref_signature(r, array_ids) for r in nest.refs),
-        )
-        seen.setdefault(sig, None)
-    return tuple(seen)
-
-
-def structural_signature_of(program: Program) -> str:
-    """The program's structural signature (the JAX package's
-    analysis/validate.py::structural_signature) as a canonical digest
-    (service/fingerprint.py::structure_digest): equal structures give
-    equal digests."""
-    from ..service.fingerprint import structure_digest
-
-    return structure_digest(structural_signature(program))
+    return structural_signature(fn(8, tsteps=max(ts, 1))) in sigs
 
 
 def warn_if_unaudited(program: Program) -> None:
@@ -322,8 +263,9 @@ class _RawClassify:
     version otherwise ("auto": the kernel for CUDA tensors, the plain
     version for CPU ones; "torch": plain; "cuda": the kernel, raising on
     the CPU). `devices` are where an unsharded call runs (the first
-    one). The descriptor is made once; the value index and a
-    triangular nest's base table once per device."""
+    one). The descriptor is made once; the value index, a triangular
+    nest's base table and the descriptor's buffer-form copy (past the
+    parameter form's words) once per device."""
 
     def __init__(self, nt: NestTrace, ref_idx: int, backend: str,
                  devices):
@@ -337,7 +279,7 @@ class _RawClassify:
 
     def _on(self, dev):
         if dev not in self._dev:
-            from ..ops.sampled_hist import tri_table
+            from ..ops.sampled_hist import device_descriptor, tri_table
 
             kernel = self.backend == "cuda" or (
                 self.backend == "auto" and dev.type == "cuda")
@@ -346,6 +288,7 @@ class _RawClassify:
                              device=dev),
                 tri_table(self.nt, dev) if self.nt.tri and kernel
                 else None,
+                device_descriptor(self.desc, dev) if kernel else None,
             )
         return self._dev[dev]
 
@@ -354,11 +297,11 @@ class _RawClassify:
         packed (reuse, slot) key, SENTINEL where never touched again."""
         from ..ops.sampled_hist import sampled_hist
 
-        rx, tri = self._on(dev)
+        rx, tri, desc_dev = self._on(dev)
         chunk = torch.from_numpy(keys).to(dev)[None]
         residual, _hist, _cold = sampled_hist(
             self.nt, self.ref_idx, chunk, None, ph, rx, self.backend,
-            self.desc, tri, raw=True,
+            self.desc, tri, raw=True, desc_dev=desc_dev,
         )
         return residual[0]
 
@@ -882,6 +825,10 @@ def run_analytic(
                              f"mesh's devices {mesh.devices}")
     else:
         devices = [resolve_device(device)]
+    for d in devices:
+        check_native(kernel_backend, d)
+    if kernel_backend == "native":  # the CPU's plain classify: the
+        kernel_backend = "torch"    # native route is the sampled engine's
     if batch is None:
         batch = _analytic_default_batch(devices[0])
     sharding = mesh if mesh is not None and mesh.size > 1 else None

@@ -50,6 +50,15 @@ def _ceil_log2(x: int) -> int:
     return max(1, int(x - 1).bit_length())
 
 
+def ref_bits(nt: NestTrace) -> int:
+    """Bits of a packed key's ref field: the JAX package's _REF_BITS (32
+    refs), more for a nest of more refs. The JAX package packs every
+    nest with 5 bits, so past 32 refs (the frontend accepts 64) its ref
+    indices run into the position field and its dense, stream and
+    periodic engines fold wrong states; here the field grows instead."""
+    return max(_REF_BITS, _ceil_log2(nt.tables.n_refs))
+
+
 def nest_geometry(nt: NestTrace):
     """(n_arrays, max_addr, n_groups) for the packed-key group space.
 
@@ -88,7 +97,7 @@ def nest_geometry(nt: NestTrace):
 
 def packed_ref_keys(
     nt: NestTrace, ri: int, v0, mrel, valid_m, pos_bits: int,
-    max_addr: int, n_groups: int, base=None,
+    max_addr: int, n_groups: int, base=None, rbits: int = _REF_BITS,
 ):
     """Packed (group, position, ref) sort keys of one ref's accesses
     over an m-grid, as a flat int64 tensor on v0's device.
@@ -207,15 +216,17 @@ def packed_ref_keys(
     grp = torch.where(
         valid, int(t.ref_arrays[ri]) * max_addr + addr, n_groups - 1
     )
-    key = (((grp << pos_bits) | pos.to(torch.int64)) << _REF_BITS) | ri
+    key = (((grp << pos_bits) | pos.to(torch.int64)) << rbits) | ri
     return key.reshape(-1)
 
 
-def sorted_fields(key, pos_bits: int, n_groups: int):
-    """(ref, position, group, valid) columns of sorted packed keys."""
-    ref_s = key & ((1 << _REF_BITS) - 1)
-    pos_s = (key >> _REF_BITS) & ((1 << pos_bits) - 1)
-    grp_s = key >> (_REF_BITS + pos_bits)
+def sorted_fields(key, pos_bits: int, n_groups: int,
+                  rbits: int = _REF_BITS):
+    """(ref, position, group, valid) columns of sorted packed keys (a
+    ref field of `rbits`, ref_bits of the nest)."""
+    ref_s = key & ((1 << rbits) - 1)
+    pos_s = (key >> rbits) & ((1 << pos_bits) - 1)
+    grp_s = key >> (rbits + pos_bits)
     return ref_s, pos_s, grp_s, grp_s != (n_groups - 1)
 
 
@@ -281,7 +292,8 @@ class _DenseNest:
         )
         self.pos_bits = _ceil_log2(pos_bound + 1)
         grp_bits = _ceil_log2(self.n_groups + 1)
-        assert grp_bits + self.pos_bits + _REF_BITS <= 63, (
+        self.rbits = ref_bits(nt)
+        assert grp_bits + self.pos_bits + self.rbits <= 63, (
             "key packing overflow")
         self.n_refs = t.n_refs
         self._dev: dict = {}
@@ -309,11 +321,12 @@ class _DenseNest:
         base = base_tab[tid, :self.lmax] if nt.tri else None
         key = torch.sort(torch.cat([
             packed_ref_keys(dnt, ri, v0, m, valid_m, self.pos_bits,
-                            self.max_addr, self.n_groups, base=base)
+                            self.max_addr, self.n_groups, base=base,
+                            rbits=self.rbits)
             for ri in range(self.n_refs)
         ])).values
         ref_s, pos_s, grp_s, is_valid = sorted_fields(
-            key, self.pos_bits, self.n_groups)
+            key, self.pos_bits, self.n_groups, self.rbits)
         del key
         same = same_as_prev(grp_s, is_valid)
         reuse = torch.where(same, pos_s - shifted(pos_s), 0)

@@ -98,7 +98,10 @@ def plan_draw(nt, ref_idx: int, cfg, batch: int):
 
 
 def _backend(cfg) -> str:
-    return cfg.kernel_backend or "auto"  # validated by SamplerConfig
+    """The draw's backend: the run's (validated by SamplerConfig), the
+    plain streams under "native" (the sampled engine's CPU route)."""
+    kb = cfg.kernel_backend or "auto"
+    return "torch" if kb == "native" else kb
 
 
 def _first_of_runs(sk):

@@ -51,12 +51,12 @@ from ..ops.histogram import sorted_k_unique
 from ..oracle.serial import OracleResult
 from ..runtime.hist import PRIState
 from .dense import (
-    _REF_BITS,
     _ceil_log2,
     nest_geometry,
     packed_ref_keys,
     per_array_count,
     pow2_counts,
+    ref_bits,
     same_as_prev,
     share_tables,
     shifted,
@@ -394,7 +394,8 @@ def _window_kernel_body(nt: NestTrace, max_share: int, pair: bool):
     n_arrays, max_addr, n_groups = nest_geometry(nt)
     pos_bits = _ceil_log2(2 * a0 + 1)
     grp_bits = _ceil_log2(n_groups + 1)
-    assert grp_bits + pos_bits + _REF_BITS <= 63, "window key overflow"
+    rbits = ref_bits(nt)
+    assert grp_bits + pos_bits + rbits <= 63, "window key overflow"
     n_m = 2 if pair else 1
     per_dev: dict = {}
 
@@ -410,12 +411,13 @@ def _window_kernel_body(nt: NestTrace, max_share: int, pair: bool):
         valid_m = torch.ones(n_m, dtype=torch.bool, device=dev)
         key = torch.sort(torch.cat([
             packed_ref_keys(
-                dnt, ri, v0, mrel, valid_m, pos_bits, max_addr, n_groups
+                dnt, ri, v0, mrel, valid_m, pos_bits, max_addr, n_groups,
+                rbits=rbits,
             )
             for ri in range(t.n_refs)
         ])).values
         ref_s, pos_s, grp_s, is_valid = sorted_fields(
-            key, pos_bits, n_groups)
+            key, pos_bits, n_groups, rbits)
         del key
         same = same_as_prev(grp_s, is_valid)
         prev_pos = shifted(pos_s)

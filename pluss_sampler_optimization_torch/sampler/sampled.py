@@ -35,10 +35,13 @@ Two runners share one drain (sampled_outputs): the bucket runner
 (cfg.fuse_refs, auto on CUDA) and the serial per-ref runner (auto on the
 CPU), with depth-bounded pipelining of the copies back
 (cfg.pipeline_depth) and per-ref checkpoints (checkpoint_dir).
-run_sampled_progressive classifies the host draw's sample sets in
-rounds of growing prefixes through the raw-noshare form, with a
-bootstrap MRC band between rounds (sampler/confidence.py) and an early
-stop at cfg.tolerance.
+`kernel_backend="native"` (the CPU only) takes the JAX package's native
+route: the serial per-ref runner, each chunk classified by the plain
+raw-noshare form and reduced by the native library's one C++ pass
+(native/classify_reduce). run_sampled_progressive classifies the host
+draw's sample sets in rounds of growing prefixes through the
+raw-noshare form, with a bootstrap MRC band between rounds
+(sampler/confidence.py) and an early stop at cfg.tolerance.
 
 Each sample's reuse interval is the forward distance, in its simulated
 thread's private access clock, to the next same-array touch of its
@@ -549,22 +552,24 @@ def _host_fuse_plan(s: int, batch: int) -> tuple[int, int]:
 
 def bucket_dispatch(nt, ref_idx, keys_RB, mask_RB, highs, rx_R,
                     capacity: int, backend: str = "auto", desc=None,
-                    tri_base=None, raw: bool = False):
+                    tri_base=None, raw: bool = False, desc_dev=None):
     """One bucket dispatch: the fused kernel, then the exact pair
     reduction of its residual stream per member. Returns
     (share_keys[R,cap], share_counts[R,cap], n_unique[R], cold[R],
     noshare_hist[R,64]) and a `reduce(capacity)` that redoes only the
     pair reduction (the kernel's outputs do not depend on capacity).
     `mask_RB` None means every lane is live. `desc` is the kernel's
-    descriptor (ops/sampled_hist.py::build_descriptor) and `tri_base` a
-    triangular nest's base table on the device (`tri_table`), both made
-    once per bucket. `raw` takes the kernel's raw-noshare form: every
-    found sample comes back as a pair and the histogram is empty."""
+    descriptor (ops/sampled_hist.py::build_descriptor), `desc_dev` its
+    buffer-form copy on the device (`device_descriptor`, None where the
+    parameter form carries it) and `tri_base` a triangular nest's base
+    table on the device (`tri_table`), all made once per bucket. `raw`
+    takes the kernel's raw-noshare form: every found sample comes back
+    as a pair and the histogram is empty."""
     from ..ops.sampled_hist import sampled_hist
 
     residual, hist, cold = sampled_hist(
         nt, ref_idx, keys_RB, mask_RB, highs, rx_R, backend, desc, tri_base,
-        raw,
+        raw, desc_dev,
     )
 
     def reduce(cap):
@@ -615,6 +620,9 @@ class Dispatch(NamedTuple):
     # a triangular nest's base table on the device (kernel routes)
     tri_base: torch.Tensor | None = None
     final: bool = True  # the members' last dispatch
+    # the descriptor's buffer-form copy on the device (kernel routes with
+    # a descriptor past the parameter form's words)
+    desc_dev: torch.Tensor | None = None
 
 
 class _PinnedStage:
@@ -684,7 +692,11 @@ def plan_dispatches(trace: ProgramTrace, rows, cfg: SamplerConfig,
     the draw ("draw", which ends in the device draw's host read of its
     counts) and of stacking and copying host keys to the device
     ("stage"); `counters` counts "ref_buckets", the buckets that draw."""
-    from ..ops.sampled_hist import build_descriptor, tri_table
+    from ..ops.sampled_hist import (
+        build_descriptor,
+        device_descriptor,
+        tri_table,
+    )
     from .draw import draw_bucket_keys_device
 
     if buckets is None:
@@ -702,9 +714,10 @@ def plan_dispatches(trace: ProgramTrace, rows, cfg: SamplerConfig,
             continue
         _count(counters, "ref_buckets")
         ph = _pad_highs(highs)
-        desc = tri = None
+        desc = tri = desc_dev = None
         if dev.type == "cuda" and backend != "torch":
             desc, tri = build_descriptor(nt, ri0), tri_table(nt, dev)
+            desc_dev = device_descriptor(desc, dev)
 
         def rx(mem):
             return torch.tensor([ri for _, ri in mem], dtype=torch.int64,
@@ -732,7 +745,7 @@ def plan_dispatches(trace: ProgramTrace, rows, cfg: SamplerConfig,
                     yield Dispatch(nt, ri0, mem, [g.s] * len(mem),
                                    g.keys[:, lo:lo + span_len],
                                    g.chosen[:, lo:lo + span_len], ph, rx_R,
-                                   desc, tri, lo + span_len >= B)
+                                   desc, tri, lo + span_len >= B, desc_dev)
         if not host_members:
             continue
         with _span(spans, "draw"):
@@ -749,7 +762,7 @@ def plan_dispatches(trace: ProgramTrace, rows, cfg: SamplerConfig,
             with _span(spans, "stage"):
                 keys_RB = stage([ka[lo:lo + span_len] for ka in keys_list])
             yield Dispatch(nt, ri0, host_members, n_samples, keys_RB, None,
-                           ph, rx_R, desc, tri, gi == n_groups - 1)
+                           ph, rx_R, desc, tri, gi == n_groups - 1, desc_dev)
 
 
 def _use_fused(cfg: SamplerConfig, device) -> bool:
@@ -892,7 +905,7 @@ def sampled_outputs(
     import os
 
     dev = resolve_device(device)
-    backend = cfg.kernel_backend or "auto"  # validated by SamplerConfig
+    backend = _sampled_backend(cfg, dev, raw_noshare)
     if batch is None:
         batch = default_batch(dev)
     trace, rows = _program_rows(program, machine)
@@ -901,6 +914,10 @@ def sampled_outputs(
         os.makedirs(checkpoint_dir, exist_ok=True)
         tag_of = _checkpoint_tagger(program, machine, cfg, batch, dev,
                                     raw_noshare)
+    if backend == "native":
+        return _sampled_outputs_native(trace, rows, cfg, dev, batch,
+                                       capacity, checkpoint_dir, tag_of,
+                                       spans, counters)
     buckets = None
     if not _use_fused(cfg, dev):
         buckets = collections.OrderedDict(
@@ -909,6 +926,116 @@ def sampled_outputs(
     return _run_dispatches(trace, rows, cfg, dev, batch, capacity, backend,
                            raw_noshare, buckets, checkpoint_dir, tag_of,
                            spans, counters)
+
+
+def check_native(backend: str, dev: torch.device) -> None:
+    """kernel_backend "native" is the CPU's route: raise elsewhere (no
+    route of the port takes another backend in its place on a card)."""
+    if backend == "native" and dev.type != "cpu":
+        raise ValueError(
+            "kernel_backend='native' is the sampled engine's CPU route "
+            "(the native library's classify_reduce): run it with "
+            f"device=\"cpu\" (--device cpu), not on {dev}"
+        )
+
+
+def _sampled_backend(cfg: SamplerConfig, dev: torch.device,
+                     raw_noshare: bool) -> str:
+    """cfg.kernel_backend of a sampled_outputs run (None: "auto"), as
+    the JAX package's _resolve_kernel_backend: "native" raises off the
+    CPU (check_native) and, like the JAX package's hist backends, gives
+    way to the raw route's plain classify under `raw_noshare` (runtime
+    v2, the r10 distribute read raw noshare keys) with a warning."""
+    backend = cfg.kernel_backend or "auto"  # validated by SamplerConfig
+    check_native(backend, dev)
+    if backend == "native" and raw_noshare:
+        warnings.warn(
+            "kernel_backend='native' ignored: v2 raw-noshare runs "
+            "require the raw classify (the native pass pow2-bins "
+            "noshare)", stacklevel=3)
+        return "torch"
+    return backend
+
+
+def _sampled_outputs_native(trace, rows, cfg, dev, batch, capacity,
+                            checkpoint_dir, tag_of, spans, counters):
+    """The JAX package's _sampled_outputs_serial(native=True) on the
+    CPU: per ref in row order its draw (the host stream, or the device
+    draw where cfg.device_draw forces it), in chunks of `batch` keys
+    each classified by the plain raw-noshare form, then reduced by one
+    C++ pass (native.classify_reduce): pow2 bins and cold into a flat
+    per-ref array, share and sub-1 noshare samples as exact pairs.
+    Counts "dispatches", "dispatches_native", "native_chunk_plan" (the
+    planned chunks per ref) and "capacity_regrows"; spans "draw",
+    "dispatch" (the classify) and "decode" (the native pass). The
+    results equal the serial runner's field for field."""
+    from .. import native as native_mod
+    from ..ops.sampled_hist import sampled_hist_plain
+    from .draw import draw_sample_keys_device
+
+    results = []
+    cap = capacity
+    for idx, (k, ri, _sig) in enumerate(rows):
+        nt = trace.nests[k]
+        name = nt.tables.ref_names[ri]
+        if checkpoint_dir is not None:
+            prior = _checkpoint_load(_checkpoint_path(checkpoint_dir, idx),
+                                     tag_of(idx, name))
+            if prior is not None:
+                results.append(prior)
+                continue
+        seed = cfg.seed * 1000003 + idx
+        drawn = None
+        with _span(spans, "draw"):
+            if _use_device_draw(cfg, dev):
+                drawn = draw_sample_keys_device(nt, ri, cfg, seed, batch,
+                                                dev)
+            if drawn is None:
+                keys_all, highs = draw_sample_keys(nt, ri, cfg, seed=seed)
+                n_samples = len(keys_all)
+                keys_all = torch.from_numpy(keys_all)
+                mask_all = None
+            else:
+                keys_all, mask_all, n_samples, highs = drawn
+        ph = _pad_highs(highs)
+        rx = torch.tensor([ri], dtype=torch.int64, device=dev)
+        bins = np.zeros(native_mod._NOSHARE_SLOTS, dtype=np.int64)
+        noshare: dict = {}
+        share: dict = {}
+        n_keys = int(keys_all.shape[0])
+        n_chunks = -(-n_keys // batch)
+        _count(counters, "native_chunk_plan", n_chunks)
+        for lo in range(0, n_keys, batch):
+            ck = keys_all[lo:lo + batch]
+            cm = None if mask_all is None else mask_all[lo:lo + batch]
+            _count(counters, "dispatches")
+            _count(counters, "dispatches_native")
+            with _span(spans, "dispatch"):
+                residual, _hist, _cold = sampled_hist_plain(
+                    nt, ri, ck[None], None if cm is None else cm[None], ph,
+                    rx, raw=True)
+                packed = residual[0].numpy()
+                cm = None if cm is None else cm.numpy()
+            with _span(spans, "decode"):
+                pk, pc, cap, regrows = native_mod.classify_reduce(
+                    packed, packed != SENTINEL, bins, mask=cm,
+                    share_cap=cap)
+                if regrows:
+                    _count(counters, "capacity_regrows", regrows)
+                decode_pairs(pk, pc, noshare, share)
+        # pow2 bins -> {2^e: count}, as the serial runner's histogram
+        for e in np.nonzero(bins[:native_mod.N_NOSHARE_BINS])[0]:
+            key = 1 << int(e)
+            noshare[key] = noshare.get(key, 0.0) + float(bins[e])
+        r = SampledRefResult(
+            name=name, noshare=noshare, share=share,
+            cold=float(bins[native_mod.N_NOSHARE_BINS]),
+            n_samples=int(n_samples))
+        if checkpoint_dir is not None:
+            _checkpoint_store(_checkpoint_path(checkpoint_dir, idx),
+                              tag_of(idx, name), r)
+        results.append(r)
+    return results
 
 
 def _run_dispatches(trace, rows, cfg, dev, batch, capacity, backend, raw,
@@ -975,7 +1102,7 @@ def _run_dispatches(trace, rows, cfg, dev, batch, capacity, backend, raw,
         with _span(spans, "dispatch"):
             out, reduce = bucket_dispatch(
                 d.nt, d.ref_idx, d.keys_RB, d.mask_RB, d.highs, d.rx_R, cap,
-                backend, d.desc, d.tri_base, raw,
+                backend, d.desc, d.tri_base, raw, d.desc_dev,
             )
             host, event = _fetch_async(out, dev)
         n_dispatches += 1
@@ -1044,7 +1171,11 @@ def warmup(
     remain). On the CPU (device="cpu") it does nothing; without a card
     it raises unless the CPU is asked for, as the runs do."""
     from ..ops import _build
-    from ..ops.sampled_hist import build_descriptor, tri_table
+    from ..ops.sampled_hist import (
+        build_descriptor,
+        device_descriptor,
+        tri_table,
+    )
     from . import threefry
     from .draw import (
         _draw_base_key,
@@ -1061,6 +1192,7 @@ def warmup(
     if batch is None:
         batch = default_batch(dev)
     backend = cfg.kernel_backend or "auto"
+    check_native(backend, dev)
     if backend != "torch":
         for name in ("sampled_hist", "threefry_draw"):
             _build.load(name)
@@ -1090,12 +1222,13 @@ def warmup(
         desc = tri_base = None
         if backend != "torch":
             desc, tri_base = build_descriptor(nt, ri0), tri_table(nt, dev)
+        desc_dev = device_descriptor(desc, dev)
         rx_R = torch.tensor([ri for _, ri in members], dtype=torch.int64,
                             device=dev)
         for raw in (False, True):
             out, _ = bucket_dispatch(nt, ri0, keys, mask, _pad_highs(highs),
                                      rx_R, capacity, backend, desc, tri_base,
-                                     raw)
+                                     raw, desc_dev)
             _fetch_async(out, dev)[1].synchronize()
     torch.cuda.synchronize(dev)
 
@@ -1247,6 +1380,7 @@ def _classify_slice(ref: dict, keys: np.ndarray, batch: int, cap_box: list,
             out, reduce = bucket_dispatch(
                 ref["nt"], ref["ri"], chunk, None, ref["ph"], ref["rx"],
                 cap_box[0], backend, ref["desc"], ref["tri"], raw=True,
+                desc_dev=ref["desc_dev"],
             )
             pk, pc, nu, c, _hist = (x.cpu().numpy() for x in out)
             while int(nu[0]) > cap_box[0]:
@@ -1322,12 +1456,19 @@ def run_sampled_progressive(
     "rounds_total", "band_width", "converged", "stopped"
     (None | "converged" | "deadline")}.
     """
-    from ..ops.sampled_hist import build_descriptor, tri_table
+    from ..ops.sampled_hist import (
+        build_descriptor,
+        device_descriptor,
+        tri_table,
+    )
     from . import confidence
 
     cfg = cfg or SamplerConfig()
     dev = resolve_device(device)
     backend = cfg.kernel_backend or "auto"  # validated by SamplerConfig
+    check_native(backend, dev)
+    if backend == "native":  # the CPU's plain classify, as the JAX
+        backend = "torch"    # package's progressive rounds ignore it
     kernel = backend != "torch" and dev.type == "cuda"
     if batch is None:
         batch = default_batch(dev)
@@ -1355,6 +1496,7 @@ def run_sampled_progressive(
                 nt, ri, cfg, seed=cfg.seed * 1000003 + idx
             )
             order = _stream_order(keys_all, cfg.seed * 1000003 + idx)
+        desc = build_descriptor(nt, ri) if kernel else None
         refs.append({
             "nt": nt,
             "ri": ri,
@@ -1362,7 +1504,8 @@ def run_sampled_progressive(
             "keys": keys_all[order],
             "ph": _pad_highs(highs),
             "rx": torch.tensor([ri], dtype=torch.int64, device=dev),
-            "desc": build_descriptor(nt, ri) if kernel else None,
+            "desc": desc,
+            "desc_dev": device_descriptor(desc, dev),
             "tri": tri_table(nt, dev) if kernel else None,
             "counts": confidence.round_counts(len(keys_all), schedule),
         })

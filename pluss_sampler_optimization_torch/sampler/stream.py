@@ -39,12 +39,12 @@ from ..ops.sampled_hist import torch_vals
 from ..oracle.serial import OracleResult
 from ..runtime.hist import PRIState
 from .dense import (
-    _REF_BITS,
     _ceil_log2,
     nest_geometry,
     packed_ref_keys,
     per_array_count,
     pow2_counts,
+    ref_bits,
     same_as_prev,
     share_tables,
     shifted,
@@ -85,7 +85,8 @@ def _stream_nest_kernel(nt: NestTrace, chunk_m: int, max_share: int,
         pos_bits = _ceil_log2(chunk_m * a0 + 1)
         base_tab = None
     grp_bits = _ceil_log2(n_groups + 1)
-    assert grp_bits + pos_bits + _REF_BITS <= 63, "key packing overflow"
+    rbits = ref_bits(nt)
+    assert grp_bits + pos_bits + rbits <= 63, "key packing overflow"
 
     local_counts = [sched.local_count(tt) for tt in range(sched.threads)]
     thr_table, ratio_table = share_tables(nt, dev)
@@ -110,7 +111,7 @@ def _stream_nest_kernel(nt: NestTrace, chunk_m: int, max_share: int,
         return torch.sort(torch.cat([
             packed_ref_keys(
                 dnt, ri, v0, mrel, valid_m, pos_bits, max_addr, n_groups,
-                base=base,
+                base=base, rbits=rbits,
             )
             for ri in range(t.n_refs)
         ])).values
@@ -119,7 +120,7 @@ def _stream_nest_kernel(nt: NestTrace, chunk_m: int, max_share: int,
         last_pos, nosh, n_acc = carry
         key = enumerate_chunk(tid, m0)
         ref_s, pos_rel, grp_s, is_valid = sorted_fields(
-            key, pos_bits, n_groups)
+            key, pos_bits, n_groups, rbits)
         del key
         # position in the thread's nest-local clock (reuse intervals are
         # position differences, so any constant offset cancels)

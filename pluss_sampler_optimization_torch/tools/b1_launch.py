@@ -8,20 +8,25 @@ parameter block of 8 * (9 + MAX_DESC) bytes, 16,456 B at the package's
 MAX_DESC of 2048 words, whatever the descriptor's own length. To see
 whether that block costs time per launch, the source is built twice
 with nvcc, started together: as the package builds it, and with
--DMAX_DESC=384 (a 3,144 B block; GEMM's descriptors have 173 words).
+-DMAX_DESC=384 (a 3,144 B block; GEMM's descriptors have 173 words),
+beside the buffer form's library (csrc/sampled_hist_buf.cu).
 On GEMM N=2048's descriptors and radices (ratio 0.1) and numpy-seeded
 keys in range, at the sizes of the main path's small dispatches (R x B:
 the {C0,C1} bucket's 2 x 41,944, a last chunk's 1 x 201,327 of {A0},
 and one block's 1 x 256), it times
 
 - back-to-back raw launches of each build through ctypes (outputs
-  allocated once, no zero fill), in turns 16 KB, 3 KB, 3 KB, 16 KB, each
-  turn the mean of LAUNCHES launches between two CUDA events; and the
-  host's seconds per call over the same launches;
+  allocated once, no zero fill), and of the buffer form
+  (sampled_hist_launch_buf: the descriptor in a device buffer, staged in
+  each block's shared memory, a 72 B parameter block), in turns 16 KB,
+  3 KB, buffer, buffer, 3 KB, 16 KB, each turn the mean of LAUNCHES
+  launches between two CUDA events; and the host's seconds per call over
+  the same launches;
 - the package's wrapper sampled_hist_cuda (which allocates and zeroes
-  its outputs and packs the radix records) on the same inputs.
+  its outputs and packs the radix records) on the same inputs, in the
+  parameter form and in the buffer form.
 
-Both builds' outputs must equal the wrapper's. Prints the card line,
+Every raw launch's outputs must equal the wrapper's. Prints the card line,
 one line per size, then one JSON object.
 
 With --b2 it times kernel B2 (csrc/pow2_hist.cu) at the sharded
@@ -168,17 +173,22 @@ def main(argv=None) -> int:
     print(f"card: {_card_line()}")
     if opts.b2:
         return b2_main()
-    variants = {"16KB": (), "3KB": (f"MAX_DESC={SHORT_MAX_DESC}",)}
+    variants = {"16KB": ("sampled_hist", ()),
+                "3KB": ("sampled_hist", (f"MAX_DESC={SHORT_MAX_DESC}",)),
+                "buffer": ("sampled_hist_buf", ())}
     with ThreadPoolExecutor(len(variants)) as ex:
         paths = dict(zip(variants, ex.map(
-            lambda defs: _build.build("sampled_hist", True, defs)[0],
+            lambda v: _build.build(v[0], True, v[1])[0],
             variants.values())))
     fns = {}
-    for name, path in paths.items():
-        fn = ctypes.CDLL(path).sampled_hist_launch
+    for name in ("16KB", "3KB"):
+        fn = ctypes.CDLL(paths[name]).sampled_hist_launch
         fn.argtypes = sh._ARGTYPES
         fn.restype = ctypes.c_int
         fns[name] = fn
+    buf_fn = ctypes.CDLL(paths["buffer"]).sampled_hist_launch_buf
+    buf_fn.argtypes = sh._ARGTYPES_BUF
+    buf_fn.restype = ctypes.c_int
     dev = torch.device("cuda")
     buckets = _gemm_buckets(2048)
     rng = np.random.default_rng(0)
@@ -186,6 +196,7 @@ def main(argv=None) -> int:
     for label, R, B in SIZES:
         nt, ri0, highs, refs = buckets[label]
         desc = sh.build_descriptor(nt, ri0)
+        desc_dev = torch.as_tensor(desc, device=dev)
         hrec = sh.radix_records(highs)
         space = int(np.prod(highs))
         keys = torch.from_numpy(
@@ -194,14 +205,15 @@ def main(argv=None) -> int:
         want = sh.sampled_hist_cuda(nt, ri0, keys, None, highs, rx, desc)
         stream = torch.cuda.current_stream(dev).cuda_stream
         raw = {}
-        for name, fn in fns.items():
+        for name, fn in (*fns.items(), ("buffer", buf_fn)):
             out = (torch.empty_like(keys),
                    torch.zeros((R, sh.N_BINS), dtype=torch.int64,
                                device=dev),
                    torch.zeros(R, dtype=torch.int64, device=dev))
+            extra = (desc_dev.data_ptr(),) if name == "buffer" else ()
             args = (keys.data_ptr(), None, R, B, B, desc.ctypes.data,
-                    desc.shape[0], hrec.ctypes.data, rx.data_ptr(), None, 0,
-                    *(t.data_ptr() for t in out), stream)
+                    desc.shape[0], *extra, hrec.ctypes.data, rx.data_ptr(),
+                    None, 0, *(t.data_ptr() for t in out), stream)
             if fn(*args) != 0:
                 raise RuntimeError(f"{name} launch failed")
             torch.cuda.synchronize()
@@ -213,16 +225,19 @@ def main(argv=None) -> int:
                 fn(*args)
 
             raw[name] = launch
-        turns = {name: [] for name in fns}
-        for name in ("16KB", "3KB", "3KB", "16KB"):
+        turns = {name: [] for name in raw}
+        for name in ("16KB", "3KB", "buffer", "buffer", "3KB", "16KB"):
             turns[name].append(_time(raw[name], LAUNCHES))
 
-        def wrapper():
-            sh.sampled_hist_cuda(nt, ri0, keys, None, highs, rx, desc)
+        def wrapper(form=None):
+            sh.sampled_hist_cuda(nt, ri0, keys, None, highs, rx, desc,
+                                 desc_dev=desc_dev, form=form)
 
         w_ms, w_us = _time(wrapper, LAUNCHES)
+        wb_ms, wb_us = _time(lambda: wrapper("buffer"), LAUNCHES)
         row = {"bucket": label, "R": R, "B": B, "wrapper_ms": w_ms,
-               "wrapper_host_us": w_us}
+               "wrapper_host_us": w_us, "wrapper_buffer_ms": wb_ms,
+               "wrapper_buffer_host_us": wb_us}
         for name, t in turns.items():
             row[f"raw_{name}_ms"] = sum(x[0] for x in t) / len(t)
             row[f"raw_{name}_host_us"] = sum(x[1] for x in t) / len(t)
@@ -230,8 +245,11 @@ def main(argv=None) -> int:
         print(f"b1_launch: {label} {R}x{B}: raw launch, 16 KB block "
               f"{row['raw_16KB_ms']:.4f} ms ({row['raw_16KB_host_us']:.1f} "
               f"us host), 3 KB block {row['raw_3KB_ms']:.4f} ms "
-              f"({row['raw_3KB_host_us']:.1f} us host); wrapper "
-              f"{w_ms:.4f} ms ({w_us:.1f} us host)")
+              f"({row['raw_3KB_host_us']:.1f} us host), buffer form "
+              f"{row['raw_buffer_ms']:.4f} ms "
+              f"({row['raw_buffer_host_us']:.1f} us host); wrapper "
+              f"{w_ms:.4f} ms ({w_us:.1f} us host), buffer form "
+              f"{wb_ms:.4f} ms ({wb_us:.1f} us host)")
     print(json.dumps({"b1_launch": rows}))
     return 0
 

@@ -82,3 +82,46 @@ def tri_step2_program(Loop, ParallelNest, Program, Ref):
         loops=(Loop(8, step=2), Loop(trip=1, trip_coeff=1)),
         refs=(Ref("A0", "A", level=1, coeffs=(8, 1)),),
     ),))
+
+
+# Nests past kernel B1's old descriptor limits (a parameter block of
+# MAX_DESC = 2048 words, sink groups of MAX_MEMBERS = 8 refs): many refs
+# of one array in a 3-deep nest, which the frontend accepts up to its
+# MAX_REFS_PER_NEST = 64.
+def distinct_maps_program(Loop, ParallelNest, Program, Ref, n: int,
+                          n_refs: int = 64):
+    """`n_refs` refs of array A at level 2, each of its own flat map
+    (constants 0..n_refs-1, the odd ones along j, the even ones along k):
+    one sink group per ref, a descriptor of about 2,460 words at 64."""
+    refs = tuple(
+        Ref(f"A{r}", "A", level=2,
+            coeffs=(n, 1, 0) if r % 2 else (n, 0, 1), const=r)
+        for r in range(n_refs)
+    )
+    return Program(name=f"distinct-maps-{n_refs}", nests=(ParallelNest(
+        loops=(Loop(n), Loop(n), Loop(n)), refs=refs),))
+
+
+def one_map_program(Loop, ParallelNest, Program, Ref, n: int, n_refs: int,
+                    tri: bool = False):
+    """`n_refs` refs of array C with one flat map, C[i][k] at level 2, and
+    a share ref of array B: one sink group of `n_refs` members. `tri`
+    makes the innermost level triangular (k <= i), as syrk-tri's."""
+    inner = Loop(trip=1, trip_coeff=1) if tri else Loop(n)
+    refs = tuple(Ref(f"C{r}", "C", level=2, coeffs=(n, 0, 1))
+                 for r in range(n_refs))
+    refs += (Ref("B0", "B", level=2, coeffs=(0, 1, n),
+                 share_threshold=(n + 1) * n + 1),)
+    name = f"one-map-{n_refs}" + ("-tri" if tri else "")
+    return Program(name=name, nests=(ParallelNest(
+        loops=(Loop(n), Loop(n), inner), refs=refs),))
+
+
+def past_limits_programs(Loop, ParallelNest, Program, Ref, n: int) -> list:
+    """The made nests past both old limits: 64 distinct maps; 9 and 17
+    members of one map; a triangular nest of 9 members."""
+    return [distinct_maps_program(Loop, ParallelNest, Program, Ref, n),
+            one_map_program(Loop, ParallelNest, Program, Ref, n, 9),
+            one_map_program(Loop, ParallelNest, Program, Ref, n, 17),
+            one_map_program(Loop, ParallelNest, Program, Ref, n, 9,
+                            tri=True)]

@@ -5,7 +5,8 @@ subprocess with --platform cpu, the port's in this process with --device
 cpu): the exact router on a triangular model, the periodic engine on an
 odd machine diffed against the serial oracle, and the trace logs.
 `speed` prints the JAX CLI's line format; the refusals of flags that do
-not apply, and the routes not ported yet, raise as there.
+not apply raise as there. The native engines (the C++ serial walk and
+its threaded form) print the JAX CLI's lines.
 """
 
 import os
@@ -92,7 +93,7 @@ def test_speed_line_format(capsys):
     (["acc", "--engine", "stream", "--kernel-backend", "torch"],
      "--kernel-backend"),
     (["speed", "--diff-against", "oracle"], "--diff-against compares"),
-    (["acc", "--diff-against", "native"], "unknown --diff-against"),
+    (["acc", "--diff-against", "pallas"], "unknown --diff-against"),
     (["acc", "--engine", "dense", "--r10"], "--r10 needs a sampled"),
     (["sample", "--engine", "periodic"], "sample mode needs"),
     (["acc", "--model", "gemm", "--tsteps", "2"], "no time-step"),
@@ -103,9 +104,24 @@ def test_refusals(argv, match):
 
 
 @pytest.mark.parametrize("engine", ["native", "native-par"])
-def test_native_is_not_ported_yet(engine):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-        main(["acc", "--n", "8", "--engine", engine, "--device", "cpu"])
+def test_native_engines_print_the_jax_lines(engine, capsys):
+    """acc and --diff-against oracle through the native engines: the JAX
+    CLI's lines (its CLI in this process, as the JAX package's tests
+    call it)."""
+    from _torch_native import native_built
+
+    from pluss_sampler_optimization_tpu.cli import main as j_main
+
+    native_built()
+    argv = ["acc", "--model", "syrk", "--n", "14", "--threads", "3",
+            "--engine", engine]
+    assert j_main([*argv, "--platform", "cpu"]) == 0
+    want = capsys.readouterr().out
+    assert main([*argv, "--device", "cpu"]) == 0
+    assert capsys.readouterr().out == want
+    assert main([*argv, "--diff-against", "oracle", "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.endswith(
+        f"acc dumps identical: {engine} vs oracle\n")
 
 
 def test_acc_needs_cuda_unless_cpu(monkeypatch):

@@ -63,6 +63,12 @@ COPIED = (
                                 "timing.py", "debug.py")]
     + [f"oracle/{f}" for f in ("__init__.py", "serial.py", "numpy_ref.py",
                                "profiler.py")]
+    + ["runtime/io.py"]
+    + [f"native/{f}" for f in ("__init__.py", "pluss_native.cpp",
+                               "Makefile")]
+    + [f"analysis/{f}" for f in ("__init__.py", "validate.py", "deps.py",
+                                 "bounds.py", "lint_common.py")]
+    + [f"frontend/{f}" for f in ("__init__.py", "schema.py", "parse.py")]
 )
 
 
