@@ -6,6 +6,7 @@
     python3 chip_smoke.py --scaling-only   # the fused sharded form, 1..all cards
     python3 chip_smoke.py --exact-only     # the exact engines (phase 17)
     python3 chip_smoke.py --frontend-only  # the frontend (phase 18)
+    python3 chip_smoke.py --obs-only       # observability (phase 19)
 
 SamplerConfig() resolves to the device draw on the card (threefry on
 kernel B3), as the JAX package's auto does on an accelerator. Phases,
@@ -191,14 +192,36 @@ each printing its own lines; any failure exits non-zero:
    analytic engine's fits; d. the CLI `acc --program-json` of a dumped
    gemm N=128 prints what `acc --model gemm --n 128` prints and
    `--mrc-out` writes the same bytes; `analyze --model syrk-tri` exits
-   0. The phase's B1 and B3 launches are counted in the kernels line.
+   0. The phase's B1 and B3 launches are counted in the kernels line;
+19. observability (runtime/telemetry.py, runtime/obs/): a. GEMM --n and
+   the headline 2*--n with telemetry off, on and device-synced (two
+   interleaved runs each): wall times, equal states and MRC digests,
+   the span tree's top level, counters and gauges, each document
+   through the check_telemetry_schema and check_dispatch_stats
+   (--require-fused) twins; the sharded fused form at --n/2 under
+   telemetry with every B2 launch bit-equal to plain; b. the CLI in
+   four concurrent subprocesses: `sample --model gemm --n 1024` and its
+   `--engine
+   sharded` with --telemetry-out, --trace-out, --metrics-out, --ledger
+   and --profile-dir (trace spans equal the document's, Prometheus
+   pluss_dispatches_total, the torch.profiler trace names
+   sampled_hist_kernel, randint_kernel and, sharded, pow2_hist_kernel;
+   their MRC digests equal the in-process run's), `acc --engine exact
+   --model syrk-tri --n 384` and `speed --reps 3` with --ledger, then
+   `stats` and the check_ledger twin (every row with compile_delta); c.
+   drift_audit(gemm, 256) on the card and the check_drift twin, no
+   breach; d. profile_stages at GEMM 2048: each stage's median, the B1
+   and B3 launches, one device draw and one B1 dispatch of it bit-equal
+   to plain; e. a flight-recorder bundle with the CUDA memory snapshot
+   through the check_bundle twin, the check_profile (gemm(1024)) and
+   check_slo twins. The in-process launches join the kernels line.
 
 Then one JSON line of kernel numbers (B1 timed over the dispatches of
 phases 5 and 13, its launches those of phases 7, 8b's serial run, 8c,
-10, 11b, 11c, 12, 12b, 14, 15, 16, 17 and 18; B2 timed on phase 10's
-inputs, its launches those of phases 10-12 and 16; B3 timed on the 8
-calls of GEMM-2048's draw, its launches those of phases 7, 8, 8c, 10-12,
-14-16 and 18), the nvidia-smi line,
+10, 11b, 11c, 12, 12b, 14, 15, 16, 17, 18 and 19; B2 timed on phase
+10's inputs, its launches those of phases 10-12, 16 and 19; B3 timed
+on the 8 calls of GEMM-2048's draw, its launches those of phases 7, 8,
+8c, 10-12, 14-16, 18 and 19), the nvidia-smi line,
 and last the result line {"ok": true, "device": {...}}. Imports nothing
 of JAX.
 """
@@ -2630,6 +2653,382 @@ def phase_frontend() -> tuple:
           f"{b3_total} B3 launches")
     return b1_total, b3_total, tot, seconds
 
+OBS_SAMPLE = ("sample", "--model", "gemm", "--n", "1024")
+OBS_EXACT = ("acc", "--engine", "exact", "--model", "syrk-tri", "--n", "384")
+OBS_SPEED = ("speed", "--reps", "3")
+OBS_DRIFT = ("gemm", 256)
+OBS_STAGES_N = 2048
+# check_profile's engine arm: a run that waits on the card for most of its
+# wall (at GEMM-256 the host's own work let the sampler thread take the
+# GIL: +2.80% against the 3% budget)
+OBS_PROFILE_N = 1024
+
+
+def _top_spans(doc: dict) -> str:
+    """The telemetry document's root spans and their children, summed by
+    name: "engine 0.351 s (bucket x12 0.301 s, fetch x3 0.010 s, ...)"."""
+    parts = []
+    for root in doc["spans"]:
+        agg: dict = {}
+        for c in root["children"]:
+            tot, n = agg.get(c["name"], (0.0, 0))
+            agg[c["name"]] = (tot + c["wall_s"], n + 1)
+        kids = ", ".join(f"{k} x{n} {t:.3f} s" for k, (t, n) in agg.items())
+        parts.append(f"{root['name']} {root['wall_s']:.3f} s ({kids})")
+    return "; ".join(parts)
+
+
+def _span_names(doc: dict) -> set:
+    out = set()
+    stack = list(doc["spans"])
+    while stack:
+        sp = stack.pop()
+        out.add(sp["name"])
+        stack.extend(sp["children"])
+    return out
+
+
+def _tool(module: str, *argv) -> None:
+    """One of the port's tool twins in this process (its main(argv));
+    raises unless it exits 0."""
+    import importlib
+
+    rc = importlib.import_module(
+        f"pluss_sampler_optimization_torch.tools.{module}").main(list(argv))
+    if rc:
+        raise AssertionError(f"obs: {module} {' '.join(argv)} exited {rc}")
+
+
+def _digest(state, machine) -> str:
+    from pluss_sampler_optimization_torch.runtime.obs.ledger import (
+        mrc_digest,
+    )
+
+    return mrc_digest(_state_mrc(state, machine)[1])
+
+
+def phase_obs(n: int, card: str) -> tuple:
+    """Phase 19, telemetry and observability on the card; returns the
+    phase's in-process (B1, B2, B3) launches.
+
+    a. GEMM n and the headline 2n (ratio 0.1, seed 0, device draw)
+       with telemetry disabled, enabled, and enabled with device_sync,
+       interleaved twice: wall times, equal states and MRC digests, the
+       span tree's top level and the counters; each exported document
+       through the check_telemetry_schema and check_dispatch_stats
+       (--require-fused) twins. The sharded engine's fused form at n/2
+       under telemetry: every B2 launch held bit-equal to plain;
+    b. the CLI in four concurrent subprocesses: `sample` and `sample
+       --engine sharded`
+       at GEMM 1024 with every observability flag, `acc --engine exact`
+       on syrk-tri(384) and `speed --reps 3` with --ledger, then `stats`
+       and the check_ledger twin; the Chrome traces' span names equal
+       their documents', the Prometheus text counts dispatches, the
+       torch.profiler traces name B1's, B2's and B3's kernels, the
+       sample rows' digests equal the in-process run's;
+    c. drift_audit on gemm(256) on the card and the check_drift twin;
+    d. profile_stages at GEMM 2048: stage medians, B1 and B3 launches,
+       one B1 dispatch and one device draw bit-equal to plain;
+    e. a flight-recorder bundle with the CUDA memory snapshot through the
+       check_bundle twin, the check_profile (GEMM 1024) and check_slo
+       twins."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pluss_sampler_optimization_torch.config import (
+        MachineConfig,
+        SamplerConfig,
+    )
+    from pluss_sampler_optimization_torch.models import gemm
+    from pluss_sampler_optimization_torch.parallel import build_mesh
+    from pluss_sampler_optimization_torch.runtime import telemetry
+    from pluss_sampler_optimization_torch.runtime.obs import (
+        drift,
+        ledger,
+        recorder,
+    )
+    from pluss_sampler_optimization_torch.runtime.obs.stage_profile import (
+        profile_stages,
+    )
+    from pluss_sampler_optimization_torch.sampler.sampled import run_sampled
+
+    t_phase = time.perf_counter()
+    machine = MachineConfig()
+    cfg = SamplerConfig(ratio=0.1, seed=0)
+    b1 = b2 = b3 = 0
+    tmp = tempfile.mkdtemp(prefix="obs_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    led = os.path.join(tmp, "ledger.jsonl")
+    print(f"obs: card {card}")
+
+    # a. telemetry off, on and device-synced
+    modes = (("off", None), ("on", False), ("synced", True))
+    for size in (n, 2 * n):
+        walls: dict = {m: [] for m, _ in modes}
+        seen: dict = {}
+        for rep in range(2):
+            for mode, sync in modes:
+                tele = None if sync is None else telemetry.enable(
+                    device_sync=sync)
+                _reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _ = run_sampled(gemm(size), machine, cfg)
+                torch.cuda.synchronize()
+                walls[mode].append(time.perf_counter() - t0)
+                telemetry.disable()
+                l1, _, l3 = _launches()
+                b1, b3 = b1 + l1, b3 + l3
+                got = (_state_mrc(state, machine)[0], _digest(state, machine))
+                if seen and got != next(iter(seen.values())):
+                    raise AssertionError(f"obs: gemm({size}) telemetry "
+                                         f"{mode}: state or MRC digest "
+                                         "differs from the run with it off")
+                seen[mode] = got
+                if tele is not None and rep == 1:
+                    doc = tele.to_json()
+                    path = os.path.join(tmp, f"tele_{size}_{mode}.json")
+                    tele.write_json(path)
+                    print(f"obs: gemm({size}) telemetry {mode}: "
+                          f"{_top_spans(doc)}; counters "
+                          f"{json.dumps(doc['counters'], sort_keys=True)}; "
+                          f"gauges {json.dumps(doc['gauges'], sort_keys=True)}")
+                    _tool("check_telemetry_schema", path)
+                    _tool("check_dispatch_stats", "--require-fused", path)
+        print(f"obs: gemm({size}) wall, telemetry off "
+              f"{walls['off'][0]:.3f} / {walls['off'][1]:.3f} s, on "
+              f"{walls['on'][0]:.3f} / {walls['on'][1]:.3f} s, synced "
+              f"{walls['synced'][0]:.3f} / {walls['synced'][1]:.3f} s "
+              f"(two interleaved runs each); MRC digest "
+              f"{seen['off'][1]} in all six; {card}")
+    # the sharded engine's fused form under telemetry: B2 vs plain
+    inputs: list = []
+    tele = telemetry.enable()
+    try:
+        run = _sharded_run(gemm(n // 2), cfg, build_mesh(), record_b2=inputs)
+    finally:
+        telemetry.disable()
+    l1, l2, l3 = run["launches"]
+    b1, b2, b3 = b1 + l1, b2 + l2, b3 + l3
+    for i, (values, weights) in enumerate(inputs):
+        _b2_compare(f"obs sharded launch {i}", values, weights)
+    doc = tele.to_json()
+    if not l2 or l2 != len(inputs):
+        raise AssertionError(f"obs: sharded gemm({n // 2}): {l2} B2 launches, "
+                             f"{len(inputs)} recorded")
+    print(f"obs: sharded gemm({n // 2}) under telemetry: {l1} B1, {l2} B2, "
+          f"{l3} B3 launches, every B2 launch bit-equal to plain; "
+          f"{_top_spans(doc)}")
+
+    # b. the CLI
+    _reset_launches()
+    want = _digest(run_sampled(gemm(1024), machine, cfg)[0], machine)
+    l1, _, l3 = _launches()
+    b1, b3 = b1 + l1, b3 + l3
+    # the four CLI runs as concurrent processes on the card (each one's
+    # start-up, about 8 s, overlaps the others'); their ledger rows carry
+    # each engine's own latency
+    runs = []
+    for label, argv in (("sample", OBS_SAMPLE),
+                        ("sharded", OBS_SAMPLE + ("--engine", "sharded")),
+                        ("exact", OBS_EXACT), ("speed", OBS_SPEED)):
+        flags = ["--ledger", led]
+        files = {}
+        if label in ("sample", "sharded"):
+            files = {k: os.path.join(tmp, f"{label}_{k}") for k in
+                     ("tele.json", "trace.json", "metrics.prom", "prof")}
+            flags += ["--telemetry-out", files["tele.json"],
+                      "--trace-out", files["trace.json"],
+                      "--metrics-out", files["metrics.prom"],
+                      "--profile-dir", files["prof"]]
+        with open(os.path.join(tmp, f"{label}.err"), "w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "pluss_sampler_optimization_torch",
+                 *argv, *flags], stdout=subprocess.DEVNULL, stderr=err)
+        runs.append((label, argv, flags, files, proc))
+    t0 = time.perf_counter()
+    try:
+        for label, argv, flags, files, proc in runs:
+            proc.wait(timeout=300)
+            if proc.returncode:
+                with open(os.path.join(tmp, f"{label}.err")) as f:
+                    err = f.read()
+                raise AssertionError(f"obs: CLI {' '.join(argv)} exited "
+                                     f"{proc.returncode}:\n{err[-3000:]}")
+            print(f"obs: CLI {' '.join(argv)} with "
+                  f"{', '.join(flags[::2])}: done "
+                  f"{time.perf_counter() - t0:.2f} s after the four started")
+    finally:
+        for run in runs:
+            if run[-1].poll() is None:
+                run[-1].kill()
+    for label, argv, flags, files, proc in runs:
+        if not files:
+            continue
+        with open(files["tele.json"]) as f:
+            doc = json.load(f)
+        with open(files["trace.json"]) as f:
+            trace = json.load(f)
+        names = {e["name"] for e in trace["traceEvents"]
+                 if e.get("ph") == "X"}
+        if names != _span_names(doc):
+            raise AssertionError(f"obs: {label}: Chrome trace spans "
+                                 f"{sorted(names)} != the document's "
+                                 f"{sorted(_span_names(doc))}")
+        with open(files["metrics.prom"]) as f:
+            prom = f.read()
+        if "pluss_dispatches_total " not in prom:
+            raise AssertionError(f"obs: {label}: no dispatches_total line")
+        prof_text = ""
+        for name in os.listdir(files["prof"]):
+            with open(os.path.join(files["prof"], name)) as f:
+                prof_text += f.read()
+        kernels = ["sampled_hist_kernel", "randint_kernel"]
+        if label == "sharded":
+            kernels.append("pow2_hist_kernel")
+        missing = [k for k in kernels if k not in prof_text]
+        if missing:
+            raise AssertionError(f"obs: {label}: profiler trace lacks "
+                                 f"{missing}")
+        _tool("check_telemetry_schema", files["tele.json"])
+        print(f"obs: CLI {label}: trace spans {sorted(names)} equal the "
+              f"document's; Prometheus pluss_dispatches_total "
+              f"{doc['counters'].get('dispatches')}; profiler trace names "
+              f"{', '.join(kernels)}; builds {doc['jax_monitoring']}")
+    out = subprocess.run(
+        [sys.executable, "-m", "pluss_sampler_optimization_torch", "stats",
+         "--ledger", led], capture_output=True, text=True, timeout=120)
+    if out.returncode:
+        raise AssertionError(f"obs: stats exited {out.returncode}")
+    for line in out.stdout.splitlines():
+        print(f"obs: stats: {line}")
+    _tool("check_ledger", led)
+    rows = ledger.read_rows(led)
+    for row in rows:
+        if "compile_delta" not in row:
+            raise AssertionError(f"obs: ledger row without compile_delta: "
+                                 f"{row}")
+        print(f"obs: ledger row {row['engine_requested']} "
+              f"{row['model']}({row['n']}): engine {row['engine_used']}, "
+              f"latency {row['latency_s']} s, MRC digest "
+              f"{row['mrc_digest']}, compile_delta {row['compile_delta']}")
+    digests = sorted(r["mrc_digest"] for r in rows
+                     if r["engine_requested"] in ("sampled", "sharded"))
+    if digests != [want, want]:
+        raise AssertionError(f"obs: CLI sample/sharded digests {digests} "
+                             f"!= the in-process run's {want}")
+    print(f"obs: ledger {len(rows)} rows valid; sample and sharded MRC "
+          f"digest {want} equal the in-process run's (telemetry off)")
+
+    # c. the drift audit
+    _reset_launches()
+    row = drift.drift_audit(*OBS_DRIFT, device="cuda", ledger_path=led)
+    l1, _, l3 = _launches()
+    b1, b3 = b1 + l1, b3 + l3
+    if row["breach"] or not (row["mrc_digest_exact"]
+                             and row["mrc_digest_sampled"]):
+        raise AssertionError(f"obs: drift row {row}")
+    _tool("check_drift", "--models", OBS_DRIFT[0], "--n", str(OBS_DRIFT[1]),
+          "--device", "cuda", "--ledger", led)
+    print(f"obs: drift gemm({OBS_DRIFT[1]}) on the card: exact "
+          f"{row['engine_exact']}, max_abs {row['max_abs_delta']}, mean_abs "
+          f"{row['mean_abs_delta']}, digests {row['mrc_digest_exact']} / "
+          f"{row['mrc_digest_sampled']}, {row['latency_s']:.3f} s, no breach "
+          f"({l1} B1, {l3} B3 launches)")
+
+    # d. the stage profile
+    _reset_launches()
+    res = profile_stages(n=OBS_STAGES_N, reps=5, device="cuda",
+                         out=lambda *a: None)
+    l1, _, l3 = _launches()
+    b1, b3 = b1 + l1, b3 + l3
+    for stage, ms in res["stage_ms"].items():
+        note = {"device_draw": f" ({l3} B3 launches in the profile)",
+                "scan_kernel": f" ({l1} B1 launches in the profile)",
+                }.get(stage, "")
+        print(f"obs: stage gemm({OBS_STAGES_N}) {stage}: {ms:.3f} ms{note}")
+    b1 += _stage_kernels_vs_plain(OBS_STAGES_N)
+    print(f"obs: stage profile: B1 dispatch and device draw (B3) bit-equal "
+          f"to plain; {card}")
+
+    # e. the recorder, check_profile and check_slo
+    bdir = os.path.join(tmp, "bundles")
+    rec = recorder.FlightRecorder(bdir, profile=True, ledger_path=led)
+    path = rec.dump("dump_debug")
+    with open(path) as f:
+        bundle = json.load(f)
+    if not bundle["profile"] or not os.path.exists(bundle["profile"]):
+        raise AssertionError("obs: bundle without its CUDA memory snapshot")
+    _tool("check_bundle", bdir)
+    print(f"obs: bundle {os.path.basename(path)} with its CUDA memory "
+          f"snapshot ({os.path.getsize(bundle['profile'])} B) passes "
+          "check_bundle")
+    _reset_launches()
+    _tool("check_profile", "--device", "cuda", "--n", str(OBS_PROFILE_N))
+    _tool("check_slo", led)
+    l1, _, l3 = _launches()
+    b1, b3 = b1 + l1, b3 + l3
+    print(f"obs: check_profile (gemm({OBS_PROFILE_N}) on the card) and "
+          f"check_slo passed")
+    shutil.rmtree(tmp)
+    print(f"obs: phase 19 took {time.perf_counter() - t_phase:.1f} s; "
+          f"{b1} B1, {b2} B2, {b3} B3 launches in this process")
+    return b1, b2, b3
+
+
+def _stage_kernels_vs_plain(n: int) -> int:
+    """profile_stages' two kernel stages once against plain: a device
+    draw of GEMM n's ref 0 under "cuda" (B3) and "torch" (bit-equal keys
+    and mask), then its buffer's dispatch through B1 and through the
+    plain version (bit-equal outputs); returns the B1 launches."""
+    import torch
+
+    from pluss_sampler_optimization_torch.config import (
+        MachineConfig,
+        SamplerConfig,
+    )
+    from pluss_sampler_optimization_torch.core.trace import ProgramTrace
+    from pluss_sampler_optimization_torch.models import gemm
+    from pluss_sampler_optimization_torch.ops.sampled_hist import (
+        build_descriptor,
+        device_descriptor,
+        tri_table,
+    )
+    from pluss_sampler_optimization_torch.sampler import sampled as S
+    from pluss_sampler_optimization_torch.sampler.draw import (
+        draw_sample_keys_device,
+    )
+
+    dev = torch.device("cuda")
+    nt = ProgramTrace(gemm(n), MachineConfig()).nests[0]
+    batch = S.default_batch(dev)
+    draws = [draw_sample_keys_device(
+        nt, 0, SamplerConfig(ratio=0.1, seed=0, device_draw=True,
+                             kernel_backend=kb), 0, batch, dev)
+             for kb in ("cuda", "torch")]
+    (dk, dm, s, highs), plain = draws
+    if not (torch.equal(dk, plain[0]) and torch.equal(dm, plain[1])):
+        raise AssertionError("obs: stage profile's device draw: B3 differs "
+                             "from plain")
+    span = min(dk.shape[0], S._FUSED_HOST_CHUNKS * batch)
+    desc = build_descriptor(nt, 0)
+    rx = torch.tensor([0], dtype=torch.int64, device=dev)
+    _reset_launches()
+    outs = {}
+    for backend in ("cuda", "torch"):
+        outs[backend] = S.bucket_dispatch(
+            nt, 0, dk[None, :span], dm[None, :span], S._pad_highs(highs), rx,
+            64, backend, desc, tri_table(nt, dev),
+            desc_dev=device_descriptor(desc, dev))[0]
+    for a, b in zip(outs["cuda"], outs["torch"]):
+        if not torch.equal(a, b):
+            raise AssertionError("obs: stage profile's B1 dispatch differs "
+                                 "from plain")
+    return _launches()[0]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=2048,
@@ -2644,6 +3043,11 @@ def main(argv=None) -> int:
     ap.add_argument("--frontend-only", action="store_true",
                     help="build, then only the frontend's phase 18; no "
                     "result line")
+    ap.add_argument("--obs-only", action="store_true",
+                    help="build, then only the observability phase 19 "
+                    "(telemetry off/on/synced, the CLI's observability "
+                    "flags, the drift audit, the stage profile, the "
+                    "recorder and the tool twins); no result line")
     ap.add_argument("--scaling-only", action="store_true",
                     help="build, then only the sharded engine's fused "
                     "form over 1, 2, ... every visible card at GEMM n and "
@@ -2661,7 +3065,8 @@ def main(argv=None) -> int:
     card = _card_line()
     print(f"card: {card}")
     sass = phase_build(buffer_form=not (args.scaling_only
-                                        or args.exact_only))
+                                        or args.exact_only
+                                        or args.obs_only))
     cfg = SamplerConfig(ratio=0.1, seed=0)  # auto: the device draw here
     from pluss_sampler_optimization_torch.config import MachineConfig
     from pluss_sampler_optimization_torch.models import (
@@ -2689,6 +3094,13 @@ def main(argv=None) -> int:
         return 0
     if args.frontend_only:
         phase_frontend()
+        print(card)
+        return 0
+    if args.obs_only:
+        for prog in (gemm(args.n), gemm(2 * args.n), gemm(args.n // 2),
+                     gemm(1024), gemm(OBS_STAGES_N)):
+            warmup(prog, MachineConfig(), cfg)
+        phase_obs(args.n, card)
         print(card)
         return 0
     phase_cold_warm(args.n, cfg)
@@ -2768,8 +3180,11 @@ def main(argv=None) -> int:
     fe_b1, fe_b3, _, _ = phase_frontend()
     b1_launches += fe_b1
     b3["launches"] += fe_b3
+    obs_b1, obs_b2, obs_b3 = phase_obs(args.n, card)
+    b1_launches += obs_b1
+    b3["launches"] += obs_b3
     b1_launches += sum(r[0] for r in runs)
-    b2["launches"] = sum(r[1] for r in runs)
+    b2["launches"] = sum(r[1] for r in runs) + obs_b2
     b3["launches"] += sum(r[2] for r in runs)
     _b1_summary("sharded kernels (phase 10, all)", b1_sharded)
     b1 = _b1_entry([k, kt])

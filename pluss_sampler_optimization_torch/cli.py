@@ -1,4 +1,4 @@
-"""Command line of the port: the `acc`, `speed`, `sample`, `trace` and `analyze` modes.
+"""Command line of the port: the `acc`, `speed`, `sample`, `trace`, `analyze` and `stats` modes.
 
     python -m pluss_sampler_optimization_torch acc --model gemm --n 128
     python -m pluss_sampler_optimization_torch acc --engine exact --shard
@@ -14,6 +14,9 @@
     python -m pluss_sampler_optimization_torch --list-models
     python -m pluss_sampler_optimization_torch --dump-ir gemm --n 64 > g.json
     python -m pluss_sampler_optimization_torch acc --program-json g.json
+    python -m pluss_sampler_optimization_torch sample --telemetry-out t.json \
+        --trace-out c.json --metrics-out m.prom --ledger l.jsonl
+    python -m pluss_sampler_optimization_torch stats --ledger l.jsonl
 
 The modes of the JAX package's CLI, with its lines in its order:
 
@@ -51,7 +54,22 @@ The modes of the JAX package's CLI, with its lines in its order:
 - `analyze`: the static preflight passes (analysis/): well-formedness
   diagnostics, the dependence and race verdict and the locality bounds,
   as a summary or, with `--analysis-json`, the whole report; no engine
-  runs. Exit 0 when the program can be simulated.
+  runs. Exit 0 when the program can be simulated;
+- `stats`: the run ledger at `--ledger` aggregated per engine (latency
+  percentiles, cache hit rates, degradations, drift status), the JAX
+  CLI's lines; no engine runs.
+
+Observability (runtime/telemetry.py, runtime/obs/), in acc, speed,
+sample and trace: `--telemetry-out PATH` records the run's spans,
+counters, gauges, kernel builds and device/host metrics as the JAX
+package's telemetry JSON and prints its summary on stderr;
+`--trace-out PATH` writes the span tree as Chrome trace_event JSON and
+`--metrics-out PATH` the counters and gauges as Prometheus text;
+`--profile-dir PATH` wraps the run in torch.profiler (CPU and CUDA
+activities) and writes its Chrome trace into PATH; `--ledger PATH`
+appends one row per acc/speed/sample execution to a JSONL run ledger
+(runtime/obs/ledger.py), with the JAX package's request fingerprint
+for the engines its service runs.
 
 `--program-json PATH` takes the program from a frontend document
 (frontend/) instead of `--model`/`--n`/`--tsteps` in acc, speed, sample
@@ -84,7 +102,8 @@ def _parser() -> argparse.ArgumentParser:
 
     ap = argparse.ArgumentParser(prog="pluss_sampler_optimization_torch")
     ap.add_argument("mode", nargs="?",
-                    choices=["acc", "speed", "sample", "trace", "analyze"])
+                    choices=["acc", "speed", "sample", "trace", "analyze",
+                             "stats"])
     ap.add_argument("--list-models", action="store_true",
                     help="print the model registry (nest/ref geometry "
                     "+ exact-router analytic audit status, from "
@@ -203,6 +222,31 @@ def _parser() -> argparse.ArgumentParser:
                     "other, or sampled with sharded)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--telemetry-out", default=None, metavar="PATH",
+                    help="record engine-stage spans, dispatch/fetch "
+                    "counters, kernel builds, and device/host metrics for "
+                    "this run and write them as structured JSON to PATH "
+                    "(the JAX package's schema; validate with the "
+                    "check_telemetry_schema tool). A compact summary "
+                    "prints to stderr")
+    ap.add_argument("--profile-dir", default=None, metavar="PATH",
+                    help="wrap the run in torch.profiler (CPU and CUDA "
+                    "activities) and write its Chrome trace into PATH "
+                    "(open at ui.perfetto.dev). Independent of "
+                    "--telemetry-out")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="export this run's telemetry span tree as Chrome "
+                    "trace_event JSON at PATH (Perfetto, chrome://tracing)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="export this run's telemetry counters/gauges as "
+                    "Prometheus text exposition at PATH (counters as "
+                    "*_total, plus the run duration)")
+    ap.add_argument("--ledger", default=None, metavar="PATH",
+                    help="append one row per acc/speed/sample execution to "
+                    "this JSONL run ledger (fingerprint, engine, latency, "
+                    "kernel-build deltas, MRC digest); `stats` mode "
+                    "aggregates a ledger and the check_ledger tool "
+                    "validates it")
     return ap
 
 
@@ -260,12 +304,11 @@ def _run_sampled(program, machine, args, engine: str):
             file=sys.stderr,
         )
         return state, per_ref
-    from .sampler.sampled import fold_results, sampled_outputs
+    from .sampler.sampled import run_sampled
 
-    per_ref = sampled_outputs(program, machine, cfg, device=args.device,
-                              raw_noshare=v2 or args.r10,
-                              checkpoint_dir=args.checkpoint_dir)
-    return fold_results(per_ref, machine.thread_num, v2), per_ref
+    return run_sampled(program, machine, cfg, v2=v2, device=args.device,
+                       raw_noshare=v2 or args.r10,
+                       checkpoint_dir=args.checkpoint_dir)
 
 
 def _run_engine(engine: str, program, machine, args):
@@ -287,14 +330,14 @@ def _run_engine(engine: str, program, machine, args):
         from .oracle.numpy_ref import run_numpy
 
         return run_numpy(program, machine), None
-    if engine == "native":
+    if engine in ("native", "native-par"):
         from . import native
+        from .ops import _build
 
-        return native.run_serial_native(program, machine), None
-    if engine == "native-par":
-        from . import native
-
-        return native.run_parallel_native(program, machine), None
+        _build.ensure_native()
+        run = (native.run_serial_native if engine == "native"
+               else native.run_parallel_native)
+        return run(program, machine), None
     if engine in _SHARDED_EXACT and args.shard:
         from .parallel.sharded import (
             _resolve_mesh,
@@ -444,19 +487,35 @@ def _trace(args, program, machine) -> int:
 def _speed(args, program, machine, engine: str) -> int:
     """Makefile:34-37 / main.rs:31-33: repeated timed runs after a cache
     flush (pluss_timer_start flushes 2.5MB, pluss.cpp:86-94); the flush
-    is timed apart from each run."""
+    is timed apart from each run. With --ledger, one row for the runs
+    (their median latency)."""
+    from .runtime import telemetry
     from .runtime.timing import timed
 
-    times, _last, flushes = timed(
+    compiles0 = telemetry.compile_counters_snapshot()
+    times, last, flushes = timed(
         lambda: _run_engine(engine, program, machine, args),
         reps=args.reps,
         flush_kb=machine.cache_kb,
     )
+    if args.ledger:
+        _cli_ledger_row(
+            args, program, machine, engine,
+            getattr(last[0], "engine", None) or engine,
+            sorted(times)[len(times) // 2],
+            compiles0=compiles0, reps=args.reps,
+        )
     for rep, dt in enumerate(times):
         print(f"{engine} {program.name} run {rep}: {dt:.6f} s")
     print(
         f"{engine} {program.name}: best {min(times):.6f} s, "
         f"mean {sum(times) / len(times):.6f} s over {len(times)} runs"
+    )
+    # flush cost is measured OUTSIDE the per-rep seconds (timed's
+    # contract); surface it so slow-flush hosts are auditable
+    telemetry.gauge(
+        "cache_flush_s_per_rep",
+        round(sum(flushes) / len(flushes), 6),
     )
     print(
         f"{engine} {program.name}: cache-flush overhead "
@@ -530,6 +589,8 @@ def _load_program_json(args, machine):
             for d in res.errors()
         ]
         raise SystemExit("\n".join(lines))
+    args.model = "custom"
+    args._program_doc = doc
     return res.program, machine_from_doc(doc, machine)
 
 
@@ -603,9 +664,148 @@ def _analyze(args, program, machine) -> int:
     return 0 if report.ok else 1
 
 
-def main(argv=None) -> int:
-    from .runtime import report
+def _request_fingerprint(args, program, machine, engine: str):
+    """The JAX package's service fingerprint of these flags
+    (service/api.py::AnalysisRequest(...).fingerprint(program)): the
+    program, the machine (for --program-json the document's merged
+    one), the engine and AnalysisRequest.params()'s result-shaping
+    knobs — runtime for oracle and sampled, ratio, seed and the
+    requested draw for sampled."""
+    from .service.fingerprint import request_fingerprint
 
+    params: dict = {}
+    if engine in ("oracle", "sampled"):
+        params["runtime"] = args.runtime
+    if engine == "sampled":
+        params["ratio"] = args.ratio
+        params["seed"] = args.seed
+        params["device_draw"] = args.device_draw
+    return request_fingerprint(program, machine, engine, params)
+
+
+def _cli_ledger_row(args, program, machine, engine, engine_used, latency_s,
+                    mrc=None, compiles0=None, reps=None) -> None:
+    """One execution -> run-ledger row, the JAX CLI's row field for
+    field. An engine the JAX package's service runs (SERVICE_ENGINES)
+    gets that service's content address, so CLI rows of both packages
+    join on one fingerprint. `compile_delta` holds the kernel builds
+    since `compiles0` (runtime/telemetry.py::compile_counters_snapshot),
+    only the nonzero ones."""
+    from .runtime import telemetry
+    from .runtime.obs import ledger as obs_ledger
+    from .service import SERVICE_ENGINES
+
+    fp = None
+    if engine in SERVICE_ENGINES:
+        fp = _request_fingerprint(args, program, machine, engine)
+    row = {
+        "kind": "request",
+        "source": "cli",
+        "ok": True,
+        "fingerprint": fp,
+        "engine_requested": engine,
+        "engine_used": engine_used,
+        "model": args.model,
+        "n": args.n,
+        "latency_s": round(latency_s, 6),
+        "cache": None,
+        "degraded": [],
+        "mrc_digest": (
+            obs_ledger.mrc_digest(mrc) if mrc is not None else None
+        ),
+    }
+    if compiles0 is not None:
+        now = telemetry.compile_counters_snapshot()
+        row["compile_delta"] = {
+            k: round(v - compiles0.get(k, 0), 4)
+            if isinstance(v, float) else v - compiles0.get(k, 0)
+            for k, v in now.items() if v - compiles0.get(k, 0)
+        }
+    if reps is not None:
+        row["reps"] = reps
+    obs_ledger.append(args.ledger, row)
+
+
+def _observed(args, fn) -> int:
+    """Run fn() under the observability flags (--telemetry-out /
+    --trace-out / --metrics-out / --profile-dir). The exporters read the
+    same stopped run, so the Chrome trace's span tree is exactly
+    `Telemetry.to_json`'s."""
+    tele = None
+    if args.telemetry_out or args.trace_out or args.metrics_out:
+        from .runtime import telemetry
+
+        tele = telemetry.enable()
+    try:
+        if args.profile_dir:
+            return _profiled(args.profile_dir, fn)
+        return fn()
+    finally:
+        if tele is not None:
+            from .runtime import telemetry
+            from .runtime.obs import exporters
+
+            telemetry.disable()
+            if args.telemetry_out:
+                tele.print_summary()
+                tele.write_json(args.telemetry_out)
+            if args.trace_out or args.metrics_out:
+                doc = tele.to_json()
+                if args.trace_out:
+                    exporters.write_chrome_trace(args.trace_out, doc)
+                if args.metrics_out:
+                    exporters.write_prometheus(args.metrics_out, doc)
+
+
+def _profiled(profile_dir: str, fn) -> int:
+    """fn() under torch.profiler with the CPU activity and, where torch
+    sees a card, the CUDA one; the Chrome trace goes to
+    PROFILE_DIR/pluss_torch_<UTC time>_<pid>.pt.trace.json."""
+    import os
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import torch
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        rc = fn()
+    path = os.path.join(profile_dir, "pluss_torch_%s_%d.pt.trace.json" % (
+        time.strftime("%Y%m%dT%H%M%SZ", time.gmtime()), os.getpid()))
+    prof.export_chrome_trace(path)
+    return rc
+
+
+def _stats(args) -> int:
+    """`stats` mode: aggregate a run ledger into the per-engine serving
+    picture (p50/p95 latency, cache hit rates, degradation counts,
+    drift status) — the JAX CLI's lines."""
+    from .runtime.obs import ledger as obs_ledger
+
+    if not args.ledger:
+        raise SystemExit("stats mode needs --ledger PATH")
+    try:
+        entries = list(obs_ledger.iter_rows(args.ledger))
+    except OSError as e:
+        raise SystemExit(f"cannot read ledger: {e}")
+    rows = [row for _ln, row, _err in entries if row is not None]
+    bad = [(ln, err) for ln, row, err in entries if row is None]
+    for line in obs_ledger.format_stats(obs_ledger.aggregate(rows)):
+        print(line)
+    if bad:
+        print(
+            f"warning: {len(bad)} invalid line(s) skipped (run "
+            "tools/check_ledger.py for details)",
+            file=sys.stderr,
+        )
+    return 0
+
+
+def main(argv=None) -> int:
     ap = _parser()
     args = ap.parse_args(argv)
     if args.list_models:
@@ -613,13 +813,15 @@ def main(argv=None) -> int:
     if args.dump_ir or args.dump_ir_dir:
         return _dump_ir(args)
     if args.mode is None:
-        ap.error("mode is required (acc|speed|sample|trace|analyze)")
-    if args.program_json and args.mode == "trace":
+        ap.error("mode is required (acc|speed|sample|trace|analyze|stats)")
+    if args.program_json and args.mode in ("trace", "stats"):
         raise SystemExit(
             "--program-json loads an inline frontend document for "
             "acc|speed|sample|analyze; serve modes take a 'program' "
             "field per request line instead"
         )
+    if args.mode == "stats":
+        return _stats(args)
     machine = MachineConfig(thread_num=args.threads, chunk_size=args.chunk)
     if args.program_json:
         program, machine = _load_program_json(args, machine)
@@ -629,16 +831,39 @@ def main(argv=None) -> int:
         return _analyze(args, program, machine)
     engine = args.engine or ("sampled" if args.mode == "sample" else "dense")
     _check_args(args, engine)
+    return _observed(args, lambda: _execute(args, machine, program, engine))
+
+
+def _execute(args, machine, program, engine: str) -> int:
+    """Run the selected mode (spans and counters land in the active
+    telemetry run, if any: main's _observed owns enable and export)."""
+    import time
+
+    from .runtime import report
+
     if args.mode == "trace":
         return _trace(args, program, machine)
     if args.mode == "speed":
         return _speed(args, program, machine, engine)
 
     def lines_of(eng: str) -> tuple[list[str], object]:
+        from .runtime import telemetry
+
+        t0 = time.perf_counter()
+        compiles0 = telemetry.compile_counters_snapshot()
         res, per_ref = _run_engine(eng, program, machine, args)
-        return result_lines(res.state, per_ref, machine, args.r10,
-                            total=res.total_accesses,
-                            ref_lines=args.mode == "sample")
+        lines, mrc = result_lines(res.state, per_ref, machine, args.r10,
+                                  total=res.total_accesses,
+                                  ref_lines=args.mode == "sample")
+        if args.ledger:
+            # one row per engine execution: the --diff-against second
+            # engine gets its own row too
+            _cli_ledger_row(
+                args, program, machine, eng,
+                getattr(res, "engine", None) or eng,
+                time.perf_counter() - t0, mrc=mrc, compiles0=compiles0,
+            )
+        return lines, mrc
 
     lines, mrc = lines_of(engine)
     report.emit(lines)

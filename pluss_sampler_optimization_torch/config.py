@@ -5,9 +5,10 @@ Replaces the reference's compile-time `-D` macros
 and the per-module Rust consts (src/gemm_sampler.rs:27-30,
 src/chunk_dispatcher.rs:18, src/utils.rs:10-11) with one runtime object.
 
-`MachineConfig` is a copy of the JAX package's. `SamplerConfig` keeps
-the fields this port runs; knobs of engines it does not run yet stay out
-until the slice that ports them.
+`MachineConfig` and `SLOConfig` (the burn-rate sentinel's objectives,
+runtime/obs/slo.py) are copies of the JAX package's. `SamplerConfig`
+keeps the fields this port runs; knobs of engines it does not run yet
+stay out until the slice that ports them.
 """
 
 from __future__ import annotations
@@ -155,3 +156,53 @@ class SamplerConfig:
             space *= max(1, t - 1 if self.exclude_last_iteration else t)
         return max(1, min(int(math.ceil(prod)), space))
 
+
+@dataclasses.dataclass(frozen=True)
+class SLOConfig:
+    """Service-level objectives evaluated by the burn-rate sentinel
+    (runtime/obs/slo.py) over the live metrics registry's rolling
+    windows and the ledger tail.
+
+    Burn-rate semantics (the SRE multi-window formulation): each
+    objective defines a budget — the fraction of requests allowed to
+    violate it. The observed violation fraction divided by the budget
+    is the burn rate (1.0 = consuming budget exactly as fast as
+    allowed); a breach fires only when the burn rate exceeds
+    `burn_rate_threshold` in BOTH the short and the long window, so a
+    single slow request can't page anyone but a sustained regression
+    fires within one short window.
+
+    Attributes:
+      latency_p95_s: total-latency objective — at most
+        `latency_budget` of requests may take longer than this.
+        None disables the latency check.
+      latency_budget: allowed slow fraction for the latency objective
+        (0.05 makes `latency_p95_s` a true p95 bound).
+      error_budget: allowed fraction of requests that fail or complete
+        degraded.
+      burn_rate_threshold: multi-window burn-rate trip point.
+      min_batch_occupancy: breach when the ledger's batch occupancy
+        p50 falls below this (None disables; only meaningful under a
+        batched workload).
+      windows: (short, long) rolling-window labels, matching the
+        registry's ring windows.
+    """
+
+    latency_p95_s: float | None = None
+    latency_budget: float = 0.05
+    error_budget: float = 0.01
+    burn_rate_threshold: float = 1.0
+    min_batch_occupancy: float | None = None
+    windows: tuple = ("30s", "5m")
+
+    def __post_init__(self) -> None:
+        if self.latency_p95_s is not None and self.latency_p95_s <= 0:
+            raise ValueError("latency_p95_s must be > 0")
+        if not (0 < self.latency_budget <= 1):
+            raise ValueError("latency_budget must be in (0, 1]")
+        if not (0 < self.error_budget <= 1):
+            raise ValueError("error_budget must be in (0, 1]")
+        if self.burn_rate_threshold <= 0:
+            raise ValueError("burn_rate_threshold must be > 0")
+        if len(self.windows) != 2:
+            raise ValueError("windows must be (short, long)")

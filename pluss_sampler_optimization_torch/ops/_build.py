@@ -6,7 +6,10 @@ with a plain C interface (no PyTorch headers, so a build takes seconds),
 named by a digest of the source, the files it includes from csrc/
 (`#include "name"`) and the flags, so an edited source rebuilds.
 `-Xptxas -v` output (registers, spills) is kept beside the library and
-returned by `build`.
+returned by `build`. Each nvcc run, and each make of native/
+(`ensure_native`), is recorded in runtime/telemetry.py's build store
+(`record_build`), and each library's first load in a process counts as a
+cache hit (on disk already) or miss (built) there.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -76,7 +80,9 @@ def build(name: str, force: bool = False,
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [nvcc_path(), *NVCC_FLAGS, *(f"-D{x}" for x in defines),
            "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    _record_build(name, time.perf_counter() - t0)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(
@@ -203,11 +209,33 @@ def _demangle(mangled: str) -> str:
     return f"{base}<{', '.join(args)}>"
 
 
+def _record_build(name: str, seconds: float) -> None:
+    from ..runtime import telemetry
+
+    telemetry.record_build(name, seconds)
+
+
+def ensure_native() -> None:
+    """Make native/'s library where it is missing or older than its
+    source (native.ensure_built's own test), and record the make."""
+    from .. import native
+
+    so, src = native._SO, native._SRC
+    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+        return
+    t0 = time.perf_counter()
+    native.ensure_built()
+    _record_build("native", time.perf_counter() - t0)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The built library of csrc/<name>.cu, built at first use."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
+            from ..runtime import telemetry
+
+            telemetry.record_cache(os.path.exists(library_path(name)))
             path, _ = build(name)
             lib = ctypes.CDLL(path)
             _LIBS[name] = lib

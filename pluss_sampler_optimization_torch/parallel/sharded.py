@@ -86,6 +86,7 @@ from ..ops.sampled_hist import (
     torch_vals,
     tri_table,
 )
+from ..runtime import telemetry
 from ..runtime.hist import PRIState
 from ..sampler.draw import draw_bucket_keys_device, draw_sample_keys_device
 from ..sampler.sampled import (
@@ -95,6 +96,7 @@ from ..sampler.sampled import (
     SampledRefResult,
     _bucket_rows,
     _count,
+    _gauge,
     _host_fuse_plan,
     _pad_highs,
     _program_rows,
@@ -270,18 +272,23 @@ def dense_from_pairs(keys, counts, backend: str = "auto"):
 class _Group:
     """One mesh reduction: every shard's steps, given as {shard: [(keys
     [R, b], mask [R, b]), ...]} on the shards' devices, with the members'
-    rx per device."""
+    rx per device. `fused` marks a bucket's group of the fused form (its
+    telemetry spans carry the JAX package's fused attributes)."""
 
-    def __init__(self, body: _Body, steps: dict, rx: dict):
+    def __init__(self, body: _Body, steps: dict, rx: dict,
+                 fused: bool = False):
         self.body, self.steps, self.rx = body, steps, rx
+        self.fused = fused
 
     def run(self, cap, mesh, n_proc, spans, counters):
         """Enqueue every step, merge on the shards, reduce over the mesh
         and read back once: (histograms [R, 64], cold [R], pair keys and
         counts [n_dev, R, cap], max_nu), numpy."""
         body = self.body
-        with _span(spans, "dispatch_psum"):
-            _count(counters, "dispatches")
+        R = next(iter(self.rx.values())).shape[0]
+        _count(counters, "dispatches")
+        with _span(spans, "dispatch_psum",
+                   **({"form": "fused", "refs": R} if self.fused else {})):
             accs = []
             for i, steps in self.steps.items():
                 acc = None
@@ -304,9 +311,10 @@ class _Group:
                     pairs[:, :, :cap], pairs[:, :, cap:2 * cap],
                     body.backend).reshape(-1))
             flat = torch.cat(parts)
-        with _span(spans, "gather_fetch"):
-            _count(counters, "fetches")
-            flat = flat.cpu().numpy()
+        with _span(spans, "gather_fetch",
+                   **({"fused": True} if self.fused else {})):
+            _count(counters, "fetches", tele=False)
+            flat = telemetry.record_fetch(flat.cpu().numpy())
         a, b = summed.numel(), summed.numel() + pairs.numel()
         host_sum = flat[:a].reshape(R, -1)
         host_pairs = flat[a:b].reshape(pairs.shape)
@@ -370,7 +378,7 @@ def _column_steps(keys, mask, shards, mesh, n_chunks: int, spans):
     w = keys.shape[1] // n_dev
     b = w // n_chunks
     out = {}
-    with _span(spans, "shard_put"):
+    with _span(spans, "shard_put", rows=int(keys.numel())):
         for i in shards:
             dev = mesh.devices[i]
             k = keys[:, i * w:(i + 1) * w].to(dev)
@@ -449,13 +457,16 @@ def sampled_outputs_sharded(
     for idx, (k, ri, _sig) in enumerate(rows):
         nt = trace.nests[k]
         seed = cfg.seed * 1000003 + idx
+        ref_span = telemetry.span("ref", engine="sharded",
+                                  ref=nt.tables.ref_names[ri])
+        ref_span.__enter__()
         drawn = None
         if use_dev_draw:
-            with _span(spans, "draw"):
+            with _span(spans, "draw", where="device"):
                 drawn = draw_sample_keys_device(nt, ri, cfg, seed, batch,
                                                 draw_dev)
         if drawn is None:
-            with _span(spans, "draw"):
+            with _span(spans, "draw", where="host"):
                 keys_all, highs = draw_sample_keys(nt, ri, cfg, seed=seed)
             n_samples = len(keys_all)
         else:
@@ -482,6 +493,7 @@ def sampled_outputs_sharded(
             with _span(spans, "merge"):
                 for d in range(n_dev):
                     decode_pairs(pk[d, 0], pc[d, 0], noshare, share)
+        ref_span.__exit__(None, None, None)
         results.append(
             SampledRefResult(
                 name=nt.tables.ref_names[ri], noshare=noshare, share=share,
@@ -500,7 +512,10 @@ def _host_chunks(keys_all, n_dev, batch, shards, mesh, spans):
     step = max(n_dev, (batch // n_dev) * n_dev)
     n_samples = len(keys_all)
     for s0 in range(0, n_samples, step):
-        with _span(spans, "shard_put"):
+        # the padded chunk's length (pad_keys'), the JAX package's rows
+        rows = (step if n_samples > step
+                else max(16, -(-n_samples // n_dev)) * n_dev)
+        with _span(spans, "shard_put", rows=rows):
             chunk, n_valid = pad_keys(
                 keys_all[s0 : s0 + step], n_dev,
                 total=step if n_samples > step else None,
@@ -561,12 +576,17 @@ def _sampled_outputs_sharded_fused(trace, rows, cfg, mesh, batch, capacity,
         if s == 0:  # no drawable points (degenerate triangular ref)
             continue
         n_buckets += 1
-        _count(counters, "ref_buckets")
+        _count(counters, "ref_buckets", tele=False)
         bucket_dispatches = 0
+        bspan = telemetry.span(
+            "bucket", engine="sharded", nest=k,
+            refs=",".join(nt.tables.ref_names[ri] for _, ri in members),
+        )
+        bspan.__enter__()
         body = _Body(nt, ri0, highs, devices, backend, kernel)
         host_members = members
         if use_dev_draw:
-            with _span(spans, "draw"):
+            with _span(spans, "draw", where="device"):
                 drawn = draw_bucket_keys_device(
                     nt, [ri for _, ri in members], cfg,
                     [cfg.seed * 1000003 + idx for idx, _ in members],
@@ -584,12 +604,12 @@ def _sampled_outputs_sharded_fused(trace, rows, cfg, mesh, batch, capacity,
                 steps = _column_steps(g.keys, g.chosen, shards, mesh,
                                       g.keys.shape[1] // batch, spans)
                 run(_Group(body, steps, _rx_on([ri for _, ri in mem],
-                                               devices)),
+                                               devices), fused=True),
                     [idx for idx, _ in mem])
                 bucket_dispatches += 1
             del drawn
         if host_members:
-            with _span(spans, "draw"):
+            with _span(spans, "draw", where="host"):
                 keys_list = []
                 for idx, ri in host_members:
                     ka, _hi = draw_sample_keys(
@@ -602,7 +622,8 @@ def _sampled_outputs_sharded_fused(trace, rows, cfg, mesh, batch, capacity,
             mem = [idx for idx, _ in host_members]
             for gi in range(n_groups):
                 lo = gi * span_len
-                with _span(spans, "shard_put"):
+                with _span(spans, "shard_put",
+                           rows=len(keys_list) * span_len):
                     buf = np.empty((len(keys_list), span_len),
                                    dtype=np.int64)
                     msk = np.zeros((len(keys_list), span_len), dtype=bool)
@@ -614,15 +635,16 @@ def _sampled_outputs_sharded_fused(trace, rows, cfg, mesh, batch, capacity,
                 steps = _column_steps(torch.from_numpy(buf),
                                       torch.from_numpy(msk), shards, mesh,
                                       g, spans)
-                run(_Group(body, steps, rx), mem)
+                run(_Group(body, steps, rx, fused=True), mem)
                 bucket_dispatches += 1
+        bspan.__exit__(None, None, None)
         max_bucket_dispatches = max(max_bucket_dispatches,
                                     bucket_dispatches)
-    if counters is not None:
-        counters["fuse_refs"] = 1
-        counters["expected_chunks"] = max_bucket_dispatches
-        if n_fused:
-            counters["refs_per_dispatch"] = n_refs_fused / n_fused
+    _gauge(counters, "fuse_refs", 1)
+    telemetry.gauge("ref_buckets", n_buckets)
+    _gauge(counters, "expected_chunks", max_bucket_dispatches)
+    if n_fused:
+        _gauge(counters, "refs_per_dispatch", n_refs_fused / n_fused)
     results = [
         SampledRefResult(
             name=trace.nests[k].tables.ref_names[ri], noshare=noshare[idx],

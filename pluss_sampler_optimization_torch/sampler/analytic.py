@@ -50,11 +50,8 @@ the probe-backed verification, and `warn_if_unaudited` says so.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import re
-import sys
-import time
 
 import numpy as np
 import torch
@@ -65,13 +62,16 @@ from ..core.trace import NestTrace
 from ..ir import Program
 from ..ops.histogram import SENTINEL
 from ..oracle.serial import OracleResult
+from ..runtime import telemetry as _runtime_telemetry
 from ..runtime.hist import PRIState
 from .periodic import _phase_count
 from .sampled import (
     _NOSHARE_SLOT,
     _RATIO_SLOTS,
+    _count,
     _pad_highs,
     _program_rows,
+    _span,
     check_native,
     default_batch,
     resolve_device,
@@ -82,37 +82,28 @@ _COLD_KEY = "cold"
 
 
 class _Telemetry:
-    """The run's host spans and counters: `span(name)` adds the block's
-    host seconds to the active run's spans[name], `count(name)` adds to
-    its counters (no-ops outside a run_analytic call given spans= or
-    counters=); `warn_once` prints a warning once per key."""
+    """runtime/telemetry.py as this module's call sites (taken verbatim
+    from the JAX package) reach it, with the run's spans=/counters=
+    dicts: `span(name, **attrs)` is sampled._span (the active telemetry
+    run's span with the JAX package's name and attributes, and the
+    block's host seconds in spans[name]), `count(name)` adds to both,
+    `warn_once` is the runtime's (an event, and one stderr line per key).
+    The dicts are set only during a run_analytic call given spans= or
+    counters=."""
 
     def __init__(self) -> None:
         self.spans: dict | None = None
         self.counters: dict | None = None
-        self._warned: set = set()
 
-    @contextlib.contextmanager
-    def span(self, name: str, **_labels):
-        if self.spans is None:
-            yield
-            return
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.spans[name] = (self.spans.get(name, 0.0)
-                                + time.perf_counter() - t0)
+    def span(self, name: str, **attrs):
+        return _span(self.spans, name, **attrs)
 
     def count(self, name: str, n: int = 1) -> None:
-        if self.counters is not None:
-            self.counters[name] = self.counters.get(name, 0) + n
+        _count(self.counters, name, n)
 
-    def warn_once(self, key, message: str, **_data) -> None:
-        if key in self._warned:
-            return
-        self._warned.add(key)
-        print(message, file=sys.stderr)
+    @staticmethod
+    def warn_once(key, message: str, **data) -> None:
+        _runtime_telemetry.warn_once(key, message, **data)
 
 
 telemetry = _Telemetry()
@@ -298,7 +289,7 @@ class _RawClassify:
         from ..ops.sampled_hist import sampled_hist
 
         rx, tri, desc_dev = self._on(dev)
-        chunk = torch.from_numpy(keys).to(dev)[None]
+        chunk = torch.as_tensor(keys).to(dev)[None]
         residual, _hist, _cold = sampled_hist(
             self.nt, self.ref_idx, chunk, None, ph, rx, self.backend,
             self.desc, tri, raw=True, desc_dev=desc_dev,
@@ -330,10 +321,15 @@ def _classify_keys(nt, kernel, ref_idx, keys, highs, batch, sharding=None):
                 chunk = np.concatenate(
                     [chunk, np.full(pad, keys[0], dtype=np.int64)])
             per = len(chunk) // n_dev
+            parts = [chunk[i * per : (i + 1) * per] for i in range(n_dev)]
+            if sharding is not None:
+                with telemetry.span("shard_put", keys=len(chunk)):
+                    parts = [torch.from_numpy(x).to(dev)
+                             for x, dev in zip(parts, devs)]
             res = []
-            for i, dev in enumerate(devs):
+            for part, dev in zip(parts, devs):
                 telemetry.count("dispatches")
-                res.append(kernel(chunk[i * per : (i + 1) * per], ph, dev))
+                res.append(kernel(part, ph, dev))
             with telemetry.span("fetch"):
                 telemetry.count("fetches")
                 r = np.concatenate([x.cpu().numpy() for x in res]
@@ -836,8 +832,9 @@ def run_analytic(
         host_cutoff = _HOST_FOLD_MAX_ACCESSES
     telemetry.spans, telemetry.counters = spans, counters
     try:
-        return _run_analytic(trace, machine, batch, seed, sharding,
-                             host_cutoff, devices, kernel_backend)
+        with _runtime_telemetry.span("engine", engine="analytic"):
+            return _run_analytic(trace, machine, batch, seed, sharding,
+                                 host_cutoff, devices, kernel_backend)
     finally:
         telemetry.spans = telemetry.counters = None
 
@@ -881,7 +878,9 @@ def _run_analytic(trace, machine, batch, seed, sharding, host_cutoff,
                     res = _eval_periods_block(
                         nt, kern, ri, blk, batch, sharding
                     )
-                    with telemetry.span("fold", nest=k, route="direct"):
+                    # host seconds only: the JAX package opens no
+                    # telemetry span here
+                    with _span(telemetry.spans, "fold", tele=None):
                         for n0, (slots, cold) in res.items():
                             tid = int(tid_of_t[n0])
                             for kk, cc in slots.items():

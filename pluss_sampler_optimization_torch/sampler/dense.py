@@ -41,6 +41,7 @@ from ..ops.histogram import N_EXP_BINS, exp_bin, sorted_k_unique
 from ..ops.sampled_hist import torch_vals
 from ..oracle.serial import OracleResult
 from ..runtime.hist import PRIState
+from ..runtime import telemetry
 from .sampled import _span, resolve_device
 
 _REF_BITS = 5  # up to 32 refs per nest
@@ -346,27 +347,34 @@ class _DenseNest:
 
 def dense_nest_outputs(program: Program, machine: MachineConfig,
                        max_share: int = 64, tid_devices=None,
-                       device=None) -> list:
+                       device=None, spans: dict | None = None) -> list:
     """Per-nest, per-tid outputs as host numpy arrays, each nest's
     stacked over tids: [(noshare[P,64], sk[P,cap], sc[P,cap],
     n_unique[P], cold[P,n_arrays], n_acc[P]), ...]. `tid_devices[tid]`
     is the device that sorts thread tid (default: every tid on
-    `device`); a nest's tids are all launched before its outputs are
-    read back."""
+    `device`); every nest's tids are launched ("dispatch", one in the
+    telemetry run's counters, as the JAX package's one program) before
+    the outputs are read back (its "fetch"); `spans` times both under
+    "dispatch"."""
     trace = ProgramTrace(program, machine)
     P = machine.thread_num
     if tid_devices is None:
         tid_devices = [resolve_device(device)] * P
-    outs = []
-    for nt in trace.nests:
-        body = _DenseNest(nt, max_share)
-        per_tid = [body(tid, tid_devices[tid]) for tid in range(P)]
-        host = [
-            tuple(x.cpu() for x in o) for o in per_tid
-        ]
-        outs.append(tuple(
-            torch.stack([h[i] for h in host]).numpy() for i in range(6)
-        ))
+    with _span(spans, "dispatch", engine="dense"):
+        telemetry.count("dispatches")
+        launched = []
+        for nt in trace.nests:
+            body = _DenseNest(nt, max_share)
+            launched.append([body(tid, tid_devices[tid])
+                             for tid in range(P)])
+    with _span(spans, "dispatch", "fetch", engine="dense"):
+        outs = []
+        for per_tid in launched:
+            host = [tuple(x.cpu() for x in o) for o in per_tid]
+            outs.append(tuple(
+                torch.stack([h[i] for h in host]).numpy() for i in range(6)
+            ))
+        telemetry.record_fetch(outs)
     return outs
 
 
@@ -450,11 +458,11 @@ def run_dense(program: Program, machine: MachineConfig,
 
             return run_stream(program, machine, max_share=max_share,
                               device=dev, spans=spans)
-    with _span(spans, "dispatch"):
-        outs = dense_nest_outputs(program, machine, max_share,
-                                  tid_devices, dev)
-    with _span(spans, "fold"):
-        return _fold_dense_outputs(machine, outs)
+    with telemetry.span("engine", engine="dense"):
+        outs = dense_nest_outputs(program, machine, max_share, tid_devices,
+                                  dev, spans)
+        with _span(spans, "fold", "merge", engine="dense"):
+            return _fold_dense_outputs(machine, outs)
 
 
 def _fold_dense_outputs(machine: MachineConfig, outs) -> OracleResult:

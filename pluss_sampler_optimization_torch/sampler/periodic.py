@@ -62,6 +62,7 @@ from .dense import (
     shifted,
     sorted_fields,
 )
+from ..runtime import telemetry
 from .sampled import _span, resolve_device
 
 
@@ -547,11 +548,13 @@ def run_periodic(program: Program, machine: MachineConfig,
     P = machine.thread_num
     state = PRIState(P)
     per_tid = [0] * P
+    engine_span = telemetry.span("engine", engine="periodic")
+    engine_span.__enter__()
     for k in range(len(program.nests)):
         nt, kernels = _compiled_nest(program, k, machine, max_share)
         # windows are tid-independent: merge every tid's signature set,
         # evaluate each window once, then scale into each tid's state
-        with _span(spans, "window_build"):
+        with _span(spans, "window_build", nest=k):
             merged: dict = {}
             per_tid_sigs = []
             for tid in range(P):
@@ -561,7 +564,7 @@ def run_periodic(program: Program, machine: MachineConfig,
                     merged.setdefault(key, v0_rep)
         if spans is not None:
             spans["windows"] = spans.get("windows", 0) + len(merged)
-        with _span(spans, "kernel"):
+        with _span(spans, "kernel", nest=k, windows=len(merged)):
             if window_eval is not None:
                 outs = window_eval(program, k, nt, merged)
             else:
@@ -569,10 +572,11 @@ def run_periodic(program: Program, machine: MachineConfig,
                 for (delta, ph), v0_rep in merged.items():
                     pair = delta is not None
                     v0b = v0_rep + (delta if pair else 0)
-                    outs[(delta, ph)] = tuple(
+                    telemetry.count("dispatches")
+                    outs[(delta, ph)] = telemetry.record_fetch(tuple(
                         o.cpu().numpy()
-                        for o in kernels[pair](v0_rep, v0b, dev))
-        with _span(spans, "fold"):
+                        for o in kernels[pair](v0_rep, v0b, dev)))
+        with _span(spans, "fold", nest=k):
             for tid in range(P):
                 h = state.noshare[tid]
                 hs_all = state.share[tid]
@@ -599,6 +603,7 @@ def run_periodic(program: Program, machine: MachineConfig,
                             hs[reuse] = hs.get(reuse, 0.0) + float(
                                 cnt) * mult
                 per_tid[tid] += nt.tid_length(tid)
+    engine_span.__exit__(None, None, None)
     return OracleResult(
         state=state, total_accesses=sum(per_tid), per_tid_accesses=per_tid
     )

@@ -43,6 +43,13 @@ draw's sample sets in rounds of growing prefixes through the
 raw-noshare form, with a bootstrap MRC band between rounds
 (sampler/confidence.py) and an early stop at cfg.tolerance.
 
+Every runner writes the JAX package's spans, counters and gauges into
+the active telemetry run (runtime/telemetry.py), at its call sites, with
+its names and attributes: "engine" > "ref" (serial) or "bucket" (fused)
+> "draw", "dispatch", "fetch", "merge"; the callers' `spans=` and
+`counters=` dicts are filled by the same blocks (_span, _count,
+_gauge).
+
 Each sample's reuse interval is the forward distance, in its simulated
 thread's private access clock, to the next same-array touch of its
 cache line, solved in closed form (sampler/nextuse.py); samples whose
@@ -73,6 +80,7 @@ from ..config import MachineConfig, SamplerConfig
 from ..core.trace import NestTrace, ProgramTrace
 from ..ir import Program
 from ..ops.histogram import SENTINEL, sorted_k_unique
+from ..runtime import telemetry
 from ..runtime.hist import PRIState
 from .nextuse import INF
 
@@ -582,25 +590,49 @@ def bucket_dispatch(nt, ref_idx, keys_RB, mask_RB, highs, rx_R,
     return (*reduce(capacity), cold, hist), reduce
 
 
+_SAME = object()
+
+
 @contextlib.contextmanager
-def _span(spans: dict | None, name: str):
-    """Add the host seconds of the block to spans[name] (no-op on None);
-    with spans given, the block is also a profiler range "sampled:
-    <name>", so a trace can lay the spans beside the device's work."""
-    if spans is None:
-        yield
-        return
-    t0 = time.perf_counter()
-    try:
-        with record_function(f"sampled: {name}"):
-            yield
-    finally:
-        spans[name] = spans.get(name, 0.0) + time.perf_counter() - t0
+def _span(spans: dict | None, name: str, tele=_SAME, **attrs):
+    """One block, timed into both views: the active telemetry run's span
+    `tele` (default `name`; None opens none) with `attrs`, the JAX
+    package's name and attributes at this site, and the host seconds
+    into spans[name] (no-op on None). With spans given, the block is
+    also a profiler range "sampled: <name>", so a trace can lay the
+    spans beside the device's work. Yields the telemetry span (its
+    `block(value)` records device-sync time under device_sync)."""
+    tname = name if tele is _SAME else tele
+    tspan = (telemetry.span(tname, **attrs) if tname is not None
+             else telemetry._NULL_SPAN)
+    with tspan as tsp:
+        if spans is None:
+            yield tsp
+            return
+        t0 = time.perf_counter()
+        try:
+            with record_function(f"sampled: {name}"):
+                yield tsp
+        finally:
+            spans[name] = spans.get(name, 0.0) + time.perf_counter() - t0
 
 
-def _count(counters: dict | None, name: str, n=1) -> None:
+def _count(counters: dict | None, name: str, n=1, tele: bool = True) -> None:
+    """Add n to counters[name] (no-op on None) and, with `tele`, to the
+    active telemetry run's counter of that name."""
     if counters is not None:
         counters[name] = counters.get(name, 0) + n
+    if tele:
+        telemetry.count(name, n)
+
+
+def _gauge(counters: dict | None, name: str, value, tele: bool = True) -> None:
+    """Set counters[name] (no-op on None) and, with `tele`, the active
+    telemetry run's gauge of that name."""
+    if counters is not None:
+        counters[name] = value
+    if tele:
+        telemetry.gauge(name, value)
 
 
 class Dispatch(NamedTuple):
@@ -667,7 +699,8 @@ class _PinnedStage:
 def plan_dispatches(trace: ProgramTrace, rows, cfg: SamplerConfig,
                     dev: torch.device, batch: int, backend: str,
                     spans: dict | None = None, buckets=None,
-                    skip=frozenset(), counters: dict | None = None):
+                    skip=frozenset(), counters: dict | None = None,
+                    serial: bool = False):
     """Yield every bucket dispatch of a run, in order. Each bucket's
     members draw their whole sample sets (seeds cfg.seed * 1000003 + row
     index) before its first dispatch; a dispatch stacks one span of
@@ -691,18 +724,18 @@ def plan_dispatches(trace: ProgramTrace, rows, cfg: SamplerConfig,
     `final` marks its members' last. `spans` gathers the host seconds of
     the draw ("draw", which ends in the device draw's host read of its
     counts) and of stacking and copying host keys to the device
-    ("stage"); `counters` counts "ref_buckets", the buckets that draw."""
-    from ..ops.sampled_hist import (
-        build_descriptor,
-        device_descriptor,
-        tri_table,
-    )
-    from .draw import draw_bucket_keys_device
+    ("stage"); `counters` counts "ref_buckets", the buckets that draw,
+    and sets "expected_chunks", the most dispatches any bucket planned.
 
+    Each bucket's draws and dispatches, and what the consumer does
+    before it asks for the next bucket's first, lie inside the bucket's
+    telemetry span: "bucket" (engine, nest, refs), or with `serial` (one
+    bucket per row) the JAX serial runner's "ref" (engine, ref)."""
     if buckets is None:
         buckets = _bucket_rows(trace, rows)
     stage = _PinnedStage(dev, max(1, cfg.pipeline_depth) + 1)
     use_dev = _use_device_draw(cfg, dev)
+    most = 0
     for key, members_all in buckets.items():
         members = [m for m in members_all if m[0] not in skip]
         if not members:
@@ -712,57 +745,85 @@ def plan_dispatches(trace: ProgramTrace, rows, cfg: SamplerConfig,
         highs, s = _sample_highs(nt, ri0, cfg)
         if s == 0:  # no drawable points (degenerate triangular ref)
             continue
-        _count(counters, "ref_buckets")
-        ph = _pad_highs(highs)
-        desc = tri = desc_dev = None
-        if dev.type == "cuda" and backend != "torch":
-            desc, tri = build_descriptor(nt, ri0), tri_table(nt, dev)
-            desc_dev = device_descriptor(desc, dev)
+        _count(counters, "ref_buckets", tele=False)
+        names = [nt.tables.ref_names[ri] for _, ri in members]
+        span = (telemetry.span("ref", engine="sampled", ref=names[0])
+                if serial else
+                telemetry.span("bucket", engine="sampled", nest=key[0],
+                               refs=",".join(names)))
+        with span:
+            n = yield from _bucket_dispatches(
+                nt, ri0, members, highs, cfg, dev, batch, backend, spans,
+                stage, use_dev)
+        most = max(most, n)
+        _gauge(counters, "expected_chunks", most, tele=False)
 
-        def rx(mem):
-            return torch.tensor([ri for _, ri in mem], dtype=torch.int64,
-                                device=dev)
 
-        host_members = members
-        if use_dev:
-            with _span(spans, "draw"):
-                groups = draw_bucket_keys_device(
-                    nt, [ri for _, ri in members], cfg,
-                    [cfg.seed * 1000003 + idx for idx, _ in members],
-                    batch, dev,
-                )
-            drawn = {p for g in groups for p in g.positions}
-            host_members = [m for p, m in enumerate(members)
-                            if p not in drawn]
-            # each group is one buffer size B: a run of the bucket's
-            # [R, B] draw, or one member whose retry grew its buffer
-            for g in groups:
-                mem = [members[p] for p in g.positions]
-                B = g.keys.shape[1]
-                span_len = min(B, _FUSED_HOST_CHUNKS * batch)
-                rx_R = rx(mem)
-                for lo in range(0, B, span_len):
-                    yield Dispatch(nt, ri0, mem, [g.s] * len(mem),
-                                   g.keys[:, lo:lo + span_len],
-                                   g.chosen[:, lo:lo + span_len], ph, rx_R,
-                                   desc, tri, lo + span_len >= B, desc_dev)
-        if not host_members:
-            continue
-        with _span(spans, "draw"):
-            keys_list = [
-                draw_sample_keys(nt, ri, cfg, seed=cfg.seed * 1000003 + idx)[0]
-                for idx, ri in host_members
-            ]
-        n_samples = [len(ka) for ka in keys_list]
-        g, n_groups = _host_fuse_plan(n_samples[0], batch)
-        span_len = g * batch
-        rx_R = rx(host_members)
-        for gi in range(n_groups):
-            lo = gi * span_len
-            with _span(spans, "stage"):
-                keys_RB = stage([ka[lo:lo + span_len] for ka in keys_list])
-            yield Dispatch(nt, ri0, host_members, n_samples, keys_RB, None,
-                           ph, rx_R, desc, tri, gi == n_groups - 1, desc_dev)
+def _bucket_dispatches(nt, ri0, members, highs, cfg, dev, batch, backend,
+                       spans, stage, use_dev):
+    """plan_dispatches' body for one bucket: yields its dispatches and
+    returns their count."""
+    from ..ops.sampled_hist import (
+        build_descriptor,
+        device_descriptor,
+        tri_table,
+    )
+    from .draw import draw_bucket_keys_device
+
+    n = 0
+    ph = _pad_highs(highs)
+    desc = tri = desc_dev = None
+    if dev.type == "cuda" and backend != "torch":
+        desc, tri = build_descriptor(nt, ri0), tri_table(nt, dev)
+        desc_dev = device_descriptor(desc, dev)
+
+    def rx(mem):
+        return torch.tensor([ri for _, ri in mem], dtype=torch.int64,
+                            device=dev)
+
+    host_members = members
+    if use_dev:
+        with _span(spans, "draw", where="device"):
+            groups = draw_bucket_keys_device(
+                nt, [ri for _, ri in members], cfg,
+                [cfg.seed * 1000003 + idx for idx, _ in members],
+                batch, dev,
+            )
+        drawn = {p for g in groups for p in g.positions}
+        host_members = [m for p, m in enumerate(members)
+                        if p not in drawn]
+        # each group is one buffer size B: a run of the bucket's
+        # [R, B] draw, or one member whose retry grew its buffer
+        for g in groups:
+            mem = [members[p] for p in g.positions]
+            B = g.keys.shape[1]
+            span_len = min(B, _FUSED_HOST_CHUNKS * batch)
+            rx_R = rx(mem)
+            for lo in range(0, B, span_len):
+                n += 1
+                yield Dispatch(nt, ri0, mem, [g.s] * len(mem),
+                               g.keys[:, lo:lo + span_len],
+                               g.chosen[:, lo:lo + span_len], ph, rx_R,
+                               desc, tri, lo + span_len >= B, desc_dev)
+    if not host_members:
+        return n
+    with _span(spans, "draw", where="host"):
+        keys_list = [
+            draw_sample_keys(nt, ri, cfg, seed=cfg.seed * 1000003 + idx)[0]
+            for idx, ri in host_members
+        ]
+    n_samples = [len(ka) for ka in keys_list]
+    g, n_groups = _host_fuse_plan(n_samples[0], batch)
+    span_len = g * batch
+    rx_R = rx(host_members)
+    for gi in range(n_groups):
+        lo = gi * span_len
+        with _span(spans, "stage", tele=None):
+            keys_RB = stage([ka[lo:lo + span_len] for ka in keys_list])
+        n += 1
+        yield Dispatch(nt, ri0, host_members, n_samples, keys_RB, None,
+                       ph, rx_R, desc, tri, gi == n_groups - 1, desc_dev)
+    return n
 
 
 def _use_fused(cfg: SamplerConfig, device) -> bool:
@@ -906,6 +967,8 @@ def sampled_outputs(
 
     dev = resolve_device(device)
     backend = _sampled_backend(cfg, dev, raw_noshare)
+    telemetry.event("kernel_backend", backend=backend if backend != "auto"
+                    else "cuda" if dev.type == "cuda" else "torch")
     if batch is None:
         batch = default_batch(dev)
     trace, rows = _program_rows(program, machine)
@@ -970,9 +1033,11 @@ def _sampled_outputs_native(trace, rows, cfg, dev, batch, capacity,
     "dispatch" (the classify) and "decode" (the native pass). The
     results equal the serial runner's field for field."""
     from .. import native as native_mod
+    from ..ops import _build
     from ..ops.sampled_hist import sampled_hist_plain
     from .draw import draw_sample_keys_device
 
+    _build.ensure_native()
     results = []
     cap = capacity
     for idx, (k, ri, _sig) in enumerate(rows):
@@ -985,18 +1050,21 @@ def _sampled_outputs_native(trace, rows, cfg, dev, batch, capacity,
                 results.append(prior)
                 continue
         seed = cfg.seed * 1000003 + idx
+        ref_span = telemetry.span("ref", engine="sampled", ref=name)
+        ref_span.__enter__()
         drawn = None
-        with _span(spans, "draw"):
-            if _use_device_draw(cfg, dev):
+        if _use_device_draw(cfg, dev):
+            with _span(spans, "draw", where="device"):
                 drawn = draw_sample_keys_device(nt, ri, cfg, seed, batch,
                                                 dev)
-            if drawn is None:
+        if drawn is None:
+            with _span(spans, "draw", where="host"):
                 keys_all, highs = draw_sample_keys(nt, ri, cfg, seed=seed)
-                n_samples = len(keys_all)
-                keys_all = torch.from_numpy(keys_all)
-                mask_all = None
-            else:
-                keys_all, mask_all, n_samples, highs = drawn
+            n_samples = len(keys_all)
+            keys_all = torch.from_numpy(keys_all)
+            mask_all = None
+        else:
+            keys_all, mask_all, n_samples, highs = drawn
         ph = _pad_highs(highs)
         rx = torch.tensor([ri], dtype=torch.int64, device=dev)
         bins = np.zeros(native_mod._NOSHARE_SLOTS, dtype=np.int64)
@@ -1010,13 +1078,14 @@ def _sampled_outputs_native(trace, rows, cfg, dev, batch, capacity,
             cm = None if mask_all is None else mask_all[lo:lo + batch]
             _count(counters, "dispatches")
             _count(counters, "dispatches_native")
-            with _span(spans, "dispatch"):
+            with _span(spans, "dispatch", form="native"):
                 residual, _hist, _cold = sampled_hist_plain(
                     nt, ri, ck[None], None if cm is None else cm[None], ph,
                     rx, raw=True)
-                packed = residual[0].numpy()
-                cm = None if cm is None else cm.numpy()
-            with _span(spans, "decode"):
+            with _span(spans, "dispatch", "fetch"):
+                packed, cm = telemetry.record_fetch(
+                    (residual[0].numpy(), None if cm is None else cm.numpy()))
+            with _span(spans, "decode", "merge", where="native"):
                 pk, pc, cap, regrows = native_mod.classify_reduce(
                     packed, packed != SENTINEL, bins, mask=cm,
                     share_cap=cap)
@@ -1027,6 +1096,7 @@ def _sampled_outputs_native(trace, rows, cfg, dev, batch, capacity,
         for e in np.nonzero(bins[:native_mod.N_NOSHARE_BINS])[0]:
             key = 1 << int(e)
             noshare[key] = noshare.get(key, 0.0) + float(bins[e])
+        ref_span.__exit__(None, None, None)
         r = SampledRefResult(
             name=name, noshare=noshare, share=share,
             cold=float(bins[native_mod.N_NOSHARE_BINS]),
@@ -1041,7 +1111,14 @@ def _sampled_outputs_native(trace, rows, cfg, dev, batch, capacity,
 def _run_dispatches(trace, rows, cfg, dev, batch, capacity, backend, raw,
                     buckets, checkpoint_dir, tag_of, spans, counters):
     """Both runners' body: plan_dispatches over `buckets` (None: the
-    signature buckets) through the depth-bounded drain."""
+    signature buckets) through the depth-bounded drain. The serial
+    runner (`buckets` given, one per row) drains a ref's dispatches
+    before the next ref draws, as the JAX package's serial runner does;
+    the bucket runner keeps its dispatches in flight across buckets and
+    sets the JAX package's bucket-plan gauges (fuse_refs, pipeline_depth,
+    ref_buckets, expected_chunks, pipeline_overlap_s, refs_per_dispatch)
+    in the telemetry run."""
+    serial = buckets is not None
     depth = max(1, cfg.pipeline_depth)
     names = [trace.nests[k].tables.ref_names[ri] for k, ri, _sig in rows]
     results: dict = {}
@@ -1058,6 +1135,11 @@ def _run_dispatches(trace, rows, cfg, dev, batch, capacity, backend, raw,
     cap = capacity
     pending: collections.deque = collections.deque()
     n_dispatches = n_refs = 0
+    overlap_s = 0.0
+    # the plan's counts (ref_buckets, expected_chunks), also where the
+    # caller passed no counters
+    plan = counters if counters is not None else {}
+    attrs = {"fused": True} if not serial else {}
 
     def finalize(idx):
         r = accs.pop(idx)
@@ -1067,22 +1149,28 @@ def _run_dispatches(trace, rows, cfg, dev, batch, capacity, backend, raw,
         results[idx] = r
 
     def drain(entry):
-        nonlocal cap
-        members, n_samples, final, host, event, reduce, dispatch_cap = entry
-        with _span(spans, "dispatch"):
+        nonlocal cap, overlap_s
+        (members, n_samples, final, host, event, reduce, dispatch_cap,
+         t0) = entry
+        # time this dispatch spent in flight while the host worked on
+        # other dispatches — the overlap the pipeline exists to buy
+        overlap_s += max(0.0, time.perf_counter() - t0)
+        with _span(spans, "dispatch", "fetch", **attrs):
             if event is not None:
                 event.synchronize()
-            mk, mc, max_nu, cold, nh = (x.numpy() for x in host)
-            while int(max_nu.max()) > dispatch_cap:
-                # rare: some member saw more distinct (reuse, class)
-                # pairs than slots — regrow once for the whole dispatch;
-                # its residual stayed alive for this
-                dispatch_cap = max(dispatch_cap * 4, int(max_nu.max()))
-                cap = max(cap, dispatch_cap)
-                _count(counters, "capacity_regrows")
-                mk, mc, max_nu = (x.cpu().numpy()
-                                  for x in reduce(dispatch_cap))
-        with _span(spans, "decode"):
+            mk, mc, max_nu, cold, nh = telemetry.record_fetch(
+                tuple(x.numpy() for x in host))
+        while int(max_nu.max()) > dispatch_cap:
+            # rare: some member saw more distinct (reuse, class) pairs
+            # than slots — regrow once for the whole dispatch; its
+            # residual stayed alive for this
+            dispatch_cap = max(dispatch_cap * 4, int(max_nu.max()))
+            cap = max(cap, dispatch_cap)
+            _count(counters, "capacity_regrows")
+            with _span(spans, "dispatch", "fetch", regrow=True, **attrs):
+                mk, mc, max_nu = telemetry.record_fetch(
+                    tuple(x.cpu().numpy() for x in reduce(dispatch_cap)))
+        with _span(spans, "decode", "merge"):
             for j, ((idx, _ri), n) in enumerate(zip(members, n_samples)):
                 res = accs[idx]
                 res.n_samples = n
@@ -1098,8 +1186,15 @@ def _run_dispatches(trace, rows, cfg, dev, batch, capacity, backend, raw,
                     finalize(idx)
 
     for d in plan_dispatches(trace, rows, cfg, dev, batch, backend, spans,
-                             buckets, skip, counters):
-        with _span(spans, "dispatch"):
+                             buckets, skip, plan, serial):
+        # the JAX package's forms: a host-drawn chunk ("chunk") or a
+        # device-drawn buffer ("scan") of one ref, or a bucket ("fused")
+        form = ({"form": "chunk" if d.mask_RB is None else "scan"} if serial
+                else {"form": "fused", "refs": len(d.members)})
+        _count(counters, "dispatches")
+        if not serial:
+            _count(counters, "dispatches_fused")
+        with _span(spans, "dispatch", **form):
             out, reduce = bucket_dispatch(
                 d.nt, d.ref_idx, d.keys_RB, d.mask_RB, d.highs, d.rx_R, cap,
                 backend, d.desc, d.tri_base, raw, d.desc_dev,
@@ -1109,21 +1204,30 @@ def _run_dispatches(trace, rows, cfg, dev, batch, capacity, backend, raw,
         n_refs += len(d.members)
         # in flight: the dispatch's residual (for a regrow) and its copies
         pending.append((d.members, d.n_samples, d.final, host, event,
-                        reduce, cap))
+                        reduce, cap, time.perf_counter()))
+        final = d.final
         del d, out, reduce
         while len(pending) >= depth:
             # the depth bound: drain the oldest dispatch in flight
             _count(counters, "pipeline_stalls")
             drain(pending.popleft())
+        if serial and final:
+            # the ref's last dispatch: drain it inside its "ref" span
+            while pending:
+                drain(pending.popleft())
     while pending:
         drain(pending.popleft())
     for idx in list(accs):  # refs with no drawable point
         finalize(idx)
-    _count(counters, "dispatches", n_dispatches)
-    if counters is not None:
-        counters["pipeline_depth"] = depth
-        if n_dispatches:
-            counters["refs_per_dispatch"] = n_refs / n_dispatches
+    _gauge(counters, "pipeline_depth", depth, tele=not serial)
+    if n_dispatches:
+        _gauge(counters, "refs_per_dispatch", n_refs / n_dispatches,
+               tele=not serial)
+    if not serial:
+        telemetry.gauge("fuse_refs", 1)
+        telemetry.gauge("ref_buckets", plan.get("ref_buckets", 0))
+        telemetry.gauge("expected_chunks", plan.get("expected_chunks", 0))
+        telemetry.gauge("pipeline_overlap_s", overlap_s)
     return [results[idx] for idx in range(len(rows))]
 
 
@@ -1316,21 +1420,26 @@ def run_sampled(
     v2: bool = False,
     device=None,
     spans: dict | None = None,
+    raw_noshare: bool | None = None,
     **kw,
 ) -> tuple[PRIState, list[SampledRefResult]]:
     """Sampled engine -> (PRIState, per-ref results). Runs on CUDA
     unless `device="cpu"`; raises where CUDA is absent and the CPU was
     not asked for. v2 takes the raw route (raw noshare keys) and keeps
-    them raw in the state. `spans` gathers host seconds per stage
+    them raw in the state; `raw_noshare` (default: v2) takes the raw
+    route alone (the r10 distribute reads the per-ref results' raw keys
+    beside a v1 state). `spans` gathers host seconds per stage
     (sampled_outputs' stages and "fold"); **kw goes to sampled_outputs
     (batch, capacity, checkpoint_dir, counters)."""
     cfg = cfg or SamplerConfig()
-    results = sampled_outputs(
-        program, machine, cfg, device=device, raw_noshare=v2, spans=spans,
-        **kw
-    )
-    with _span(spans, "fold"):
-        state = fold_results(results, machine.thread_num, v2)
+    with telemetry.span("engine", engine="sampled"):
+        results = sampled_outputs(
+            program, machine, cfg, device=device,
+            raw_noshare=v2 if raw_noshare is None else raw_noshare,
+            spans=spans, **kw
+        )
+        with _span(spans, "fold", "merge", stage="fold_results"):
+            state = fold_results(results, machine.thread_num, v2)
     return state, results
 
 
@@ -1373,22 +1482,26 @@ def _classify_slice(ref: dict, keys: np.ndarray, batch: int, cap_box: list,
     share: dict[int, dict[int, float]] = {}
     cold = 0.0
     for s0 in range(0, len(keys), batch):
-        with _span(spans, "stage"):
+        with _span(spans, "stage", tele=None):
             chunk = torch.from_numpy(keys[s0:s0 + batch]).to(dev)[None]
         _count(counters, "dispatches")
-        with _span(spans, "dispatch"):
+        with _span(spans, "dispatch", form="progressive"):
             out, reduce = bucket_dispatch(
                 ref["nt"], ref["ri"], chunk, None, ref["ph"], ref["rx"],
                 cap_box[0], backend, ref["desc"], ref["tri"], raw=True,
                 desc_dev=ref["desc_dev"],
             )
-            pk, pc, nu, c, _hist = (x.cpu().numpy() for x in out)
-            while int(nu[0]) > cap_box[0]:
-                cap_box[0] = max(cap_box[0] * 4, int(nu[0]))
-                _count(counters, "capacity_regrows")
-                pk, pc, nu = (x.cpu().numpy() for x in reduce(cap_box[0]))
+        with _span(spans, "dispatch", "fetch"):
+            pk, pc, nu, c, _hist = telemetry.record_fetch(
+                tuple(x.cpu().numpy() for x in out))
+        while int(nu[0]) > cap_box[0]:
+            cap_box[0] = max(cap_box[0] * 4, int(nu[0]))
+            _count(counters, "capacity_regrows")
+            with _span(spans, "dispatch", "fetch", regrow=True):
+                pk, pc, nu = telemetry.record_fetch(
+                    tuple(x.cpu().numpy() for x in reduce(cap_box[0])))
         cold += float(c[0])
-        with _span(spans, "decode"):
+        with _span(spans, "decode", "merge"):
             decode_pairs(pk[0], pc[0], noshare, share)
     return noshare, share, cold
 
@@ -1476,11 +1589,11 @@ def run_sampled_progressive(
         # the progressive stream is the HOST draw stream: prefix
         # extension needs the whole set materialized host-side, and
         # the bit-identity anchor is the host-path one-shot run
-        warnings.warn(
-            "progressive sampling always draws on the host; "
-            "device_draw ignored for this run",
-            stacklevel=2,
-        )
+        message = ("progressive sampling always draws on the host; "
+                   "device_draw ignored for this run")
+        telemetry.event("warning", key="progressive_host_draw",
+                        message=message)
+        warnings.warn(message, stacklevel=2)
     schedule = confidence.resolve_schedule(cfg)
     n_rounds = len(schedule)
     tol = getattr(cfg, "tolerance", None)
@@ -1488,85 +1601,88 @@ def run_sampled_progressive(
     for nt in trace.nests:
         check_packed_ratios(nt)
     cap_box = [capacity]
-    refs = []
-    for idx, (k, ri, _sig) in enumerate(rows):
-        nt = trace.nests[k]
-        with _span(spans, "draw"):
-            keys_all, highs = draw_sample_keys(
-                nt, ri, cfg, seed=cfg.seed * 1000003 + idx
-            )
-            order = _stream_order(keys_all, cfg.seed * 1000003 + idx)
-        desc = build_descriptor(nt, ri) if kernel else None
-        refs.append({
-            "nt": nt,
-            "ri": ri,
-            "name": nt.tables.ref_names[ri],
-            "keys": keys_all[order],
-            "ph": _pad_highs(highs),
-            "rx": torch.tensor([ri], dtype=torch.int64, device=dev),
-            "desc": desc,
-            "desc_dev": device_descriptor(desc, dev),
-            "tri": tri_table(nt, dev) if kernel else None,
-            "counts": confidence.round_counts(len(keys_all), schedule),
-        })
-    blocks: list[list] = [[] for _ in refs]
-    state = None
-    results: list[SampledRefResult] = []
-    band_width = None
-    stopped = None
-    done = 0
-    for r in range(n_rounds):
-        if r > 0 and should_stop is not None and should_stop():
-            stopped = "deadline"
-            break
-        _count(counters, "progressive_rounds")
-        for ref, ref_blocks in zip(refs, blocks):
-            lo = 0 if r == 0 else ref["counts"][r - 1]
-            hi = ref["counts"][r]
-            for a, b in confidence.block_bounds(lo, hi):
-                ref_blocks.append(_classify_slice(
-                    ref, ref["keys"][a:b], batch, cap_box, dev, backend,
-                    spans, counters,
-                ))
-        done = r + 1
-        results = [
-            SampledRefResult(
-                name=ref["name"], noshare=ns, share=sh, cold=cold,
-                n_samples=ref["counts"][r],
-            )
-            for ref, (ns, sh, cold) in zip(
-                refs, (_sum_blocks(rb) for rb in blocks)
-            )
-        ]
-        with _span(spans, "fold"):
-            state = fold_results(results, machine.thread_num, v2)
-        with _span(spans, "bootstrap"):
-            raw = confidence.bootstrap_band(
-                blocks, machine, seed=cfg.seed, round_idx=r, v2=v2,
-            )
-        # monotone non-widening by construction: more samples
-        # never REPORT more uncertainty than an earlier round did
-        band_width = (
-            raw if band_width is None else min(band_width, raw)
-        )
-        early = (
-            tol is not None and band_width < tol
-            and r < n_rounds - 1
-        )
-        if on_round is not None:
-            on_round({
-                "round": done,
-                "rounds_total": n_rounds,
-                "band_width": band_width,
-                "converged": early or done == n_rounds,
-                "state": state,
-                "results": results,
-                "mrc": confidence.mrc_from_state(state, machine),
+    with telemetry.span("engine", engine="sampled"):
+        refs = []
+        for idx, (k, ri, _sig) in enumerate(rows):
+            nt = trace.nests[k]
+            with _span(spans, "draw", where="host"):
+                keys_all, highs = draw_sample_keys(
+                    nt, ri, cfg, seed=cfg.seed * 1000003 + idx
+                )
+                order = _stream_order(keys_all, cfg.seed * 1000003 + idx)
+            desc = build_descriptor(nt, ri) if kernel else None
+            refs.append({
+                "nt": nt,
+                "ri": ri,
+                "name": nt.tables.ref_names[ri],
+                "keys": keys_all[order],
+                "ph": _pad_highs(highs),
+                "rx": torch.tensor([ri], dtype=torch.int64, device=dev),
+                "desc": desc,
+                "desc_dev": device_descriptor(desc, dev),
+                "tri": tri_table(nt, dev) if kernel else None,
+                "counts": confidence.round_counts(len(keys_all), schedule),
             })
-        if early:
-            stopped = "converged"
-            break
+        blocks: list[list] = [[] for _ in refs]
+        state = None
+        results: list[SampledRefResult] = []
+        band_width = None
+        stopped = None
+        done = 0
+        for r in range(n_rounds):
+            if r > 0 and should_stop is not None and should_stop():
+                stopped = "deadline"
+                break
+            _count(counters, "progressive_rounds")
+            for ref, ref_blocks in zip(refs, blocks):
+                lo = 0 if r == 0 else ref["counts"][r - 1]
+                hi = ref["counts"][r]
+                for a, b in confidence.block_bounds(lo, hi):
+                    ref_blocks.append(_classify_slice(
+                        ref, ref["keys"][a:b], batch, cap_box, dev, backend,
+                        spans, counters,
+                    ))
+            done = r + 1
+            results = [
+                SampledRefResult(
+                    name=ref["name"], noshare=ns, share=sh, cold=cold,
+                    n_samples=ref["counts"][r],
+                )
+                for ref, (ns, sh, cold) in zip(
+                    refs, (_sum_blocks(rb) for rb in blocks)
+                )
+            ]
+            with _span(spans, "fold", "merge", stage="fold_results"):
+                state = fold_results(results, machine.thread_num, v2)
+            with _span(spans, "bootstrap", tele=None):
+                raw = confidence.bootstrap_band(
+                    blocks, machine, seed=cfg.seed, round_idx=r, v2=v2,
+                )
+            # monotone non-widening by construction: more samples
+            # never REPORT more uncertainty than an earlier round did
+            band_width = (
+                raw if band_width is None else min(band_width, raw)
+            )
+            early = (
+                tol is not None and band_width < tol
+                and r < n_rounds - 1
+            )
+            if on_round is not None:
+                on_round({
+                    "round": done,
+                    "rounds_total": n_rounds,
+                    "band_width": band_width,
+                    "converged": early or done == n_rounds,
+                    "state": state,
+                    "results": results,
+                    "mrc": confidence.mrc_from_state(state, machine),
+                })
+            if early:
+                stopped = "converged"
+                break
     converged = stopped == "converged" or done == n_rounds
+    telemetry.gauge("progressive_band_width",
+                    band_width if band_width is not None else -1.0)
     if state is None:
         # should_stop before any round completed — nothing to return;
         # the caller treats this like any engine failure

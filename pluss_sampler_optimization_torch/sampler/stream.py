@@ -50,6 +50,7 @@ from .dense import (
     shifted,
     sorted_fields,
 )
+from ..runtime import telemetry
 from .sampled import _span, resolve_device
 
 # Per-chunk element budget: chunk_m = max(1, _ELEM_BUDGET // acc[0]).
@@ -198,17 +199,22 @@ def run_stream(
     P = machine.thread_num
     state = PRIState(P)
     per_tid = [0] * P
-    for run_tid, fresh_carry, _ in kernels:
+    engine_span = telemetry.span("engine", engine="stream")
+    engine_span.__enter__()
+    for nest_k, (run_tid, fresh_carry, _) in enumerate(kernels):
         for tid in range(P):
-            with _span(spans, "dispatch"):
-                out = run_tid(tid, fresh_carry())
-            with _span(spans, "fetch"):
-                nosh, ys, cold, n_acc = (
-                    out[0].cpu().numpy(),
-                    tuple(y.cpu().numpy() for y in out[1]),
-                    out[2].cpu().numpy(), int(out[3]),
-                )
-            with _span(spans, "fold"):
+            with telemetry.span("scan", nest=nest_k, tid=tid):
+                telemetry.count("dispatches")
+                with _span(spans, "dispatch", tele=None):
+                    out = run_tid(tid, fresh_carry())
+                with _span(spans, "fetch"):
+                    nosh, ys, cold, n_acc = telemetry.record_fetch((
+                        out[0].cpu().numpy(),
+                        tuple(y.cpu().numpy() for y in out[1]),
+                        out[2].cpu().numpy(), out[3].cpu().numpy(),
+                    ))
+                    n_acc = int(n_acc)
+            with _span(spans, "fold", tele=None):
                 sk, sc, nu = ys
                 if int(nu.max(initial=0)) > sk.shape[1]:
                     raise RuntimeError(
@@ -229,6 +235,7 @@ def run_stream(
                             hs = state.share[tid].setdefault(ratio, {})
                             hs[reuse] = hs.get(reuse, 0.0) + float(cnt)
                 per_tid[tid] += int(n_acc)
+    engine_span.__exit__(None, None, None)
     return OracleResult(
         state=state, total_accesses=sum(per_tid), per_tid_accesses=per_tid
     )

@@ -69,6 +69,12 @@ COPIED = (
     + [f"analysis/{f}" for f in ("__init__.py", "validate.py", "deps.py",
                                  "bounds.py", "lint_common.py")]
     + [f"frontend/{f}" for f in ("__init__.py", "schema.py", "parse.py")]
+    + ["runtime/lockwitness.py", "service/fingerprint.py",
+       "service/fabric/ring.py"]
+    + [f"runtime/obs/{f}" for f in ("__init__.py", "exporters.py",
+                                    "attribution.py", "ledger.py",
+                                    "regress.py", "metrics.py",
+                                    "profiler.py", "slo.py")]
 )
 
 
@@ -177,11 +183,25 @@ def test_port_imports_no_jax():
         "dense, stream\n"
         "from pluss_sampler_optimization_torch.sampler.periodic import "
         "run_exact\n"
+        "import pluss_sampler_optimization_torch.runtime.telemetry\n"
+        "import pluss_sampler_optimization_torch.runtime.obs\n"
+        "import pluss_sampler_optimization_torch.runtime.obs.stage_profile\n"
+        "import pluss_sampler_optimization_torch.tools.profile_stages\n"
+        "from pluss_sampler_optimization_torch.tools import (\n"
+        "    check_bundle, check_dispatch_stats, check_drift, check_ledger,\n"
+        "    check_profile, check_regression, check_slo,\n"
+        "    check_telemetry_schema)\n"
         "import chip_smoke\n"
         "T.run_sampled(gemm(8), T.MachineConfig(), T.SamplerConfig(),"
         " device='cpu')\n"
         "assert run_exact(gemm(8), T.MachineConfig(), device='cpu')"
         ".engine == 'periodic'\n"
+        "import contextlib, io, os, tempfile\n"
+        "led = os.path.join(tempfile.mkdtemp(), 'l.jsonl')\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    assert main(['sample', '--n', '8', '--device', 'cpu',"
+        " '--ledger', led]) == 0\n"
+        "    assert main(['stats', '--ledger', led]) == 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'pluss_sampler_optimization_tpu'))]\n"
         "assert not bad, bad\n"

@@ -418,6 +418,47 @@ def cards(cuda):
     return n
 
 
+# A fresh process touches cuda:0 only, reads telemetry.device_metrics, and
+# asks the driver which cards hold a primary context.
+_IDLE_CARDS = """
+import ctypes, json, torch
+from pluss_sampler_optimization_torch.runtime import telemetry
+x = torch.zeros(1, device="cuda:0")
+torch.cuda.synchronize()
+metrics = telemetry.device_metrics()
+cu = ctypes.CDLL("libcuda.so.1")
+active = []
+for i in range(torch.cuda.device_count()):
+    dev, flags, on = ctypes.c_int(), ctypes.c_uint(), ctypes.c_int()
+    assert cu.cuDeviceGet(ctypes.byref(dev), i) == 0
+    assert cu.cuDevicePrimaryCtxGetState(dev, ctypes.byref(flags),
+                                         ctypes.byref(on)) == 0
+    active.append(on.value)
+print(json.dumps({"metrics": metrics, "active": active}))
+"""
+
+
+def test_device_metrics_opens_no_context_on_idle_cards(cards):
+    """device_metrics names every card and reads its allocator counters
+    without creating a context on a card the process never used."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    out = subprocess.run([sys.executable, "-c", _IDLE_CARDS], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["active"] == [1] + [0] * (cards - 1)
+    m = got["metrics"]
+    assert m["platform"] == "gpu" and m["device_count"] == cards
+    assert [d["id"] for d in m["devices"]] == list(range(min(cards, 8)))
+    assert m["devices"][0]["memory"]["bytes_in_use"] > 0
+    assert all(d["memory"]["bytes_in_use"] == 0 for d in m["devices"][1:])
+
+
 @pytest.mark.parametrize("fuse", [None, False])
 @pytest.mark.parametrize("device_draw", [False, True])
 def test_sharded_over_every_card_folds_like_run_sampled(device_draw, fuse,

@@ -62,10 +62,17 @@ def test_depths_and_runners_give_equal_results(raw):
                                      raw_noshare=raw)
     want = runs[True, 4][0]
     assert all(r == want for r, _ in runs.values())
+    # the serial runner drains a ref's dispatches before the next ref
+    # draws (the JAX package's serial runner): 3 of each ref's dispatches
+    # fly without a stall; the bucket runner's pipeline spans buckets
+    per_ref = [TS._host_fuse_plan(r["n_samples"], 64)[1] for r in want]
+    stalls4 = {True: runs[True, 4][1]["dispatches"] - 3,
+               False: sum(max(0, d - 3) for d in per_ref)}
+    assert sum(per_ref) == runs[False, 4][1]["dispatches"]
     for fuse in (True, False):
         c1, c4 = runs[fuse, 1][1], runs[fuse, 4][1]
         assert c1["pipeline_stalls"] == c1["dispatches"] > 3
-        assert c4["pipeline_stalls"] == c4["dispatches"] - 3
+        assert c4.get("pipeline_stalls", 0) == stalls4[fuse]
         assert (c1["pipeline_depth"], c4["pipeline_depth"]) == (1, 4)
         assert c1["capacity_regrows"] >= 1
     assert runs[False, 4][1]["refs_per_dispatch"] == 1
