@@ -7,24 +7,29 @@
     python3 chip_smoke.py --exact-only     # the exact engines (phase 17)
     python3 chip_smoke.py --frontend-only  # the frontend (phase 18)
     python3 chip_smoke.py --obs-only       # observability (phase 19)
+    python3 chip_smoke.py --serve-only     # the analysis service (phase 20)
 
 SamplerConfig() resolves to the device draw on the card (threefry on
 kernel B3), as the JAX package's auto does on an accelerator. Phases,
 each printing its own lines; any failure exits non-zero:
 
 1. card: the name and power limit nvidia-smi reports;
-2. build: csrc/sampled_hist.cu (kernel B1), csrc/pow2_hist.cu (kernel
-   B2) and csrc/threefry_draw.cu (kernel B3) for sm_90a, one nvcc each,
-   started together, and csrc/sampled_hist_buf.cu (B1's buffer form)
-   beside them, left building until phase 18 needs it; build seconds, and ptxas' registers, stack frame and spill
+2. build: csrc/sampled_hist.cu (kernel B1, two parts), csrc/pow2_hist.cu
+   (kernel B2) and csrc/threefry_draw.cu (kernel B3) for sm_90a, every
+   nvcc started together, and csrc/sampled_hist_buf.cu (B1's buffer and
+   per-row forms, three parts) beside them, left building until phase
+   18 needs it; build seconds, and ptxas' registers, stack frame and spill
    bytes for every kernel instantiation (B1 has 12,
    sampled_hist_kernel<LV, NHMAX, TRI>: source-ref level 0-2 by most
    band-plan heads per sink group, 1 for at most one, 3 for up to
    three, by rectangular or triangular nest, each taking the launch flag
-   of its raw-noshare form, and 6 of the buffer form,
-   sampled_hist_kernel_buf<LV, TRI>; B2 has 2, pow2_hist_kernel<BOOL_W> for bool
-   and int64 weights; B3 has 10, randint_kernel<KIND, EDGE> by the span's
-   remainder record (0 a power of two, 1 above 2^32, 2 below it) and
+   of its raw-noshare form, 6 of the buffer form,
+   sampled_hist_kernel_buf<LV, TRI>, and 12 of the per-row form,
+   sampled_hist_kernel_rows<LV, NHMAX, TRI>, the buffer form's library
+   built in three parts at once; B2 has 2, pow2_hist_kernel<BOOL_W> for
+   bool and int64 weights; B3 has 16, randint_kernel<KIND, EDGE> by the
+   span's remainder record (0 a power of two, 1 above 2^32, 2 below it),
+   randint_rows_kernel<KIND, EDGE> (a span per row) and
    bits_kernel<EDGE, MASK>), with each B3 instantiation's SASS
    instructions per pipe (cuobjdump); B3 must have 0 B stack and spills;
 2b. cold and warm: the first run of this process at GEMM --n (the CUDA
@@ -214,14 +219,38 @@ each printing its own lines; any failure exits non-zero:
    and B3 launches, one device draw and one B1 dispatch of it bit-equal
    to plain; e. a flight-recorder bundle with the CUDA memory snapshot
    through the check_bundle twin, the check_profile (gemm(1024)) and
-   check_slo twins. The in-process launches join the kernels line.
+   check_slo twins. The in-process launches join the kernels line;
+20. the analysis service (service/, the CLI's serve): a. solo requests
+   through `serve --cache-dir --max-workers 1`: sampled GEMM 2*--n and
+   --n (ratio 0.1, seed 0, device draw), syrk-tri --tri-n, exact GEMM
+   --n/2; each digest equal to the direct run_sampled's (at the default
+   --n phase 19's e2c857ab095f0fa1 and 8cdc22136a70d541), the exact one
+   to baselines/gemm1024.json.gz; latency p50/p99 from the ledger rows
+   and each request's service overhead over the direct run; then the
+   same lines again, every answer from the store with no kernel
+   launched, and the cache-hit latency; b. one batch window
+   (--batch-window-ms) of 9 sampled requests (GEMM 1024/1536/2048 with
+   two seeds, 2mm 1024, syrk 1024, trmm(1000, 1200) as an inline
+   document): one batch, dispatches_batched counted, B1's and B3's
+   per-row forms launched, every member's digest equal to its solo run,
+   the window's wall beside the members' solo walls; every per-row B1
+   launch held bit-equal against the same rows launched per program and
+   against plain, every per-row B3 call against the rows' solo launches
+   and plain, each form timed beside them with its bound; the members
+   through run_sampled_multi at capacity 2 (regrows, equal digests); c.
+   replicas 1 and 2 on one card and one per card where more are
+   visible: equal digests; d. the check_chaos and check_precision twins
+   at small size on the card. Every non-chaos run ends with no solo
+   fallback, degrade, failure or open breaker. The launches join the
+   kernels line, and its B1 and B3 entries carry the per-row forms'
+   times (rows_ms) beside the per-program launches' and their bound.
 
 Then one JSON line of kernel numbers (B1 timed over the dispatches of
 phases 5 and 13, its launches those of phases 7, 8b's serial run, 8c,
-10, 11b, 11c, 12, 12b, 14, 15, 16, 17, 18 and 19; B2 timed on phase
-10's inputs, its launches those of phases 10-12, 16 and 19; B3 timed
-on the 8 calls of GEMM-2048's draw, its launches those of phases 7, 8,
-8c, 10-12, 14-16, 18 and 19), the nvidia-smi line,
+10, 11b, 11c, 12, 12b, 14, 15, 16, 17, 18, 19 and 20; B2 timed on
+phase 10's inputs, its launches those of phases 10-12, 16 and 19; B3
+timed on the 8 calls of GEMM-2048's draw, its launches those of phases
+7, 8, 8c, 10-12, 14-16, 18, 19 and 20), the nvidia-smi line,
 and last the result line {"ok": true, "device": {...}}. Imports nothing
 of JAX.
 """
@@ -3029,6 +3058,541 @@ def _stage_kernels_vs_plain(n: int) -> int:
     return _launches()[0]
 
 
+# Phase 20, the analysis service on the card (--serve-only: the build,
+# then this phase). The solo requests at full size (GEMM 2n and n, the
+# syrk-tri baseline's size, exact GEMM n/2), their digests as phase 19
+# prints them for the default --n, and one batch window of mixed models
+# and sizes (model, size, seed; trmm at PolyBench LARGE as an inline
+# program document).
+SERVE_DIGESTS = {4096: "e2c857ab095f0fa1", 2048: "8cdc22136a70d541"}
+SERVE_BATCH = (("gemm", 1024, 0), ("gemm", 1024, 1), ("gemm", 1536, 0),
+               ("gemm", 1536, 1), ("gemm", 2048, 0), ("gemm", 2048, 1),
+               ("2mm", 1024, 0), ("syrk", 1024, 0),
+               ("trmm", (1000, 1200), 0))
+SERVE_BATCH_WINDOW_MS = 500
+SERVE_REGROW_CAPACITY = 2  # a capacity every batched dispatch outgrows
+SERVE_REPLICA_REQUESTS = (("gemm", 1024, 0), ("gemm", 1024, 1),
+                          ("2mm", 1024, 0), ("syrk", 1024, 0))
+SERVE_ROWS_REPS = 3  # timed passes over the recorded per-row launches
+
+
+def _serve_request(model: str, size, seed: int, engine: str = "sampled",
+                   rid: str | None = None) -> dict:
+    """One request line's fields: a registry model at n, or (a tuple of
+    sizes) an inline program document of the registry's builder."""
+    from pluss_sampler_optimization_torch.frontend.schema import (
+        program_to_json,
+    )
+    from pluss_sampler_optimization_torch.models import REGISTRY
+
+    doc = {"id": rid or f"{model}{size}-s{seed}-{engine}", "engine": engine}
+    if isinstance(size, tuple):
+        doc["program"] = program_to_json(REGISTRY[model](*size))
+    else:
+        doc.update(model=model, n=size)
+    if engine == "sampled":
+        doc.update(ratio=0.1, seed=seed)
+    return doc
+
+
+def _serve_program(model: str, size):
+    from pluss_sampler_optimization_torch.models import REGISTRY
+
+    return REGISTRY[model](*(size if isinstance(size, tuple) else (size,)))
+
+
+def _direct(prog, seed: int = 0):
+    """(MRC digest, wall seconds) of run_sampled on the card, warmed: the
+    better of two runs."""
+    import torch
+
+    from pluss_sampler_optimization_torch.config import (
+        MachineConfig,
+        SamplerConfig,
+    )
+    from pluss_sampler_optimization_torch.sampler.sampled import (
+        run_sampled,
+        warmup,
+    )
+
+    machine, cfg = MachineConfig(), SamplerConfig(ratio=0.1, seed=seed)
+    warmup(prog, machine, cfg)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = run_sampled(prog, machine, cfg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return _digest(state, machine), min(walls)
+
+
+def _serve_cli(tmp: str, name: str, lines: list, store: str, led: str,
+               *flags) -> list:
+    """The CLI's serve mode in this process over `lines`: the response
+    documents, in input order."""
+    import contextlib
+    import io
+
+    from pluss_sampler_optimization_torch import cli
+
+    reqs, resps = (os.path.join(tmp, f"{name}.{x}.jsonl")
+                   for x in ("requests", "responses"))
+    with open(reqs, "w") as f:
+        f.writelines(json.dumps(d) + "\n" for d in lines)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["serve", "--cache-dir", store, "--ledger", led,
+                       "--requests", reqs, "--responses", resps, *flags])
+    if rc != 0:
+        raise AssertionError(f"serve: {name}: exited {rc}: {err.getvalue()}")
+    with open(resps) as f:
+        return [json.loads(line) for line in f]
+
+
+def _serve_rows_recording():
+    """Wrap the per-row forms of B1 (sampled_hist_rows_cuda) and B3
+    (threefry_randint_cuda with a span per row): each launch's arguments
+    and outputs kept (references: the batch never writes them again);
+    returns (B1 calls, B3 calls, a restore)."""
+    import pluss_sampler_optimization_torch.ops.sampled_hist as sh
+    import pluss_sampler_optimization_torch.ops.threefry_draw as td
+
+    b1, b3 = [], []
+    rows, randint = sh.sampled_hist_rows_cuda, td.threefry_randint_cuda
+
+    def rows_rec(nts, ref_idxs, keys, mask, highs_rows, rx, descs=None,
+                 descs_dev=None, tris=None, raw=False, hrs_dev=None):
+        out = rows(nts, ref_idxs, keys, mask, highs_rows, rx, descs,
+                   descs_dev, tris, raw, hrs_dev)
+        b1.append(((list(nts), list(ref_idxs), keys, mask,
+                    list(highs_rows), rx, raw), out))
+        return out
+
+    def randint_rec(keys, B, span, device):
+        out = randint(keys, B, span, device)
+        if not isinstance(span, (int, np.integer)):
+            b3.append((list(keys), B, list(span), device, out))
+        return out
+
+    sh.sampled_hist_rows_cuda, td.threefry_randint_cuda = rows_rec, randint_rec
+
+    def restore():
+        sh.sampled_hist_rows_cuda, td.threefry_randint_cuda = rows, randint
+
+    return b1, b3, restore
+
+
+def _serve_b1_rows(calls: list) -> dict:
+    """Every recorded per-row B1 launch held against the same rows
+    launched per program (sampled_hist_cuda, each row's own descriptor
+    in its parameter or buffer form) and against the per-row plain
+    version, all bit-equal; the per-row form, the per-program launches
+    and the plain version timed over all of them; the bound summed per
+    row (_b1_need of each row's descriptor). Returns the totals."""
+    import torch
+
+    from pluss_sampler_optimization_torch.ops.sampled_hist import (
+        build_descriptor,
+        rows_instantiation,
+        rows_matrix,
+        sampled_hist_cuda,
+        sampled_hist_rows_cuda,
+        sampled_hist_rows_plain,
+    )
+
+    def per_program(args):
+        nts, ris, keys, mask, highs, rx, raw = args
+        outs = [sampled_hist_cuda(nts[r], ris[r], keys[r:r + 1],
+                                  None if mask is None else mask[r:r + 1],
+                                  highs[r], rx[r:r + 1], raw=raw)
+                for r in range(len(nts))]
+        return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
+
+    tot = {"bytes": 0, "ops": 0, "rows": 0, "max_abs_err": 0}
+    for i, (args, got) in enumerate(calls):
+        nts, ris, keys, mask, highs, rx, raw = args
+        for label, want in (("per-program launches", per_program(args)),
+                            ("plain", sampled_hist_rows_plain(
+                                nts, ris, keys, mask, highs, rx, raw))):
+            for name, a, b in zip(("residual", "hist", "cold"), got, want):
+                err = int((a - b).abs().max()) if a.numel() else 0
+                tot["max_abs_err"] = max(tot["max_abs_err"], err)
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"serve: per-row B1 launch {i} {name} differs from "
+                        f"its {label} (max abs err {err})")
+        descs = [build_descriptor(nt, ri) for nt, ri in zip(nts, ris)]
+        lv, nh, tri = rows_instantiation(rows_matrix(descs))
+        for r in range(len(nts)):
+            nbytes, ops, _ = _b1_need(
+                nts[r], descs[r], highs[r], ris[r], keys[r:r + 1],
+                None if mask is None else mask[r:r + 1], got[1][r:r + 1],
+                got[2][r:r + 1])
+            tot["bytes"] += nbytes
+            tot["ops"] += ops
+        tot["rows"] += len(nts)
+        print(f"serve: per-row B1 launch {i}: {len(nts)} rows of "
+              f"{keys.shape[1]} lanes, sampled_hist_kernel_rows<{lv}, {nh}, "
+              f"{str(tri).lower()}>, equal to its per-program launches and "
+              "to plain")
+
+    def rows_form():
+        for (nts, ris, keys, mask, highs, rx, raw), _ in calls:
+            sampled_hist_rows_cuda(nts, ris, keys, mask, highs, rx, raw=raw)
+
+    def programs():
+        for args, _ in calls:
+            per_program(args)
+
+    def plain():
+        for (nts, ris, keys, mask, highs, rx, raw), _ in calls:
+            sampled_hist_rows_plain(nts, ris, keys, mask, highs, rx, raw)
+
+    tot["ms"] = _time_ms(rows_form, SERVE_ROWS_REPS)
+    tot["per_program_ms"] = _time_ms(programs, SERVE_ROWS_REPS)
+    tot["plain_ms"] = _time_ms(plain, 1)
+    tot["dispatches"] = len(calls)
+    _b1_summary(f"serve: per-row B1 ({tot['rows']} rows in {len(calls)} "
+                f"launches; the same rows per program "
+                f"{tot['per_program_ms']:.3f} ms)", tot)
+    return tot
+
+
+def _serve_b3_rows(calls: list) -> dict:
+    """Every recorded B3 randint call with a span per row held against
+    each row's solo launch (one span) and against the plain version,
+    bit-equal; both timed; the bound by bytes and by the operations the
+    rows' streams need (_b3_need per row). Returns the totals."""
+    import torch
+
+    from pluss_sampler_optimization_torch.ops import threefry_draw as td
+
+    need = []
+    for i, (keys, B, spans, dev, got) in enumerate(calls):
+        solo = torch.cat([td.threefry_randint_cuda([k], B, sp, dev)
+                          for k, sp in zip(keys, spans)])
+        plain = td.threefry_randint_plain(keys, B, spans, dev)
+        for label, want in (("solo launches", solo), ("plain", plain)):
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"serve: per-row B3 call {i} differs from its {label} "
+                    f"in {int((got != want).sum())} of {got.numel()}")
+        kinds = sorted({td.remainder_record(sp).kind for sp in spans})
+        print(f"serve: per-row B3 call {i}: {len(keys)} rows of {B}, spans "
+              f"{spans}, remainder kinds {kinds}: equal to the rows' solo "
+              "launches and to plain")
+        need += [_b3_need(("randint", [k], B, sp, dev))
+                 for k, sp in zip(keys, spans)]
+
+    def rows_form():
+        for keys, B, spans, dev, _ in calls:
+            td.threefry_randint_cuda(keys, B, spans, dev)
+
+    def solos():
+        for keys, B, spans, dev, _ in calls:
+            for k, sp in zip(keys, spans):
+                td.threefry_randint_cuda([k], B, sp, dev)
+
+    def plain():
+        for keys, B, spans, dev, _ in calls:
+            td.threefry_randint_plain(keys, B, spans, dev)
+
+    n = _b3_sum(need)
+    bytes_ms = n["bytes"] / HBM_BYTES_PER_S * 1e3
+    ops_ms = _b3_ops_ms(n)["ops"]
+    tot = {"ms": _time_ms(rows_form, SERVE_ROWS_REPS),
+           "solo_ms": _time_ms(solos, SERVE_ROWS_REPS),
+           "plain_ms": _time_ms(plain, 1), "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    print(f"serve: per-row B3 ({len(calls)} calls): kernel {tot['ms']:.4f} "
+          f"ms, the rows' solo launches {tot['solo_ms']:.4f} ms, plain "
+          f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms by "
+          f"{tot['bound_by']} (bytes {bytes_ms:.4f} ms, operations "
+          f"{ops_ms:.4f} ms)")
+    return tot
+
+
+def _serve_clean(label: str, stats: dict) -> None:
+    """A non-chaos run's executor stats: no solo fallback, degrade,
+    failure or open breaker."""
+    bad = {k: stats.get(k, 0) for k in ("batch_fallback_solo", "degraded",
+                                          "failed") if stats.get(k, 0)}
+    bad.update({f"breaker {e}": b["state"]
+                for e, b in (stats.get("breakers") or {}).items()
+                if b.get("state") != "closed"})
+    reps = (stats.get("replicas") or {}).get("replicas") or []
+    bad.update({f"replica {r['replica_id']}": r["breaker"] for r in reps
+                if r["breaker"] != "closed"})
+    if bad:
+        raise AssertionError(f"serve: {label}: {bad}")
+
+
+def phase_serve(n: int, tri_n: int) -> tuple:
+    """Phase 20, the analysis service on the card.
+
+    a. solo requests through the CLI's serve with --cache-dir and
+       --max-workers 1: sampled GEMM 2n and n (ratio 0.1, seed 0, the
+       device draw), syrk-tri --tri-n, exact GEMM n/2; each digest
+       equal to the direct run_sampled's (and, at the default --n, to
+       phase 19's), the exact one to its baseline; then the same lines
+       again: every answer from the store, no kernel launched;
+    b. one batch window (--batch-window-ms) of SERVE_BATCH: one batch,
+       dispatches_batched counted, B1's and B3's per-row forms launched,
+       each member's digest equal to its solo run; every per-row B1
+       launch held against the same rows launched per program and
+       against plain, every per-row B3 call against the rows' solo
+       launches and plain, each form timed beside them; then the
+       members through run_sampled_multi at capacity 2: regrows, equal
+       digests;
+    c. replicas 1 and 2 on one card (and one per card where more are
+       visible): equal digests, the requests spread over the replicas;
+    d. the check_chaos and check_precision twins at small size on the
+       card.
+    Every non-chaos run: no solo fallback, degrade, failure or open
+    breaker. Returns (B1 launches, B3 launches, the per-row B1 totals,
+    the per-row B3 totals)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import pluss_sampler_optimization_torch.ops.sampled_hist as sh
+    import pluss_sampler_optimization_torch.ops.threefry_draw as td
+    from pluss_sampler_optimization_torch.config import (
+        MachineConfig,
+        ReplicaConfig,
+        SamplerConfig,
+    )
+    from pluss_sampler_optimization_torch.runtime import telemetry
+    from pluss_sampler_optimization_torch.runtime.aet import aet_mrc
+    from pluss_sampler_optimization_torch.runtime.baseline import (
+        load_baseline,
+    )
+    from pluss_sampler_optimization_torch.runtime.cri import cri_distribute
+    from pluss_sampler_optimization_torch.runtime.obs import ledger
+    from pluss_sampler_optimization_torch.sampler.sampled import (
+        run_sampled_multi,
+    )
+    from pluss_sampler_optimization_torch.service import (
+        AnalysisRequest,
+        AnalysisService,
+    )
+
+    t_phase = time.perf_counter()
+    machine = MachineConfig()
+    b1 = b3 = 0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        # a. solo requests through serve, then again from the store
+        solo = [("gemm", 2 * n), ("gemm", n), ("syrk-tri", tri_n)]
+        direct = {size: _direct(_serve_program(m, size)) for m, size in solo}
+        for m, size in solo:
+            want = SERVE_DIGESTS.get(size) if m == "gemm" else None
+            if want is not None and direct[size][0] != want:
+                raise AssertionError(
+                    f"serve: direct {m}({size}) digest {direct[size][0]}, "
+                    f"phase 19's {want}")
+        base = load_baseline("gemm", n // 2, machine)
+        if base is None:
+            raise AssertionError(f"serve: baselines/gemm{n // 2}.json.gz "
+                                 "is missing")
+        T = machine.thread_num
+        base_digest = ledger.mrc_digest(
+            aet_mrc(cri_distribute(base["state"], T, T), machine))
+        lines = [_serve_request(m, size, 0) for m, size in solo]
+        lines.append(_serve_request("gemm", n // 2, 0, "exact"))
+        store, led = os.path.join(tmp, "store"), os.path.join(tmp, "l.jsonl")
+        _reset_launches()
+        first = _serve_cli(tmp, "solo", lines, store, led, "--max-workers",
+                           "1")
+        l1, _, l3 = _launches()
+        if not (l1 and l3):
+            raise AssertionError(f"serve: solo requests launched B1 {l1}, "
+                                 f"B3 {l3} times")
+        b1, b3 = b1 + l1, b3 + l3
+        rows = [r for r in ledger.read_rows(led) if r.get("kind") == "request"]
+        for doc, row, (m, size) in zip(first, rows, solo + [("exact", 0)]):
+            want = base_digest if m == "exact" else direct[size][0]
+            if not doc.get("ok") or doc.get("degraded") or (
+                    doc.get("mrc_digest") != want):
+                raise AssertionError(f"serve: {doc.get('id')}: {doc}")
+            if m != "exact":
+                # the request's own time: its latency less its wait for
+                # the requests ahead of it (--max-workers 1)
+                own = row["latency_s"] - row["queue_s"]
+                print(f"serve: {doc['id']}: digest {want} equal to the "
+                      f"direct run_sampled's; served in {own:.3f} s: "
+                      f"executed in {row['execute_s']:.3f} s (run_sampled "
+                      "and the record: cri, aet, the dump lines), then "
+                      "the store's write and the ledger row "
+                      f"{own - row['execute_s']:.3f} s; beside the direct "
+                      f"run_sampled's {direct[size][1]:.3f} s: service "
+                      f"overhead {own - direct[size][1]:.3f} s")
+        if first[-1]["total_accesses"] != base["total_accesses"]:
+            raise AssertionError("serve: the exact request's accesses differ "
+                                 f"from baselines/gemm{n // 2}.json.gz")
+        print(f"serve: exact gemm({n // 2}): engine "
+              f"{first[-1]['engine_used']}, digest {base_digest} and "
+              f"{base['total_accesses']} accesses equal "
+              f"baselines/gemm{n // 2}.json.gz")
+        lat = sorted(r["latency_s"] for r in rows)
+        own = sorted(r["latency_s"] - r["queue_s"] for r in rows)
+        print(f"serve: {len(rows)} solo requests, B1 {l1} and B3 {l3} "
+              f"launches; latency p50 {ledger._percentile(lat, 0.5):.3f} s, "
+              f"p99 {ledger._percentile(lat, 0.99):.3f} s (queued behind "
+              f"one another); without the queue p50 "
+              f"{ledger._percentile(own, 0.5):.3f} s, p99 "
+              f"{ledger._percentile(own, 0.99):.3f} s")
+        _reset_launches()
+        again = _serve_cli(tmp, "again", lines, store, led)
+        hit = _launches()
+        rows = [r for r in ledger.read_rows(led)
+                if r.get("kind") == "request"][len(lines):]
+        if any(hit) or any(d.get("cache") != "disk" or d.get("mrc_digest")
+                           != f.get("mrc_digest") for d, f in
+                           zip(again, first)):
+            raise AssertionError(f"serve: repeated requests launched {hit} "
+                                 f"or were not answered from the store: "
+                                 f"{[d.get('cache') for d in again]}")
+        own = sorted(r["latency_s"] - (r.get("queue_s") or 0.0)
+                     for r in rows)
+        print(f"serve: the same {len(again)} requests again: every answer "
+              "from the store (cache disk), no kernel launched; cache-hit "
+              f"latency without the queue p50 "
+              f"{ledger._percentile(own, 0.5) * 1e3:.2f} ms, p99 "
+              f"{ledger._percentile(own, 0.99) * 1e3:.2f} ms (each reads and "
+              "validates a record whose MRC holds "
+              f"{first[0]['mrc_len']} points for GEMM {2 * n})")
+
+        # b. one batch window of mixed models and sizes
+        members = [_serve_request(m, size, seed)
+                   for m, size, seed in SERVE_BATCH]
+        solo_runs = [_direct(_serve_program(m, size), seed)
+                     for m, size, seed in SERVE_BATCH]
+        reqs = [AnalysisRequest(**{**d, "model": d.get("model", "custom")})
+                for d in members]
+        rec_b1, rec_b3, restore = _serve_rows_recording()
+        rows0 = sh.ROWS_LAUNCHES, td.ROWS_LAUNCHES
+        _reset_launches()
+        tele = telemetry.enable()
+        try:
+            with AnalysisService(batch_window_ms=SERVE_BATCH_WINDOW_MS,
+                                 batch_max_refs=1024) as svc:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tickets = [svc.submit(r) for r in reqs]
+                resps = [svc.result(t) for t in tickets]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                stats = svc.executor.stats()
+        finally:
+            telemetry.disable()
+            restore()
+        l1, _, l3 = _launches()
+        b1, b3 = b1 + l1, b3 + l3
+        rows_b1, rows_b3 = (sh.ROWS_LAUNCHES - rows0[0],
+                            td.ROWS_LAUNCHES - rows0[1])
+        _serve_clean("batch window", stats)
+        batched = tele.counters.get("dispatches_batched", 0)
+        if not (stats.get("batches_formed") and batched and rows_b1
+                and rows_b3) or stats.get("batch_members") != len(reqs):
+            raise AssertionError(
+                f"serve: batch window: {stats.get('batches_formed')} "
+                f"batches of {stats.get('batch_members')} members, "
+                f"{batched} batched dispatches, per-row B1 {rows_b1} and "
+                f"B3 {rows_b3} launches")
+        for r, (want, _), spec in zip(resps, solo_runs, SERVE_BATCH):
+            if not r.ok or r.mrc_digest != want or r.degraded:
+                raise AssertionError(f"serve: batch member {spec}: ok {r.ok}"
+                                     f", digest {r.mrc_digest} vs solo "
+                                     f"{want}, error {r.error}")
+        print(f"serve: batch window: {len(reqs)} members in "
+              f"{stats['batches_formed']} batch(es), {batched:g} batched "
+              f"dispatches, per-row B1 {rows_b1} and B3 {rows_b3} launches "
+              f"(B1 {l1}, B3 {l3} in all); every member's digest equal to "
+              f"its solo run; the batched engine run (run_sampled_multi) "
+              f"{resps[0].execute_s:.3f} s beside the members' solo "
+              f"run_sampled walls {sum(w for _, w in solo_runs):.3f} s "
+              f"({', '.join(f'{w:.3f}' for _, w in solo_runs)}); the "
+              f"window's wall {wall:.3f} s (the {SERVE_BATCH_WINDOW_MS} ms "
+              "window and each member's record: cri, aet)")
+        rows_b1_tot = _serve_b1_rows(rec_b1)
+        rows_b3_tot = _serve_b3_rows(rec_b3)
+        del rec_b1, rec_b3
+        jobs = [(_serve_program(m, size), machine,
+                 SamplerConfig(ratio=0.1, seed=seed), False)
+                for m, size, seed in SERVE_BATCH]
+        counters: dict = {}
+        _reset_launches()
+        outs = run_sampled_multi(jobs, capacity=SERVE_REGROW_CAPACITY,
+                                 counters=counters)
+        l1, _, l3 = _launches()
+        b1, b3 = b1 + l1, b3 + l3
+        if not (l1 and l3):
+            raise AssertionError(f"serve: run_sampled_multi launched B1 "
+                                 f"{l1} and B3 {l3} times")
+        got = [_digest(state, machine) for state, _ in outs]
+        if got != [d for d, _ in solo_runs] or not counters.get(
+                "capacity_regrows"):
+            raise AssertionError(f"serve: run_sampled_multi at capacity "
+                                 f"{SERVE_REGROW_CAPACITY}: {counters}")
+        print(f"serve: run_sampled_multi at capacity "
+              f"{SERVE_REGROW_CAPACITY}: {counters['capacity_regrows']} "
+              f"regrows over {counters['dispatches_batched']} batched "
+              "dispatches, every member's digest equal to its solo run")
+
+        # c. replicas on one card (and one per card)
+        want = [d for (m, size, seed), (d, _) in zip(SERVE_BATCH, solo_runs)
+                if (m, size, seed) in SERVE_REPLICA_REQUESTS]
+        layouts = [("1 replica", 1, ["cuda:0"]),
+                   ("2 replicas on cuda:0", 2, ["cuda:0", "cuda:0"])]
+        if torch.cuda.device_count() > 1:
+            layouts.append((f"{torch.cuda.device_count()} replicas, one "
+                            "per card", 0, None))
+        for label, count, devices in layouts:
+            _reset_launches()
+            with AnalysisService(replicas=ReplicaConfig(count=count),
+                                 device=devices) as svc:
+                tickets = [svc.submit(AnalysisRequest(**_serve_request(
+                    m, size, seed))) for m, size, seed in
+                    SERVE_REPLICA_REQUESTS]
+                resps = [svc.result(t) for t in tickets]
+                stats = svc.executor.stats()
+            l1, _, l3 = _launches()
+            b1, b3 = b1 + l1, b3 + l3
+            if not (l1 and l3):
+                raise AssertionError(f"serve: {label}: B1 {l1} and B3 {l3} "
+                                     "launches")
+            _serve_clean(label, stats)
+            if [r.mrc_digest for r in resps] != want or not all(
+                    r.ok for r in resps):
+                raise AssertionError(f"serve: {label}: digests "
+                                     f"{[r.mrc_digest for r in resps]}")
+            print(f"serve: {label}: {len(resps)} requests on replicas "
+                  f"{[r.replica_id for r in resps]}, B1 {l1} and B3 {l3} "
+                  "launches, digests equal to the solo runs")
+
+        # d. the chaos and precision twins on the card
+        t0 = time.perf_counter()
+        _reset_launches()
+        _tool("check_chaos", "--seeds", "1", "--device", "cuda")
+        _tool("check_precision", "--seeds", "0", "--models", "gemm",
+              "--device", "cuda")
+        l1, _, l3 = _launches()
+        b1, b3 = b1 + l1, b3 + l3
+        if not l1:  # the progressive rounds classify on B1's raw form
+            raise AssertionError("serve: the twins launched no B1")
+        print(f"serve: check_chaos (seed 0) and check_precision (gemm, "
+              f"seed 0) twins on the card: 0 problems, B1 {l1} and B3 {l3} "
+              f"launches, {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"serve: phase 20 took {time.perf_counter() - t_phase:.1f} s, "
+          f"B1 {b1} and B3 {b3} launches")
+    return b1, b3, rows_b1_tot, rows_b3_tot
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=2048,
@@ -3048,6 +3612,11 @@ def main(argv=None) -> int:
                     "(telemetry off/on/synced, the CLI's observability "
                     "flags, the drift audit, the stage profile, the "
                     "recorder and the tool twins); no result line")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="build, then only the analysis service's phase "
+                    "20 (serve with its store, a batch window on the "
+                    "per-row forms of B1 and B3, replicas, the chaos and "
+                    "precision twins); no result line")
     ap.add_argument("--scaling-only", action="store_true",
                     help="build, then only the sharded engine's fused "
                     "form over 1, 2, ... every visible card at GEMM n and "
@@ -3101,6 +3670,11 @@ def main(argv=None) -> int:
                      gemm(1024), gemm(OBS_STAGES_N)):
             warmup(prog, MachineConfig(), cfg)
         phase_obs(args.n, card)
+        print(card)
+        return 0
+    if args.serve_only:
+        _buffer_form_built()
+        phase_serve(args.n, args.tri_n)
         print(card)
         return 0
     phase_cold_warm(args.n, cfg)
@@ -3183,12 +3757,23 @@ def main(argv=None) -> int:
     obs_b1, obs_b2, obs_b3 = phase_obs(args.n, card)
     b1_launches += obs_b1
     b3["launches"] += obs_b3
+    serve_b1, serve_b3, rows_b1, rows_b3 = phase_serve(args.n, args.tri_n)
+    b1_launches += serve_b1
+    b3["launches"] += serve_b3
     b1_launches += sum(r[0] for r in runs)
     b2["launches"] = sum(r[1] for r in runs) + obs_b2
     b3["launches"] += sum(r[2] for r in runs)
     _b1_summary("sharded kernels (phase 10, all)", b1_sharded)
     b1 = _b1_entry([k, kt])
     b1["launches"] = b1_launches
+    # the per-row forms (phase 20), beside their per-program launches
+    bytes_ms = rows_b1["bytes"] / HBM_BYTES_PER_S * 1e3
+    ops_ms = rows_b1["ops"] / INT32_ISSUES_PER_S * 1e3
+    b1.update(rows_ms=rows_b1["ms"],
+              rows_per_program_ms=rows_b1["per_program_ms"],
+              rows_bound_ms=max(bytes_ms, ops_ms))
+    b3.update(rows_ms=rows_b3["ms"], rows_solo_ms=rows_b3["solo_ms"],
+              rows_bound_ms=rows_b3["bound_ms"])
     print(json.dumps({"kernels": [b1, b2, b3]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -102,8 +102,8 @@ def _parser() -> argparse.ArgumentParser:
 
     ap = argparse.ArgumentParser(prog="pluss_sampler_optimization_torch")
     ap.add_argument("mode", nargs="?",
-                    choices=["acc", "speed", "sample", "trace", "analyze",
-                             "stats"])
+                    choices=["acc", "speed", "sample", "trace", "serve",
+                             "analyze", "stats"])
     ap.add_argument("--list-models", action="store_true",
                     help="print the model registry (nest/ref geometry "
                     "+ exact-router analytic audit status, from "
@@ -221,7 +221,9 @@ def _parser() -> argparse.ArgumentParser:
                     "protocol; compare full-traversal engines with each "
                     "other, or sampled with sharded)")
     ap.add_argument("--device", default="cuda",
-                    help="cuda (default) or cpu")
+                    help="cuda (default) or cpu; serve and --cache-dir "
+                    "also take a device such as cuda:0, on which "
+                    "--replicas K serves K replicas")
     ap.add_argument("--telemetry-out", default=None, metavar="PATH",
                     help="record engine-stage spans, dispatch/fetch "
                     "counters, kernel builds, and device/host metrics for "
@@ -247,6 +249,302 @@ def _parser() -> argparse.ArgumentParser:
                     "kernel-build deltas, MRC digest); `stats` mode "
                     "aggregates a ledger and the check_ledger tool "
                     "validates it")
+    ap.add_argument(
+        "--cache-dir",
+        default=None,
+        metavar="DIR",
+        help="serve results through the analysis service's "
+        "content-addressed store rooted at DIR (serve mode, and "
+        "acc/speed/sample for the plain request pipeline): a repeated "
+        "request returns the stored bit-identical result with zero "
+        "engine work. See README \"Serving\".",
+    )
+    ap.add_argument(
+        "--deadline-s",
+        type=float,
+        default=None,
+        metavar="SECONDS",
+        help="per-request deadline for service-routed runs "
+        "(--cache-dir / serve mode): an engine overrunning it "
+        "degrades down the chain (exact -> sampled, ...), recorded "
+        "in the response and as a telemetry event",
+    )
+    ap.add_argument(
+        "--requests",
+        default="-",
+        metavar="PATH",
+        help="serve mode: JSONL request batch to process ('-' = "
+        "stdin; one JSON request object per line, README \"Serving\")",
+    )
+    ap.add_argument(
+        "--responses",
+        default="-",
+        metavar="PATH",
+        help="serve mode: where to write the JSONL responses "
+        "('-' = stdout)",
+    )
+    ap.add_argument(
+        "--max-workers",
+        type=int,
+        default=4,
+        metavar="N",
+        help="serve mode: concurrent request executions (bounded "
+        "pool; identical in-flight requests coalesce regardless)",
+    )
+    ap.add_argument(
+        "--batch-window-ms",
+        type=float,
+        default=None,
+        metavar="MS",
+        help="service-routed runs (--cache-dir / serve mode): hold "
+        "compatible concurrent sampled requests in an admission "
+        "window up to MS milliseconds and run each flushed window as "
+        "ONE batched engine execution over the union of their kernel "
+        "buckets. Every member's MRC stays bit-identical to its solo "
+        "run, so this is a pure latency-for-throughput knob (default: "
+        "off). See README \"Cross-request batching\".",
+    )
+    ap.add_argument(
+        "--batch-max-refs",
+        type=int,
+        default=64,
+        metavar="N",
+        help="with --batch-window-ms: flush a forming batch early "
+        "once its summed tracked-ref count reaches N; overflow "
+        "requests start the next batch (default: 64)",
+    )
+    ap.add_argument(
+        "--replicas",
+        type=int,
+        default=None,
+        metavar="K",
+        help="service-routed runs (--cache-dir / serve mode): "
+        "partition the devices into K independent replica executors "
+        "(each with its own device group, mesh, and queue) and route "
+        "every execution to the least-loaded one, with work stealing "
+        "and failure quarantine. 0 = auto (one replica per device: "
+        "every visible card under the default --device cuda; a named "
+        "--device such as cuda:0 or cpu serves K replicas on it). "
+        "Pure scheduling: MRC bytes are bit-identical for any K. "
+        "Default: no pool (the single-device-set path). See README "
+        "\"Replica serving\".",
+    )
+    ap.add_argument(
+        "--fault-spec",
+        default=None,
+        metavar="FILE",
+        help="serve mode: arm deterministic fault injection from a "
+        "JSON spec ({\"seed\": S, \"rules\": [{\"site\": ..., "
+        "\"kind\": ..., \"p\": ..., ...}]}). Sites: engine_execute, "
+        "replica_dispatch, cache_load, cache_store, serve_line; "
+        "kinds: raise, latency, hang, corrupt, compile_failure. "
+        "Decisions come from a seeded counter hash, so a chaos run "
+        "replays exactly from (seed, spec). See README \"Overload, "
+        "retries & chaos testing\".",
+    )
+    ap.add_argument(
+        "--attempt-timeout-s",
+        type=float,
+        default=None,
+        metavar="SECONDS",
+        help="service-routed runs (--cache-dir / serve mode): bound "
+        "every engine attempt to SECONDS (tighter of this and the "
+        "request deadline); an overrun attempt is abandoned and — "
+        "with --max-retries — retried with seeded exponential "
+        "backoff. Default: attempts are bounded by the request "
+        "deadline only.",
+    )
+    ap.add_argument(
+        "--max-retries",
+        type=int,
+        default=None,
+        metavar="N",
+        help="service-routed runs: retry a failed or timed-out "
+        "engine attempt up to N times (deterministic seeded backoff "
+        "jitter — replays exactly) before degrading down the chain "
+        "(default: 0, no retries)",
+    )
+    ap.add_argument(
+        "--hedge-after-s",
+        type=float,
+        default=None,
+        metavar="SECONDS",
+        help="service-routed runs with >= 2 replicas: duplicate a "
+        "dispatch still unresolved after SECONDS onto a second "
+        "replica; first result wins, the queued loser is cancelled. "
+        "Results are bit-identical either way (tail-latency "
+        "insurance only). Default: no hedging.",
+    )
+    ap.add_argument(
+        "--queue-limit",
+        type=int,
+        default=None,
+        metavar="N",
+        help="service-routed runs: admission control — shed a "
+        "submission (structured `shed: true` response in "
+        "microseconds) when the executor queue is already N deep "
+        "for its priority class (low sheds at 50%% of N, normal at "
+        "75%%, high at 100%%). Default: unbounded queue, no "
+        "shedding.",
+    )
+    ap.add_argument(
+        "--no-shed",
+        action="store_true",
+        help="with --queue-limit: disable the shedding gate (keep "
+        "the limit configured but admit everything) — the overload "
+        "baseline tools/check_chaos.py and bench.py compare against",
+    )
+    ap.add_argument(
+        "--breaker-failures",
+        type=int,
+        default=None,
+        metavar="N",
+        help="service-routed runs: consecutive failures that OPEN a "
+        "per-engine/per-replica circuit breaker (default: 8)",
+    )
+    ap.add_argument(
+        "--breaker-probation-s",
+        type=float,
+        default=None,
+        metavar="SECONDS",
+        help="service-routed runs: how long an open breaker fails "
+        "fast before admitting one half-open probe; a failed probe "
+        "re-opens with the probation escalated (default: 30)",
+    )
+    ap.add_argument(
+        "--warmup-from-ledger",
+        type=int,
+        default=None,
+        metavar="N",
+        help="serve mode, with --ledger: before processing requests, "
+        "pre-compile the sampled kernel signatures of the N most "
+        "frequent fingerprints in the ledger — the first real request "
+        "after a restart skips cold jit (its ledger row records "
+        "near-zero compile deltas)",
+    )
+    ap.add_argument(
+        "--metrics-port",
+        type=int,
+        default=None,
+        metavar="PORT",
+        help="serve mode: expose the live metrics registry on "
+        "http://127.0.0.1:PORT/metrics in Prometheus text format "
+        "(counters with rolling 30s/5m windows, gauges, per-stage "
+        "request latency histograms with trace-id exemplars). 0 "
+        "binds an ephemeral port, printed to stderr. The registry "
+        "itself is always on in serve mode; this flag only adds the "
+        "scrape endpoint. See README \"Live metrics & SLOs\".",
+    )
+    ap.add_argument(
+        "--profile-hz",
+        type=float,
+        default=None,
+        metavar="HZ",
+        help="serve mode: run the sampling wall-clock profiler — a "
+        "background thread samples every live thread's Python stack "
+        "HZ times a second, tags each sample with the thread's "
+        "current telemetry span path (draw/dispatch/fetch/merge/"
+        "queue/... or 'unattributed'), and folds them into bounded "
+        "collapsed-stack counts. Scrape the live snapshot at "
+        "GET /debug/profile (with --metrics-port); anomaly "
+        "post-mortem bundles carry it too. Default: off. See README "
+        "\"Continuous profiling & utilization\".",
+    )
+    ap.add_argument(
+        "--profile-out",
+        default=None,
+        metavar="PATH",
+        help="with --profile-hz: at serve exit, write the collected "
+        "profile as speedscope-compatible JSON to PATH (drop it on "
+        "https://www.speedscope.app) and the collapsed-stack text "
+        "to PATH + '.collapsed'",
+    )
+    ap.add_argument(
+        "--slo-latency-p95-s",
+        type=float,
+        default=None,
+        metavar="SECONDS",
+        help="serve mode: run the SLO sentinel with a total-latency "
+        "objective — at most 5%% of requests may exceed SECONDS; a "
+        "multi-window burn rate above --slo-burn-threshold in BOTH "
+        "rolling windows emits slo_breach telemetry",
+    )
+    ap.add_argument(
+        "--slo-error-budget",
+        type=float,
+        default=None,
+        metavar="FRACTION",
+        help="serve mode: run the SLO sentinel with an error "
+        "objective — at most FRACTION of requests may fail or "
+        "complete degraded (burn-rate semantics as above)",
+    )
+    ap.add_argument(
+        "--slo-burn-threshold",
+        type=float,
+        default=1.0,
+        metavar="X",
+        help="SLO sentinel burn-rate trip point (default 1.0 = "
+        "budget consumed exactly as fast as the objective allows)",
+    )
+    ap.add_argument(
+        "--slo-interval-s",
+        type=float,
+        default=10.0,
+        metavar="SECONDS",
+        help="SLO sentinel evaluation period (default 10); a final "
+        "evaluation always runs when the serve batch completes",
+    )
+    ap.add_argument(
+        "--debug-bundle-dir",
+        default=None,
+        metavar="DIR",
+        help="serve mode: run the flight recorder — a bounded ring "
+        "of per-request records with tail-based retention (errors, "
+        "degradations, drift breaches, latency outliers kept) that "
+        "writes an atomic schema-versioned post-mortem bundle under "
+        "DIR on SLO breach, request failure, replica quarantine, "
+        "drift breach, perf regression, an explicit dump_debug "
+        "request, or SIGUSR2. See README \"Flight recorder & "
+        "post-mortems\".",
+    )
+    ap.add_argument(
+        "--regress-bench",
+        default=None,
+        metavar="GLOB",
+        help="serve mode: additionally feed BENCH_r*.json evidence "
+        "files matching GLOB into the SLO sentinel's perf-regression "
+        "leg (the ledger tail is always evaluated when --ledger is "
+        "set); a breach counts perf_regression and triggers a "
+        "post-mortem bundle",
+    )
+    ap.add_argument(
+        "--ledger-gc-interval-s",
+        type=float,
+        default=None,
+        metavar="SECONDS",
+        help="serve mode: compact the run ledger in the background "
+        "every SECONDS (atomic rewrite dropping invalid lines and "
+        "rows beyond --ledger-max-rows), so soak runs don't grow it "
+        "unbounded; GC passes are counted in the live registry "
+        "(ledger_gc_runs / ledger_gc_dropped). Needs --ledger.",
+    )
+    ap.add_argument(
+        "--ledger-max-rows",
+        type=int,
+        default=0,
+        metavar="N",
+        help="with --ledger-gc-interval-s: keep only the newest N "
+        "rows at each GC pass (0 = drop only invalid lines)",
+    )
+    ap.add_argument(
+        "--stats-interval-s",
+        type=float,
+        default=None,
+        metavar="SECONDS",
+        help="serve-router: fleet telemetry poll period — how often "
+        "the router pulls each worker's stats/metrics/slo_inputs "
+        "snapshot over the wire (default 5)",
+    )
     return ap
 
 
@@ -462,6 +760,167 @@ def _check_args(args, engine: str) -> None:
                 f"unknown --diff-against engine {args.diff_against!r} "
                 f"(have {', '.join(ENGINES)})"
             )
+    if args.ledger and args.mode == "trace":
+        raise SystemExit(
+            "--ledger records engine/service executions (acc|speed|"
+            "sample|serve|stats); trace mode has none"
+        )
+    if args.cache_dir:
+        if args.mode == "trace":
+            raise SystemExit(
+                "--cache-dir serves analysis results (acc|speed|"
+                "sample|serve); trace mode has none"
+            )
+        from .service.executor import SERVICE_ENGINES
+
+        if engine not in SERVICE_ENGINES:
+            raise SystemExit(
+                f"--cache-dir serves the request pipeline engines "
+                f"({', '.join(SERVICE_ENGINES)}); {engine!r} is not "
+                "one of them"
+            )
+        blocked = [
+            flag for flag, on in (
+                ("--r10", args.r10),
+                ("--diff-against", args.diff_against),
+                ("--checkpoint-dir", args.checkpoint_dir),
+                ("--shard", args.shard),
+            ) if on
+        ]
+        if blocked:
+            raise SystemExit(
+                f"--cache-dir serves the plain request pipeline; it "
+                f"does not compose with {', '.join(blocked)}"
+            )
+    elif args.deadline_s is not None:
+        raise SystemExit(
+            "--deadline-s bounds service-routed requests; it needs "
+            "--cache-dir (or serve mode, where each request line "
+            "carries its own deadline_s)"
+        )
+    if args.batch_window_ms is not None and not args.cache_dir:
+        raise SystemExit(
+            "--batch-window-ms batches service-routed requests; it "
+            "needs --cache-dir (or serve mode)"
+        )
+    if args.replicas is not None and not args.cache_dir:
+        raise SystemExit(
+            "--replicas partitions the service's devices into "
+            "replica executors; it needs --cache-dir (or serve mode)"
+        )
+    _res_flags = [
+        flag for flag, on in (
+            ("--attempt-timeout-s", args.attempt_timeout_s is not None),
+            ("--max-retries", args.max_retries is not None),
+            ("--hedge-after-s", args.hedge_after_s is not None),
+            ("--queue-limit", args.queue_limit is not None),
+            ("--breaker-failures", args.breaker_failures is not None),
+            ("--breaker-probation-s",
+             args.breaker_probation_s is not None),
+        ) if on
+    ]
+    if _res_flags and not args.cache_dir:
+        raise SystemExit(
+            f"{', '.join(_res_flags)} configure(s) service-routed "
+            "execution; they need --cache-dir (or serve mode)"
+        )
+
+
+
+def _check_serve_args(args) -> None:
+    """The JAX CLI's checks of the serving flags (the fabric's
+    --stats-interval-s included: the fabric modes wait for their own
+    slice, so it is refused in every mode)."""
+    if args.stats_interval_s is not None:
+        raise SystemExit(
+            "--stats-interval-s configure(s) the serving "
+            "fabric; they apply to serve-worker/serve-router only"
+        )
+    if args.mode != "serve":
+        if args.warmup_from_ledger is not None:
+            raise SystemExit(
+                "--warmup-from-ledger pre-compiles serving kernels at "
+                "startup; it applies to serve mode only"
+            )
+        if args.metrics_port is not None:
+            raise SystemExit(
+                "--metrics-port exposes the live serving registry; "
+                "it applies to serve mode only"
+            )
+        if args.profile_hz is not None or args.profile_out is not None:
+            raise SystemExit(
+                "--profile-hz/--profile-out run the serving "
+                "sampling profiler; they apply to serve mode only "
+                "(offline stage profiles come from "
+                "tools/profile_stages.py)"
+            )
+        if (args.slo_latency_p95_s is not None
+                or args.slo_error_budget is not None):
+            raise SystemExit(
+                "--slo-* flags run the serving SLO sentinel; they "
+                "apply to serve mode only (offline ledgers are gated "
+                "by tools/check_slo.py)"
+            )
+        if args.debug_bundle_dir is not None:
+            raise SystemExit(
+                "--debug-bundle-dir runs the serving flight "
+                "recorder; it applies to serve mode only"
+            )
+        if args.regress_bench is not None:
+            raise SystemExit(
+                "--regress-bench feeds the serving perf-regression "
+                "sentinel; it applies to serve mode only (offline "
+                "history is gated by tools/check_regression.py)"
+            )
+        if args.ledger_gc_interval_s is not None:
+            raise SystemExit(
+                "--ledger-gc-interval-s runs background ledger "
+                "compaction for serve mode only (offline ledgers are "
+                "compacted by tools/check_ledger.py --gc)"
+            )
+        if args.fault_spec is not None:
+            raise SystemExit(
+                "--fault-spec arms deterministic fault injection on "
+                "the serving hot paths; it applies to serve mode only"
+            )
+    if args.ledger_gc_interval_s is not None and not args.ledger:
+        raise SystemExit(
+            "--ledger-gc-interval-s compacts the run ledger; it "
+            "needs --ledger PATH"
+        )
+
+    if args.profile_hz is not None and args.profile_hz <= 0:
+        raise SystemExit("--profile-hz must be > 0 (samples per "
+                         "second; omit the flag to keep the profiler "
+                         "off)")
+    if args.profile_out is not None and args.profile_hz is None:
+        raise SystemExit("--profile-out exports the collected "
+                         "profile; it needs --profile-hz")
+    if args.replicas is not None and args.replicas < 0:
+        raise SystemExit("--replicas must be >= 0 (0 = auto, one "
+                         "replica per device)")
+    if args.queue_limit is not None and args.queue_limit < 1:
+        raise SystemExit("--queue-limit must be >= 1")
+    if args.no_shed and args.queue_limit is None:
+        raise SystemExit(
+            "--no-shed disables the admission gate configured by "
+            "--queue-limit; it needs --queue-limit N"
+        )
+    if args.max_retries is not None and args.max_retries < 0:
+        raise SystemExit("--max-retries must be >= 0")
+    if args.attempt_timeout_s is not None and args.attempt_timeout_s <= 0:
+        raise SystemExit("--attempt-timeout-s must be > 0")
+    if args.hedge_after_s is not None and args.hedge_after_s <= 0:
+        raise SystemExit("--hedge-after-s must be > 0")
+    if args.breaker_failures is not None and args.breaker_failures < 1:
+        raise SystemExit("--breaker-failures must be >= 1")
+    if args.breaker_probation_s is not None and args.breaker_probation_s <= 0:
+        raise SystemExit("--breaker-probation-s must be > 0")
+    if args.warmup_from_ledger is not None and not args.ledger:
+        raise SystemExit(
+            "--warmup-from-ledger reads kernel signatures from the "
+            "run ledger; it needs --ledger PATH"
+        )
 
 
 def _trace(args, program, machine) -> int:
@@ -500,7 +959,7 @@ def _speed(args, program, machine, engine: str) -> int:
     )
     if args.ledger:
         _cli_ledger_row(
-            args, program, machine, engine,
+            args, program, engine,
             getattr(last[0], "engine", None) or engine,
             sorted(times)[len(times) // 2],
             compiles0=compiles0, reps=args.reps,
@@ -664,26 +1123,7 @@ def _analyze(args, program, machine) -> int:
     return 0 if report.ok else 1
 
 
-def _request_fingerprint(args, program, machine, engine: str):
-    """The JAX package's service fingerprint of these flags
-    (service/api.py::AnalysisRequest(...).fingerprint(program)): the
-    program, the machine (for --program-json the document's merged
-    one), the engine and AnalysisRequest.params()'s result-shaping
-    knobs — runtime for oracle and sampled, ratio, seed and the
-    requested draw for sampled."""
-    from .service.fingerprint import request_fingerprint
-
-    params: dict = {}
-    if engine in ("oracle", "sampled"):
-        params["runtime"] = args.runtime
-    if engine == "sampled":
-        params["ratio"] = args.ratio
-        params["seed"] = args.seed
-        params["device_draw"] = args.device_draw
-    return request_fingerprint(program, machine, engine, params)
-
-
-def _cli_ledger_row(args, program, machine, engine, engine_used, latency_s,
+def _cli_ledger_row(args, program, engine, engine_used, latency_s,
                     mrc=None, compiles0=None, reps=None) -> None:
     """One execution -> run-ledger row, the JAX CLI's row field for
     field. An engine the JAX package's service runs (SERVICE_ENGINES)
@@ -693,11 +1133,14 @@ def _cli_ledger_row(args, program, machine, engine, engine_used, latency_s,
     only the nonzero ones."""
     from .runtime import telemetry
     from .runtime.obs import ledger as obs_ledger
-    from .service import SERVICE_ENGINES
+    from .service.executor import SERVICE_ENGINES
 
     fp = None
     if engine in SERVICE_ENGINES:
-        fp = _request_fingerprint(args, program, machine, engine)
+        try:
+            fp = _request_from_args(args, engine).fingerprint(program)
+        except Exception:
+            pass
     row = {
         "kind": "request",
         "source": "cli",
@@ -724,6 +1167,400 @@ def _cli_ledger_row(args, program, machine, engine, engine_used, latency_s,
     if reps is not None:
         row["reps"] = reps
     obs_ledger.append(args.ledger, row)
+
+
+def _service_device(args):
+    """The analysis service's device from --device: the default "cuda"
+    under --replicas is every visible card (None), any other one device
+    (a replica pool serves --replicas replicas on it)."""
+    if args.device == "cuda" and args.replicas is not None:
+        return None
+    return args.device
+
+
+def _request_from_args(args, engine):
+    from .service import AnalysisRequest
+
+    return AnalysisRequest(
+        model=args.model, n=args.n, tsteps=args.tsteps, engine=engine,
+        runtime=args.runtime, threads=args.threads, chunk=args.chunk,
+        ratio=args.ratio, seed=args.seed, device_draw=args.device_draw,
+        fuse_refs=args.fuse_refs, pipeline_depth=args.pipeline_depth,
+        kernel_backend=args.kernel_backend,
+        program=getattr(args, "_program_doc", None),
+        deadline_s=args.deadline_s,
+        tolerance=args.tolerance, max_rounds=args.max_rounds,
+        round_schedule=(
+            _parse_round_schedule(args.round_schedule)
+            if args.round_schedule is not None else None
+        ),
+    )
+
+
+def _resilience_from_args(args):
+    """ResilienceConfig from the CLI flags, or None when every flag is
+    at its default (the executor then runs the stock config — retries
+    off, no admission gate, breakers at their defaults)."""
+    if all(
+        v is None for v in (
+            args.attempt_timeout_s, args.max_retries,
+            args.hedge_after_s, args.queue_limit,
+            args.breaker_failures, args.breaker_probation_s,
+        )
+    ):
+        return None
+    from .config import ResilienceConfig
+
+    kw = {}
+    if args.attempt_timeout_s is not None:
+        kw["attempt_timeout_s"] = args.attempt_timeout_s
+    if args.max_retries is not None:
+        kw["max_retries"] = args.max_retries
+    if args.hedge_after_s is not None:
+        kw["hedge_after_s"] = args.hedge_after_s
+    if args.queue_limit is not None:
+        kw["queue_limit"] = args.queue_limit
+        kw["shed_enabled"] = not args.no_shed
+    if args.breaker_failures is not None:
+        kw["breaker_failures"] = args.breaker_failures
+    if args.breaker_probation_s is not None:
+        kw["breaker_probation_s"] = args.breaker_probation_s
+    return ResilienceConfig(**kw)
+
+
+def _serve(args) -> int:
+    """`serve` mode: process a JSONL request batch end to end, on
+    `--device` (_service_device), under
+    the live metrics registry (always on here — the `metrics` request
+    type and the optional --metrics-port scrape read it), the
+    optional SLO sentinel, the optional flight recorder
+    (--debug-bundle-dir), the optional background ledger GC, and —
+    when armed — deterministic fault injection (--fault-spec).
+    SIGTERM/SIGINT trigger a graceful drain: in-flight work finishes,
+    queued work is shed with structured responses, and the ledger
+    (plus a final flight-recorder bundle) is flushed before exit. The
+    JAX CLI's serve, line for line."""
+    from .runtime import faults
+    from .runtime.obs import ledger as obs_ledger
+    from .runtime.obs import metrics as obs_metrics
+    from .runtime.obs import profiler as obs_profiler
+    from .runtime.obs import recorder as obs_recorder
+    from .service import AnalysisService, GracefulShutdown, serve_jsonl
+
+    fin = sys.stdin if args.requests == "-" else open(args.requests)
+    fout = (
+        sys.stdout if args.responses == "-"
+        else open(args.responses, "w")
+    )
+    registry = obs_metrics.enable()
+    profiler = None
+    if args.profile_hz is not None:
+        profiler = obs_profiler.enable(hz=args.profile_hz)
+        print(
+            f"serve: sampling profiler on at {args.profile_hz:g} Hz "
+            "(snapshot at GET /debug/profile)",
+            file=sys.stderr,
+        )
+    server = None
+    sentinel = None
+    recorder = None
+    gc = None
+    prev_usr2 = None
+    prev_sigs = {}
+    injector = None
+    failures = 0
+    if args.fault_spec:
+        injector = faults.install_from_file(args.fault_spec)
+        print(
+            f"serve: fault injection armed from {args.fault_spec} "
+            f"(seed {injector.config.seed}, "
+            f"{len(injector.config.rules)} rule(s))",
+            file=sys.stderr,
+        )
+    if args.debug_bundle_dir is not None:
+        recorder = obs_recorder.enable(
+            args.debug_bundle_dir,
+            ledger_path=args.ledger,
+            # the resolved serving config rides every bundle, so a
+            # post-mortem reader knows exactly what was running
+            config={
+                k: getattr(args, k)
+                for k in (
+                    "cache_dir", "ledger", "max_workers", "replicas",
+                    "batch_window_ms", "batch_max_refs",
+                    "slo_latency_p95_s", "slo_error_budget",
+                    "slo_burn_threshold", "slo_interval_s",
+                    "debug_bundle_dir", "regress_bench",
+                    "ledger_gc_interval_s", "ledger_max_rows",
+                    "fault_spec", "attempt_timeout_s", "max_retries",
+                    "hedge_after_s", "queue_limit", "no_shed",
+                    "breaker_failures", "breaker_probation_s",
+                    "profile_hz", "profile_out",
+                )
+            },
+        )
+        print(
+            "serve: flight recorder on, post-mortem bundles under "
+            f"{args.debug_bundle_dir}",
+            file=sys.stderr,
+        )
+        # SIGUSR2 = dump a bundle NOW, the kill(1)-reachable twin of
+        # the dump_debug request type. Registration only works on the
+        # main thread — embedders calling main() elsewhere just lose
+        # the signal hook, never the recorder.
+        import signal
+
+        if hasattr(signal, "SIGUSR2"):
+            try:
+                prev_usr2 = signal.signal(
+                    signal.SIGUSR2,
+                    lambda signum, frame: recorder.dump(
+                        "signal", trigger={"signal": "SIGUSR2"}
+                    ),
+                )
+            except ValueError:
+                prev_usr2 = None
+    try:
+        # SIGTERM/SIGINT = drain, don't drop: the handler raises
+        # GracefulShutdown (a BaseException, so serve_jsonl's per-line
+        # `except Exception` guards can't swallow it) on the main
+        # thread; serve_jsonl catches it, stops admission, finishes
+        # in-flight work, and sheds the rest with structured
+        # responses. Same main-thread-only caveat as SIGUSR2 above.
+        import signal
+
+        def _graceful(signum, frame):
+            raise GracefulShutdown(f"signal {signum}")
+
+        for _name in ("SIGTERM", "SIGINT"):
+            _num = getattr(signal, _name, None)
+            if _num is None:
+                continue
+            try:
+                prev_sigs[_num] = signal.signal(_num, _graceful)
+            except ValueError:
+                pass
+        with AnalysisService(
+            cache_dir=args.cache_dir, max_workers=args.max_workers,
+            ledger_path=args.ledger,
+            batch_window_ms=args.batch_window_ms,
+            batch_max_refs=args.batch_max_refs,
+            replicas=args.replicas,
+            resilience=_resilience_from_args(args),
+            device=_service_device(args),
+        ) as svc:
+            if recorder is not None:
+                # live serving state for bundles: replica/mesh view +
+                # executor counters at dump time
+                recorder.state_provider = lambda: {
+                    "healthz": svc.healthz(),
+                    "executor": svc.executor.stats(),
+                }
+            if args.metrics_port is not None:
+                server = obs_metrics.MetricsServer(
+                    registry, port=args.metrics_port,
+                    healthz=svc.healthz, stats=svc.stats,
+                    bundles=(
+                        (lambda: {
+                            "bundle_dir": recorder.bundle_dir,
+                            "recorder": recorder.stats(),
+                            "bundles": recorder.bundle_index(),
+                        }) if recorder is not None else None
+                    ),
+                    # always wired: the route answers a structured
+                    # 404 JSON body when the profiler is off, so
+                    # pollers never see a bare HTML error page
+                    profile=obs_profiler.snapshot,
+                )
+                print(
+                    f"serve: live metrics on "
+                    f"http://{server.host}:{server.port}/metrics",
+                    file=sys.stderr,
+                )
+            if args.warmup_from_ledger:
+                warmed = svc.warm_from_ledger(args.warmup_from_ledger)
+                print(
+                    f"serve: warmed {warmed} kernel signature(s) "
+                    "from the ledger",
+                    file=sys.stderr,
+                )
+            if args.ledger_gc_interval_s is not None:
+                gc = obs_ledger.LedgerGC(
+                    args.ledger,
+                    interval_s=args.ledger_gc_interval_s,
+                    max_rows=args.ledger_max_rows,
+                ).start()
+            if (args.slo_latency_p95_s is not None
+                    or args.slo_error_budget is not None):
+                from .config import SLOConfig
+                from .runtime.obs import slo as obs_slo
+
+                kw = {"burn_rate_threshold": args.slo_burn_threshold}
+                if args.slo_latency_p95_s is not None:
+                    kw["latency_p95_s"] = args.slo_latency_p95_s
+                if args.slo_error_budget is not None:
+                    kw["error_budget"] = args.slo_error_budget
+                import glob as glob_mod
+
+                bench_paths = (
+                    sorted(glob_mod.glob(args.regress_bench))
+                    if args.regress_bench else None
+                )
+                sentinel = obs_slo.SLOSentinel(
+                    SLOConfig(**kw), registry=registry,
+                    ledger_path=args.ledger,
+                    interval_s=args.slo_interval_s,
+                    regress_bench=bench_paths,
+                ).start()
+                svc.slo_sentinel = sentinel
+            failures = serve_jsonl(svc, fin, fout)
+            if svc.executor.draining:
+                st = svc.executor.stats()
+                print(
+                    "serve: graceful shutdown — in-flight work "
+                    f"drained, {st.get('shed', 0)} request(s) shed",
+                    file=sys.stderr,
+                )
+                if recorder is not None:
+                    recorder.dump(
+                        "shutdown",
+                        trigger={"reason": "graceful_shutdown"},
+                    )
+            if injector is not None and injector.total_fired():
+                print(
+                    f"serve: faults fired {injector.total_fired()} "
+                    f"time(s): {injector.stats()}",
+                    file=sys.stderr,
+                )
+            if sentinel is not None:
+                # short batches finish inside one interval; the final
+                # evaluation guarantees every serve run gets (at
+                # least) one report and any breach events
+                report = sentinel.evaluate_once()
+                if not report["ok"]:
+                    from .runtime.obs import slo as obs_slo
+
+                    for line in obs_slo.format_report(report):
+                        print(f"serve: {line}", file=sys.stderr)
+            if gc is not None:
+                # final compaction so the bound holds for whoever
+                # reads the ledger after this process exits
+                try:
+                    gc.run_once()
+                except Exception:
+                    pass
+    except GracefulShutdown:
+        # signal landed outside serve_jsonl (startup/teardown window)
+        # — still a clean exit, nothing was being served
+        print("serve: shutdown signal received outside the serving "
+              "loop; exiting", file=sys.stderr)
+    finally:
+        if injector is not None:
+            faults.uninstall()
+        if prev_sigs:
+            import signal
+
+            for _num, _prev in prev_sigs.items():
+                try:
+                    signal.signal(_num, _prev)
+                except ValueError:
+                    pass
+        if gc is not None:
+            gc.close()
+        if sentinel is not None:
+            sentinel.close()
+        if server is not None:
+            server.close()
+        if recorder is not None:
+            obs_recorder.disable()
+            if prev_usr2 is not None:
+                import signal
+
+                try:
+                    signal.signal(signal.SIGUSR2, prev_usr2)
+                except ValueError:
+                    pass
+        if profiler is not None:
+            obs_profiler.disable()
+            if args.profile_out:
+                try:
+                    profiler.write_speedscope(args.profile_out)
+                    profiler.write_collapsed(
+                        args.profile_out + ".collapsed"
+                    )
+                    snap = profiler.snapshot()
+                    print(
+                        "serve: profile written to "
+                        f"{args.profile_out} ({snap['samples']} "
+                        "samples, attribution completeness "
+                        f"{snap['attribution_completeness']})",
+                        file=sys.stderr,
+                    )
+                except Exception as e:
+                    print(f"serve: profile export failed: {e!r}",
+                          file=sys.stderr)
+        obs_metrics.disable()
+        if fin is not sys.stdin:
+            fin.close()
+        if fout is not sys.stdout:
+            fout.close()
+    if failures:
+        print(f"serve: {failures} request(s) failed (per-line "
+              "status is in the responses)", file=sys.stderr)
+    return 0
+
+
+def _execute_via_service(args, machine, program, engine) -> int:
+    """acc/speed/sample through the analysis service (--cache-dir):
+    identical dumps to the direct path, served from the
+    content-addressed store when warm."""
+    import time
+
+    from .runtime import report
+    from .service import AnalysisService
+
+    request = _request_from_args(args, engine)
+    with AnalysisService(
+        cache_dir=args.cache_dir, ledger_path=args.ledger,
+        batch_window_ms=args.batch_window_ms,
+        batch_max_refs=args.batch_max_refs,
+        replicas=args.replicas,
+        resilience=_resilience_from_args(args),
+        device=_service_device(args),
+    ) as svc:
+        if args.mode == "speed":
+            times = []
+            for rep in range(args.reps):
+                t0 = time.perf_counter()
+                resp = svc.analyze(request)
+                dt = time.perf_counter() - t0
+                if not resp.ok:
+                    raise SystemExit(
+                        f"service request failed: {resp.error}"
+                    )
+                times.append(dt)
+                print(f"{engine} {program.name} run {rep}: "
+                      f"{dt:.6f} s (cache {resp.cache})")
+            print(
+                f"{engine} {program.name}: best {min(times):.6f} s, "
+                f"mean {sum(times) / len(times):.6f} s over "
+                f"{len(times)} runs"
+            )
+            return 0
+        resp = svc.analyze(request)
+        if not resp.ok:
+            raise SystemExit(f"service request failed: {resp.error}")
+        if resp.degraded:
+            print(f"service degraded: {resp.degraded}",
+                  file=sys.stderr)
+        lines = []
+        if args.mode == "sample" and resp.per_ref_lines:
+            lines += resp.per_ref_lines
+        lines += resp.dump_lines
+        report.emit(lines)
+        if args.mrc_out:
+            report.write_mrc_to_file(resp.mrc, args.mrc_out)
+    return 0
 
 
 def _observed(args, fn) -> int:
@@ -813,8 +1650,9 @@ def main(argv=None) -> int:
     if args.dump_ir or args.dump_ir_dir:
         return _dump_ir(args)
     if args.mode is None:
-        ap.error("mode is required (acc|speed|sample|trace|analyze|stats)")
-    if args.program_json and args.mode in ("trace", "stats"):
+        ap.error("mode is required (acc|speed|sample|trace|serve|"
+                 "analyze|stats)")
+    if args.program_json and args.mode in ("trace", "stats", "serve"):
         raise SystemExit(
             "--program-json loads an inline frontend document for "
             "acc|speed|sample|analyze; serve modes take a 'program' "
@@ -829,6 +1667,9 @@ def main(argv=None) -> int:
         program = _build_model(args.model, args.n, args.tsteps)
     if args.mode == "analyze":
         return _analyze(args, program, machine)
+    _check_serve_args(args)
+    if args.mode == "serve":
+        return _observed(args, lambda: _serve(args))
     engine = args.engine or ("sampled" if args.mode == "sample" else "dense")
     _check_args(args, engine)
     return _observed(args, lambda: _execute(args, machine, program, engine))
@@ -843,6 +1684,8 @@ def _execute(args, machine, program, engine: str) -> int:
 
     if args.mode == "trace":
         return _trace(args, program, machine)
+    if args.cache_dir and args.mode in ("acc", "speed", "sample"):
+        return _execute_via_service(args, machine, program, engine)
     if args.mode == "speed":
         return _speed(args, program, machine, engine)
 
@@ -859,7 +1702,7 @@ def _execute(args, machine, program, engine: str) -> int:
             # one row per engine execution: the --diff-against second
             # engine gets its own row too
             _cli_ledger_row(
-                args, program, machine, eng,
+                args, program, eng,
                 getattr(res, "engine", None) or eng,
                 time.perf_counter() - t0, mrc=mrc, compiles0=compiles0,
             )

@@ -5,8 +5,11 @@ Replaces the reference's compile-time `-D` macros
 and the per-module Rust consts (src/gemm_sampler.rs:27-30,
 src/chunk_dispatcher.rs:18, src/utils.rs:10-11) with one runtime object.
 
-`MachineConfig` and `SLOConfig` (the burn-rate sentinel's objectives,
-runtime/obs/slo.py) are copies of the JAX package's. `SamplerConfig`
+`MachineConfig`, `SLOConfig` (the burn-rate sentinel's objectives,
+runtime/obs/slo.py), and the service's `BatchConfig`, `ResilienceConfig`
+and `FaultConfig` (with FAULT_SITES and FAULT_KINDS) are copies of the
+JAX package's; `ReplicaConfig` is too, but for its docstring, which
+names the port's devices. `SamplerConfig`
 keeps the fields this port runs; knobs of engines it does not run yet
 stay out until the slice that ports them.
 """
@@ -206,3 +209,215 @@ class SLOConfig:
             raise ValueError("burn_rate_threshold must be > 0")
         if len(self.windows) != 2:
             raise ValueError("windows must be (short, long)")
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchConfig:
+    """Admission-window parameters of the service's cross-request
+    batching scheduler (service/executor.py::BatchScheduler).
+
+    Pure scheduling knobs: batching changes WHICH dispatches run, never
+    what any member computes — every member's MRC is bit-identical to
+    its solo run (sampler/sampled.py::sampled_outputs_multi), so like
+    fuse_refs/pipeline_depth these stay OUT of the request fingerprint.
+
+    Attributes:
+      window_ms: how long the first request of a forming batch may wait
+        for compatible companions before the batch flushes. 0 still
+        batches whatever arrived together but never waits.
+      max_refs: flush early once the batch's summed tracked-ref count
+        reaches this bound; a later overflow request starts the next
+        batch (overflow splitting).
+    """
+
+    window_ms: float = 5.0
+    max_refs: int = 64
+
+    def __post_init__(self) -> None:
+        if self.window_ms < 0:
+            raise ValueError("window_ms must be >= 0")
+        if self.max_refs < 1:
+            raise ValueError("max_refs must be >= 1")
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplicaConfig:
+    """Device partitioning of the serving replica pool
+    (service/replicas.py::ReplicaPool).
+
+    The pool splits its devices (every visible card by default; a
+    device may repeat, so ["cuda:0", "cuda:0"] makes two replicas on
+    one card and ["cpu"] * 4 four on the CPU) into `count` disjoint
+    device groups; each replica owns its group, a per-replica mesh
+    (parallel/mesh.py::build_mesh over just those devices), and an
+    execution slot. Like BatchConfig this is a pure scheduling knob:
+    engine placement moves WHERE a request runs, never what it
+    computes — the per-ref sample streams are seed-derived, so MRC
+    bytes are bit-identical for any replica count (the invariant
+    tests/test_replicas.py pins at counts 1/2/4) and `count` stays OUT
+    of the request fingerprint.
+
+    Attributes:
+      count: number of replicas. None or 0 = auto, one replica per
+        device. A count above the device count clamps down (a replica
+        needs at least one device).
+    """
+
+    count: int | None = None
+
+    def __post_init__(self) -> None:
+        if self.count is not None and self.count < 0:
+            raise ValueError("replica count must be >= 0 (0 = auto)")
+
+    def resolve(self, n_devices: int) -> int:
+        """Actual replica count for a machine with n_devices."""
+        if n_devices < 1:
+            raise ValueError("need at least one device")
+        if not self.count:  # None or 0: one replica per device
+            return n_devices
+        return min(self.count, n_devices)
+
+
+@dataclasses.dataclass(frozen=True)
+class ResilienceConfig:
+    """Failure-handling policy of the request executor
+    (service/executor.py) and the replica pool (service/replicas.py).
+
+    Everything here is serving policy — retries, hedges, breakers, and
+    admission control move WHEN and WHERE a request runs, never what
+    it computes (retried/hedged results are seed-derived and therefore
+    bit-identical to the first attempt; tools/check_chaos.py pins
+    this) — so none of these knobs enter the request fingerprint.
+
+    Attributes:
+      attempt_timeout_s: per-attempt execution budget. An attempt that
+        outlives it is abandoned (deadline_abandoned) and retried or
+        degraded; None leaves only the request deadline in force.
+      max_retries: bounded same-engine retries after a failed or
+        timed-out attempt (0 = the pre-chaos behavior: fall straight
+        down the degrade chain).
+      backoff_base_s / backoff_max_s: exponential backoff bounds
+        between retries. The jitter is SEEDED (runtime/faults.py::
+        backoff_delay, a counter-hash construction), never wall-clock
+        derived — tools/lint_determinism.py enforces this.
+      backoff_seed: seed of that jitter stream.
+      hedge_after_s: straggler bound — a routed execution still
+        unresolved after this long is hedged onto a second replica;
+        first result wins, the queued loser is cancelled. None
+        disables hedging (and it is implicitly off without a pool of
+        at least two replicas).
+      breaker_failures: consecutive engine-attempt failures that open
+        an engine's circuit breaker (service/breakers.py). Open
+        breakers fail fast / degrade instead of burning an attempt.
+      breaker_probation_s: how long a breaker stays open before
+        half-open probation admits ONE probe; a probe failure re-opens
+        with the probation escalated (x `breaker_escalation`, capped
+        at `breaker_probation_max_s`). Also the replica pool's
+        quarantine probation: a quarantined replica re-enters service
+        through the same half-open probe cycle.
+      breaker_escalation / breaker_probation_max_s: the escalation
+        factor and cap above.
+      queue_limit: admission bound on queued-not-yet-executing
+        requests. None = unbounded (no admission control).
+      shed_enabled: when a queue_limit is set, shed early at submit
+        with a structured `shed` response instead of queueing past the
+        limit. False keeps the limit visible in stats but never sheds
+        (the chaos gate's collapse baseline).
+    """
+
+    attempt_timeout_s: float | None = None
+    max_retries: int = 0
+    backoff_base_s: float = 0.05
+    backoff_max_s: float = 2.0
+    backoff_seed: int = 0
+    hedge_after_s: float | None = None
+    breaker_failures: int = 8
+    breaker_probation_s: float = 30.0
+    breaker_escalation: float = 2.0
+    breaker_probation_max_s: float = 300.0
+    queue_limit: int | None = None
+    shed_enabled: bool = True
+
+    def __post_init__(self) -> None:
+        if (self.attempt_timeout_s is not None
+                and self.attempt_timeout_s <= 0):
+            raise ValueError("attempt_timeout_s must be > 0")
+        if self.max_retries < 0:
+            raise ValueError("max_retries must be >= 0")
+        if self.backoff_base_s < 0 or self.backoff_max_s < 0:
+            raise ValueError("backoff bounds must be >= 0")
+        if self.hedge_after_s is not None and self.hedge_after_s <= 0:
+            raise ValueError("hedge_after_s must be > 0")
+        if self.breaker_failures < 1:
+            raise ValueError("breaker_failures must be >= 1")
+        if self.breaker_probation_s <= 0:
+            raise ValueError("breaker_probation_s must be > 0")
+        if self.breaker_escalation < 1:
+            raise ValueError("breaker_escalation must be >= 1")
+        if self.queue_limit is not None and self.queue_limit < 1:
+            raise ValueError("queue_limit must be >= 1")
+
+
+# Sites and kinds the fault injector (runtime/faults.py) understands.
+# Declared here so FaultConfig can validate a spec without importing
+# the runtime layer.
+FAULT_SITES = ("engine_execute", "replica_dispatch", "cache_load",
+               "cache_store", "serve_line", "worker_conn",
+               "worker_exec", "round_exec")
+FAULT_KINDS = ("raise", "latency", "hang", "corrupt", "compile_failure",
+               "disconnect")
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultConfig:
+    """A deterministic chaos scenario: (seed, rules) fully determine
+    every injection decision (runtime/faults.py draws a counter-hash
+    uniform per (site, key, occurrence) — a threefry-style counter
+    construction — so a chaos run replays exactly from this object).
+
+    Each rule is a mapping with:
+      site: one of FAULT_SITES (where the fault fires)
+      kind: one of FAULT_KINDS (what happens)
+      p: firing probability per occurrence (default 1.0)
+      max_fires: cap per (rule, key) — e.g. "fail only the first
+        attempt of each request" (0 = unlimited)
+      match: {ctx-field: value} equality filter on the site's context
+        (e.g. {"engine": "sampled"})
+      latency_s / hang_s: sleep durations for those kinds
+      message: raise text override
+
+    CLI: `--fault-spec FILE` loads a JSON document
+    {"seed": N, "rules": [...]} (runtime/faults.py::load_spec).
+    """
+
+    seed: int = 0
+    rules: tuple = ()
+
+    def __post_init__(self) -> None:
+        object.__setattr__(self, "rules", tuple(self.rules))
+        for i, rule in enumerate(self.rules):
+            if not isinstance(rule, dict):
+                raise ValueError(f"rules[{i}] must be an object")
+            site = rule.get("site")
+            if site not in FAULT_SITES:
+                raise ValueError(
+                    f"rules[{i}].site {site!r} unknown "
+                    f"(have {', '.join(FAULT_SITES)})"
+                )
+            kind = rule.get("kind")
+            if kind not in FAULT_KINDS:
+                raise ValueError(
+                    f"rules[{i}].kind {kind!r} unknown "
+                    f"(have {', '.join(FAULT_KINDS)})"
+                )
+            p = rule.get("p", 1.0)
+            if not isinstance(p, (int, float)) or not 0 <= p <= 1:
+                raise ValueError(f"rules[{i}].p must be in [0, 1]")
+            mf = rule.get("max_fires", 0)
+            if not isinstance(mf, int) or mf < 0:
+                raise ValueError(
+                    f"rules[{i}].max_fires must be an int >= 0"
+                )
+            match = rule.get("match", {})
+            if not isinstance(match, dict):
+                raise ValueError(f"rules[{i}].match must be an object")

@@ -103,9 +103,31 @@
 // strictly below the best so far, in group and member order, so the
 // first of equal positions wins as in the unsplit group.
 //
+// The per-row form (sampled_hist_launch_rows, in the buffer form's
+// library) serves the service's cross-request batches
+// (sampler/sampled.py::sampled_outputs_multi): one launch over R rows
+// drawn from different programs whose refs share one kernel signature,
+// where the JAX package runs one vmapped XLA dispatch with per-row
+// operands (sampler/sampled.py::_build_ref_kernel_fused_multi there).
+// Each row brings its own descriptor (its trips, body sizes, loop
+// counts, offsets and band spans differ between programs), its own
+// radix records and, in a triangular nest, its own base table, each in
+// a device buffer at a row stride (zero-padded to the longest row). The
+// block of row r stages row r's descriptor and records in shared memory,
+// as the buffer form stages its one descriptor, and walks with the same
+// code. The rows share one instantiation, picked on the host: their
+// source-ref levels and nest kinds must agree (a signature fixes both)
+// and NHMAX is the most over the rows; under the buffer form's bound of
+// 2 blocks per SM (its words are shared-memory loads too). 12
+// instantiations sampled_hist_kernel_rows<LV, NHMAX, TRI>, built as two
+// more parts of the buffer form's library (SAMPLED_HIST_ROWS_NHMAX 1 and
+// 3, one entry each: ops/_build.py compiles the three parts of
+// csrc/sampled_hist_buf.cu at once and links them into one library).
+//
 // The same file compiles as plain C++ (no __CUDACC__): it then exports
 // sampled_hist_host, a serial loop over the same per-sample code (every
-// instantiation), sampled_hist_host_buf, the buffer form's, and
+// instantiation), sampled_hist_host_buf, the buffer form's,
+// sampled_hist_host_rows, the per-row form's, and
 // sampled_hist_divmod, the floor division and modulo by a record, which
 // the CPU tests build with g++ and hold against the plain version and
 // Python's // and %.
@@ -1033,6 +1055,37 @@ HD int max_heads(const i64* d) {
     return nh;
 }
 
+// Words of one row's radix records in the per-row form.
+#define HR_WORDS (MAX_DEPTH * DIV_SIZE)
+
+#if !defined(__CUDACC__) || defined(SAMPLED_HIST_ROWS_NHMAX)
+// The per-row form's checks, on the host copy of the rows' descriptors:
+// true where the launch does not take them (rows the grid cannot hold, a
+// row stride below the row, a row whose header is out of range, rows
+// whose level or nest kind differ, a base table where the rows are not
+// triangular or none where they are). Sets the rows' level, nest kind
+// and most heads of any group.
+static bool rows_args(i64 R, i64 B, i64 ld, const i64* descs, int dld,
+                      const void* tris, i64 tld, int* lv, int* tri,
+                      int* nh) {
+    if (R < 1 || R > 65535 || B < 1 || ld < B || dld < D_HEADER)
+        return true;
+    *lv = (int)descs[D_LV];
+    *tri = descs[D_TRI] != 0;
+    *nh = 0;
+    for (i64 r = 0; r < R; ++r) {
+        const i64* d = descs + r * dld;
+        if (d[D_LV] != *lv || (d[D_TRI] != 0) != (*tri != 0)
+            || d[D_OFF_GROUPS] < D_HEADER || d[D_OFF_GROUPS] >= dld)
+            return true;
+        const int h = max_heads(d);
+        if (h > *nh) *nh = h;
+    }
+    return *lv < 0 || *lv >= MAX_DEPTH || *nh > MAX_DEPTH
+           || (*tri != 0) != (tris != nullptr) || (*tri && tld < 1);
+}
+#endif
+
 #ifdef __CUDACC__
 
 // The launch's constants, passed by value: kernel parameters live in the
@@ -1103,7 +1156,7 @@ sampled_hist_kernel(const i64* __restrict__ keys,
     block_rows<LV, NHMAX, TRI>(pr.desc, pr.hr, keys, mask, B, ld, rx, tri,
                                raw, residual, hist, cold, s_nb, s_hist);
 }
-#else
+#elif !defined(SAMPLED_HIST_ROWS_NHMAX)
 
 // The buffer form: the descriptor in a device buffer of desc_len words,
 // copied into the block's shared memory (the launch's dynamic shared
@@ -1127,6 +1180,37 @@ sampled_hist_kernel_buf(const i64* __restrict__ keys,
     __syncthreads();
     block_rows<LV, 3, TRI>(s_desc, pr.hr, keys, mask, B, ld, rx, tri, raw,
                            residual, hist, cold, s_nb, s_hist);
+}
+#else
+
+// The per-row form: row blockIdx.y's descriptor (dld words at
+// descs + r * dld, zero-padded), its radix records (hrs + r * HR_WORDS)
+// and, TRI, its base table (tris + r * tld), the first two staged in the
+// block's shared memory (dld + HR_WORDS words of dynamic shared memory).
+template <int LV, int NHMAX, bool TRI>
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM(3, TRI))
+sampled_hist_kernel_rows(const i64* __restrict__ keys,
+                         const unsigned char* __restrict__ mask, i64 B,
+                         i64 ld, const i64* __restrict__ descs, int dld,
+                         const i64* __restrict__ hrs,
+                         const i64* __restrict__ rx,
+                         const i64* __restrict__ tris, i64 tld, bool raw,
+                         i64* __restrict__ residual, u64* __restrict__ hist,
+                         u64* __restrict__ cold) {
+    extern __shared__ i64 s_desc[];
+    __shared__ i64 s_nb[MAX_MEMBERS * THREADS];
+    __shared__ u64 s_hist[N_BINS + 1];
+    const i64 r = blockIdx.y;
+    const i64* d = descs + r * dld;
+    for (int i = threadIdx.x; i < dld; i += blockDim.x) s_desc[i] = d[i];
+    i64* s_hr = s_desc + dld;
+    for (int i = threadIdx.x; i < HR_WORDS; i += blockDim.x)
+        s_hr[i] = hrs[r * HR_WORDS + i];
+    for (int i = threadIdx.x; i <= N_BINS; i += blockDim.x) s_hist[i] = 0;
+    __syncthreads();
+    block_rows<LV, NHMAX, TRI>(s_desc, s_hr, keys, mask, B, ld, rx,
+                               TRI ? tris + r * tld : nullptr, raw, residual,
+                               hist, cold, s_nb, s_hist);
 }
 #endif
 
@@ -1178,11 +1262,13 @@ typedef int (*LaunchFn)(const void*, const void*, i64, i64, i64,
                         const Params&, const void*, const void*, bool, void*,
                         void*, void*, cudaStream_t);
 
+#define LAUNCH_PARAMS                                                     \
+    const void *keys, const void *mask, i64 R, i64 B, i64 ld,            \
+        const Params &pr, const void *rx, const void *tri, bool raw,     \
+        void *residual, void *hist, void *cold, cudaStream_t stream
+
 template <int LV, int NHMAX, bool TRI>
-static int launch(const void* keys, const void* mask, i64 R, i64 B, i64 ld,
-                  const Params& pr, const void* rx, const void* tri,
-                  bool raw, void* residual, void* hist, void* cold,
-                  cudaStream_t stream) {
+int launch(LAUNCH_PARAMS) {
     // the resident blocks, asked once per device (0: not asked yet; every
     // thread that asks gets the same answer)
     static std::atomic<int> resident[MAX_DEVICES];
@@ -1203,6 +1289,23 @@ static int launch(const void* keys, const void* mask, i64 R, i64 B, i64 ld,
         (const i64*)tri, raw, (i64*)residual, (u64*)hist, (u64*)cold);
     return (int)cudaGetLastError();
 }
+
+// The library builds in two parts at once (ops/_build.py::PARTS): part 0
+// (SAMPLED_HIST_TRI_PART 0) holds the rectangular instantiations, the
+// table and the entry, part 1 the triangular ones, which part 0 declares
+// `extern template` so that it compiles none of them; each kernel is
+// the code one compile of all twelve gives it. A build without the
+// define (one with -D flags, tools/b1_launch.py's) holds all twelve.
+#define TRI_LAUNCHES(X) X(0, 1) X(0, 3) X(1, 1) X(1, 3) X(2, 1) X(2, 3)
+#if defined(SAMPLED_HIST_TRI_PART) && SAMPLED_HIST_TRI_PART == 1
+#define TRI_INSTANCE(LV, NH) template int launch<LV, NH, true>(LAUNCH_PARAMS);
+TRI_LAUNCHES(TRI_INSTANCE)
+#else
+#if defined(SAMPLED_HIST_TRI_PART)
+#define TRI_EXTERN(LV, NH) \
+    extern template int launch<LV, NH, true>(LAUNCH_PARAMS);
+TRI_LAUNCHES(TRI_EXTERN)
+#endif
 
 // [TRI][LV][0]: NHMAX 1 (groups of at most one head), [TRI][LV][1]:
 // NHMAX 3
@@ -1237,8 +1340,9 @@ extern "C" int sampled_hist_launch(const void* keys, const void* mask,
         keys, mask, R, B, ld, pr, rx, tri, raw != 0, residual, hist, cold,
         (cudaStream_t)stream);
 }
+#endif  // SAMPLED_HIST_TRI_PART
 
-#else
+#elif !defined(SAMPLED_HIST_ROWS_NHMAX)
 typedef int (*LaunchBufFn)(const void*, const void*, i64, i64, i64,
                            const ParamsBuf&, const void*, int, const void*,
                            const void*, bool, void*, void*, void*,
@@ -1295,6 +1399,74 @@ extern "C" int sampled_hist_launch_buf(const void* keys, const void* mask,
     return LAUNCH_BUF[desc[D_TRI] != 0][desc[D_LV]](
         keys, mask, R, B, ld, pr, desc_dev, desc_len, rx, tri, raw != 0,
         residual, hist, cold, (cudaStream_t)stream);
+}
+
+#else
+typedef int (*LaunchRowsFn)(const void*, const void*, i64, i64, i64,
+                            const void*, int, const void*, const void*,
+                            const void*, i64, bool, void*, void*, void*,
+                            cudaStream_t);
+
+template <int LV, int NHMAX, bool TRI>
+static int launch_rows(const void* keys, const void* mask, i64 R, i64 B,
+                       i64 ld, const void* descs, int dld, const void* hrs,
+                       const void* rx, const void* tris, i64 tld, bool raw,
+                       void* residual, void* hist, void* cold,
+                       cudaStream_t stream) {
+    // as launch_buf: the shared bytes are the longest row's descriptor
+    // and its radix records, asked per launch
+    const size_t smem = (size_t)(dld + HR_WORDS) * sizeof(i64);
+    if (smem > DEFAULT_DYNAMIC_SMEM) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            sampled_hist_kernel_rows<LV, NHMAX, TRI>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    int slots = 0;
+    const int rc = resident_slots(sampled_hist_kernel_rows<LV, NHMAX, TRI>,
+                                  smem, &slots);
+    if (rc != 0) return rc;
+    sampled_hist_kernel_rows<LV, NHMAX, TRI>
+        <<<grid_of(slots, R, B), THREADS, smem, stream>>>(
+            (const i64*)keys, (const unsigned char*)mask, B, ld,
+            (const i64*)descs, dld, (const i64*)hrs, (const i64*)rx,
+            (const i64*)tris, tld, raw, (i64*)residual, (u64*)hist,
+            (u64*)cold);
+    return (int)cudaGetLastError();
+}
+
+// [TRI][LV], this part's NHMAX
+#define NH SAMPLED_HIST_ROWS_NHMAX
+static const LaunchRowsFn LAUNCH_ROWS[2][MAX_DEPTH] = {
+    {launch_rows<0, NH, false>, launch_rows<1, NH, false>,
+     launch_rows<2, NH, false>},
+    {launch_rows<0, NH, true>, launch_rows<1, NH, true>,
+     launch_rows<2, NH, true>}};
+#undef NH
+#define ROWS_ENTRY_(n) sampled_hist_launch_rows##n
+#define ROWS_ENTRY(n) ROWS_ENTRY_(n)
+
+// The per-row form: keys, mask, R, B, ld, rx, raw, residual, hist and
+// cold as sampled_hist_launch; descs: the HOST's int64 [R, dld], row r
+// row r's descriptor zero-padded to dld words (which pick and check the
+// instantiation), descs_dev the same words on the card; hrs_dev: int64
+// [R, HR_WORDS] on the card, row r's radix records; tris_dev: for
+// triangular rows, int64 [R, tld] on the card, row r's base table
+// (null otherwise). The entry of this part, sampled_hist_launch_rows1 or
+// sampled_hist_launch_rows3, takes the rows whose NHMAX is its own.
+extern "C" int ROWS_ENTRY(SAMPLED_HIST_ROWS_NHMAX)(
+    const void* keys, const void* mask, i64 R, i64 B, i64 ld,
+    const i64* descs, int dld, const void* descs_dev, const void* hrs_dev,
+    const void* rx, const void* tris_dev, i64 tld, int raw, void* residual,
+    void* hist, void* cold, void* stream) {
+    int lv = 0, tri = 0, nh = 0;
+    if (descs_dev == nullptr || hrs_dev == nullptr
+        || rows_args(R, B, ld, descs, dld, tris_dev, tld, &lv, &tri, &nh)
+        || (nh > 1 ? 3 : 1) != SAMPLED_HIST_ROWS_NHMAX)
+        return (int)cudaErrorInvalidValue;
+    return LAUNCH_ROWS[tri][lv](
+        keys, mask, R, B, ld, descs_dev, dld, hrs_dev, rx, tris_dev, tld,
+        raw != 0, residual, hist, cold, (cudaStream_t)stream);
 }
 #endif
 
@@ -1360,6 +1532,30 @@ extern "C" int sampled_hist_host_buf(const i64* keys,
     HOST[desc[D_TRI] != 0][desc[D_LV]][1](keys, mask, R, B, staged.data(),
                                           hrec, rx, tri, raw != 0, residual,
                                           hist, cold);
+    return 0;
+}
+
+// Serial host twin of the per-row form: sampled_hist_launch_rows'
+// arguments but the row stride, the device copies and the stream (keys
+// and mask rows contiguous, descs [R, dld], hrs [R, HR_WORDS] and tris
+// [R, tld] on the host); row r through the launch's one instantiation
+// with its own staged descriptor, records and base table.
+extern "C" int sampled_hist_host_rows(const i64* keys,
+                                      const unsigned char* mask, i64 R,
+                                      i64 B, const i64* descs, int dld,
+                                      const i64* hrs, const i64* rx,
+                                      const i64* tris, i64 tld, int raw,
+                                      i64* residual, i64* hist, i64* cold) {
+    int lv = 0, tri = 0, nh = 0;
+    if (rows_args(R, B, B, descs, dld, tris, tld, &lv, &tri, &nh)) return 1;
+    const HostFn fn = HOST[tri][lv][nh > 1];
+    for (i64 r = 0; r < R; ++r) {
+        const std::vector<i64> staged(descs + r * dld,
+                                      descs + (r + 1) * dld);
+        fn(keys + r * B, mask ? mask + r * B : nullptr, 1, B, staged.data(),
+           hrs + r * HR_WORDS, rx + r, tri ? tris + r * tld : nullptr,
+           raw != 0, residual + r * B, hist + r * N_BINS, cold + r);
+    }
     return 0;
 }
 

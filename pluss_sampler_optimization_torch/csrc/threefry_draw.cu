@@ -71,8 +71,21 @@
 // per thread; 256 and 512 threads per block; a longlong2 store (the
 // compiler split it in two) and SELs for the mask.
 //
+// A third entry, randint with a span per row (the cross-request draw of
+// sampler/draw.py::draw_bucket_keys_device_multi, whose rows come from
+// different programs), takes each row's record (span, m, mult) and its
+// output row in the launch parameter beside the row keys. The remainder
+// kind is a template parameter, so one launch takes the rows of one
+// kind: the wrapper (ops/threefry_draw.py::launch_randint_rows) makes at
+// most three launches, one per kind present, each writing its rows in
+// place. A kind picked at run time per row would put all three
+// remainders' code in every thread and its branch in every warp that
+// mixes kinds; a launch per kind keeps each row's instruction stream the
+// solo launch's, and costs a launch only where kinds mix.
+//
 // The same file compiles as plain C++ (no __CUDACC__): it then exports
-// threefry_randint_host, threefry_bits_host and threefry_urem_host,
+// threefry_randint_host, threefry_randint_rows_host, threefry_bits_host
+// and threefry_urem_host,
 // which run the kernels' per-thread code serially (warp tiles, lanes and
 // the shuffles' sources included) and report a 16-byte store or a mask
 // load the card would make misaligned; the CPU tests build it with g++
@@ -124,6 +137,14 @@ struct Launch {
     u32 n, c0, c1, one;
     u64 d, m, mult;
     u32 k[MAX_ROWS * 4];
+};
+
+// The per-row randint launch: row r's record (d, m, mult) and the output
+// row it writes, orow; L's own record is unused.
+struct LaunchRows {
+    Launch L;
+    u64 d[MAX_ROWS], m[MAX_ROWS], mult[MAX_ROWS];
+    u32 orow[MAX_ROWS];
 };
 
 #ifndef __CUDA_ARCH__
@@ -266,27 +287,30 @@ HD i64 tile_base(const Launch& L, const i64* row, u32 tile, u32 lane,
     return EDGE ? (i64)tile * TILE - head : (i64)base;
 }
 
-// One thread of randint: lane `lane` of warp tile `tile` in row r.
+// One thread of randint: lane `lane` of warp tile `tile` in row r of the
+// key bank, written to output row `orow` with the span's record
+// (d, m, mult).
 template <int KIND, bool EDGE>
-HD void randint_thread(const Launch& L, u32 r, u32 tile, u32 lane) {
+HD void randint_thread(const Launch& L, u32 r, u32 orow, u64 d, u64 m,
+                       u64 mult, u32 tile, u32 lane) {
     const u32* k = L.k + 4 * r;
-    i64* row = L.out + (i64)r * L.ld;
+    i64* row = L.out + (i64)orow * L.ld;
     u32 c1[CPT], y0[CPT], y1[CPT];
     const i64 base = tile_base<EDGE>(L, row, tile, lane, c1);
     i64 v[CPT];
     blocks<CPT>(k[2], k[3], L.c0, c1, L, y0, y1);  // lo, under sub-key 2
 #pragma unroll
     for (int j = 0; j < CPT; ++j)
-        v[j] = (i64)urem<KIND>(join(y0[j], y1[j]), L.d, L.m);
+        v[j] = (i64)urem<KIND>(join(y0[j], y1[j]), d, m);
     if (KIND == REM_SMALL) {
         blocks<CPT>(k[0], k[1], L.c0, c1, L, y0, y1);  // hi, sub-key 1
 #pragma unroll
         for (int j = 0; j < CPT; ++j) {
             // hi % d < 2^32 and mult < 2^32: one 32 x 32 + 64 multiply-add,
             // below d^2 <= 2^64 (jax's uint64 sum cannot wrap here)
-            const u64 hi = urem<KIND>(join(y0[j], y1[j]), L.d, L.m);
-            v[j] = (i64)urem<KIND>((u64)(u32)hi * (u32)L.mult + (u64)v[j],
-                                   L.d, L.m);
+            const u64 hi = urem<KIND>(join(y0[j], y1[j]), d, m);
+            v[j] = (i64)urem<KIND>((u64)(u32)hi * (u32)mult + (u64)v[j],
+                                   d, m);
         }
     }
     store_row<EDGE>(row, base, L.n, lane, v);
@@ -417,12 +441,40 @@ static bool record_ok(u64 span, u64 m, u64 mult, int kind) {
            && mult == (h * h) % span;
 }
 
+// Fills P from a per-row launch's arguments; false where the kernel does
+// not take them: fill's conditions, every row's record of kind `kind`,
+// and every output row below out_rows.
+static bool fill_rows(LaunchRows* P, const u32* keys, i64 R, i64 ld, i64 n,
+                      u32 c0, u32 c1, const u64* span, const u64* m,
+                      const u64* mult, int kind, const u32* orow,
+                      i64 out_rows, void* out) {
+    if (!fill(&P->L, keys, R, 4, true, ld, n, c0, c1, out)) return false;
+    for (i64 r = 0; r < R; ++r) {
+        if (!record_ok(span[r], m[r], mult[r], kind) || orow[r] >= out_rows)
+            return false;
+        P->d[r] = span[r];
+        P->m[r] = m[r];
+        P->mult[r] = mult[r];
+        P->orow[r] = orow[r];
+    }
+    return true;
+}
+
 #ifdef __CUDACC__
 
 template <int KIND, bool EDGE>
 __global__ void __launch_bounds__(THREADS)
 randint_kernel(const __grid_constant__ Launch L) {
-    randint_thread<KIND, EDGE>(L, blockIdx.y,
+    randint_thread<KIND, EDGE>(L, blockIdx.y, blockIdx.y, L.d, L.m, L.mult,
+                               blockIdx.x * WARPS + threadIdx.x / 32,
+                               threadIdx.x & 31);
+}
+
+template <int KIND, bool EDGE>
+__global__ void __launch_bounds__(THREADS)
+randint_rows_kernel(const __grid_constant__ LaunchRows P) {
+    const u32 r = blockIdx.y;
+    randint_thread<KIND, EDGE>(P.L, r, P.orow[r], P.d[r], P.m[r], P.mult[r],
                                blockIdx.x * WARPS + threadIdx.x / 32,
                                threadIdx.x & 31);
 }
@@ -461,6 +513,32 @@ extern "C" int threefry_randint_launch(const u32* keys, i64 R, i64 ld, i64 n,
     else if (kind == REM_BIG) { RANDINT(REM_BIG) }
     else { RANDINT(REM_SMALL) }
 #undef RANDINT
+    return (int)cudaGetLastError();
+}
+
+// randint with a span per row: as threefry_randint_launch, with row r's
+// record (span[r], m[r], mult[r]), all of kind `kind`, and its output row
+// orow[r] < out_rows (out is output row 0; the launch writes R of them).
+extern "C" int threefry_randint_rows_launch(const u32* keys, i64 R, i64 ld,
+                                            i64 n, u32 c0, u32 c1,
+                                            const u64* span, const u64* m,
+                                            const u64* mult, int kind,
+                                            const u32* orow, i64 out_rows,
+                                            void* out, void* stream) {
+    LaunchRows P;
+    if (!fill_rows(&P, keys, R, ld, n, c0, c1, span, m, mult, kind, orow,
+                   out_rows, out))
+        return (int)cudaErrorInvalidValue;
+    const bool edge = needs_edge(P.L);
+    const dim3 grid(grid_x(P.L, edge), (unsigned)R);
+    cudaStream_t st = (cudaStream_t)stream;
+#define RANDINT_ROWS(K)                                                  \
+    if (edge) randint_rows_kernel<K, true><<<grid, THREADS, 0, st>>>(P); \
+    else randint_rows_kernel<K, false><<<grid, THREADS, 0, st>>>(P);
+    if (kind == REM_POW2) { RANDINT_ROWS(REM_POW2) }
+    else if (kind == REM_BIG) { RANDINT_ROWS(REM_BIG) }
+    else { RANDINT_ROWS(REM_SMALL) }
+#undef RANDINT_ROWS
     return (int)cudaGetLastError();
 }
 
@@ -511,6 +589,24 @@ static int run_host(Launch* L, const u32* keys, i64 R, int words, F thread) {
     return g_misaligned ? 2 : 0;
 }
 
+// One randint thread of the instantiation of (kind, edge).
+static void randint_kind(int kind, bool edge, const Launch& l, u32 r,
+                         u32 orow, u64 d, u64 m, u64 mult, u32 t, u32 lane) {
+    if (kind == REM_POW2)
+        edge ? randint_thread<REM_POW2, true>(l, r, orow, d, m, mult, t, lane)
+             : randint_thread<REM_POW2, false>(l, r, orow, d, m, mult, t,
+                                               lane);
+    else if (kind == REM_BIG)
+        edge ? randint_thread<REM_BIG, true>(l, r, orow, d, m, mult, t, lane)
+             : randint_thread<REM_BIG, false>(l, r, orow, d, m, mult, t,
+                                              lane);
+    else
+        edge ? randint_thread<REM_SMALL, true>(l, r, orow, d, m, mult, t,
+                                               lane)
+             : randint_thread<REM_SMALL, false>(l, r, orow, d, m, mult, t,
+                                                lane);
+}
+
 extern "C" int threefry_randint_host(const u32* keys, i64 R, i64 ld, i64 n,
                                      u32 c0, u32 c1, u64 span, u64 m,
                                      u64 mult, int kind, i64* out) {
@@ -523,16 +619,31 @@ extern "C" int threefry_randint_host(const u32* keys, i64 R, i64 ld, i64 n,
     L.mult = mult;
     return run_host(&L, keys, R, 4, [kind](const Launch& l, u32 r, u32 t,
                                           u32 lane, bool edge) {
-        if (kind == REM_POW2)
-            edge ? randint_thread<REM_POW2, true>(l, r, t, lane)
-                 : randint_thread<REM_POW2, false>(l, r, t, lane);
-        else if (kind == REM_BIG)
-            edge ? randint_thread<REM_BIG, true>(l, r, t, lane)
-                 : randint_thread<REM_BIG, false>(l, r, t, lane);
-        else
-            edge ? randint_thread<REM_SMALL, true>(l, r, t, lane)
-                 : randint_thread<REM_SMALL, false>(l, r, t, lane);
+        randint_kind(kind, edge, l, r, r, l.d, l.m, l.mult, t, lane);
     });
+}
+
+// The per-row entry's twin: threefry_randint_rows_launch's arguments but
+// the stream (R at most MAX_ROWS, as one launch takes).
+extern "C" int threefry_randint_rows_host(const u32* keys, i64 R, i64 ld,
+                                          i64 n, u32 c0, u32 c1,
+                                          const u64* span, const u64* m,
+                                          const u64* mult, int kind,
+                                          const u32* orow, i64 out_rows,
+                                          i64* out) {
+    LaunchRows P;
+    if (!fill_rows(&P, keys, R, ld, n, c0, c1, span, m, mult, kind, orow,
+                   out_rows, out))
+        return 1;
+    const bool edge = needs_edge(P.L);
+    const u32 tiles = grid_x(P.L, edge) * WARPS;
+    g_misaligned = 0;
+    for (i64 r = 0; r < R; ++r)
+        for (u32 t = 0; t < tiles; ++t)
+            for (u32 lane = 0; lane < 32; ++lane)
+                randint_kind(kind, edge, P.L, (u32)r, P.orow[r], P.d[r],
+                             P.m[r], P.mult[r], t, lane);
+    return g_misaligned ? 2 : 0;
 }
 
 extern "C" int threefry_bits_host(const u32* keys, i64 R, i64 ld, i64 n,

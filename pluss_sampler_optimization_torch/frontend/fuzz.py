@@ -24,7 +24,7 @@ The port's copy of the JAX package's frontend/fuzz.py: the generators
 and mutators are the same code, so every seed gives the same documents;
 `check_seed` and `run_seeds` take the device the engines run on (CUDA
 unless the caller asks for the CPU, as every entry point of the port),
-and the batched check waits for run_sampled_multi (ROADMAP A6.4).
+and the batched check runs run_sampled_multi (the service's batches).
 Drives: pluss_sampler_optimization_torch/tools/fuzz_ir.py,
 chip_smoke.py's frontend phase, tests/test_torch_frontend.py.
 """
@@ -327,10 +327,12 @@ def check_seed(seed: int, ratio: float = RATIO,
 
     `sampled=False` skips the sampled-engine drift check.
 
-    `batched=True` raises NotImplementedError: its run_sampled_multi
-    is not ported yet (ROADMAP A6.4). `sharded=True` runs
+    `batched=True` additionally runs the seed's program through
+    run_sampled_multi in a 3-job union bucket (primary, a companion
+    from seed+1, primary again) and requires job 0 bit-identical to
+    the solo run and job 2 bit-identical to job 0. `sharded=True` runs
     run_sampled_sharded on a 2-shard mesh (`_sharded_mesh`) and
-    requires bit-identity to solo. It implies a solo sampled run.
+    requires bit-identity to solo. Both imply a solo sampled run.
 
     `kernel_backends` re-runs the solo sampled config once per named
     backend ("cuda" | "torch" | "native") and requires each run's
@@ -341,11 +343,6 @@ def check_seed(seed: int, ratio: float = RATIO,
     from ..oracle.numpy_ref import run_numpy
     from ..sampler.periodic import run_exact
 
-    if batched:
-        raise NotImplementedError(
-            "check_seed(batched=True) runs run_sampled_multi, which is "
-            "not ported yet (ROADMAP A6.4, the service)"
-        )
     errors = []
     program = generate_program(seed)
     machine = generate_machine(seed)
@@ -369,7 +366,7 @@ def check_seed(seed: int, ratio: float = RATIO,
         errors.append("exact: PRIState/MRC not bit-identical to oracle")
 
     drift = 0.0
-    if sampled or sharded or kernel_backends:
+    if sampled or batched or sharded or kernel_backends:
         from ..config import SamplerConfig
         from ..sampler.sampled import run_sampled
 
@@ -395,6 +392,31 @@ def check_seed(seed: int, ratio: float = RATIO,
             errors.append(
                 f"kernel_backend={backend}: PRIState/MRC not "
                 "bit-identical to solo")
+
+    if batched:
+        from ..sampler.sampled import run_sampled_multi
+
+        # a 3-job union bucket: the companion forces genuinely mixed
+        # batch membership, and the repeated primary must come back
+        # bit-identical to the first copy
+        companion = (generate_program(seed + 1),
+                     generate_machine(seed + 1),
+                     SamplerConfig(ratio=ratio, seed=seed + 1), False)
+        outs = run_sampled_multi([
+            (program, machine, cfg, False), companion,
+            (program, machine, cfg, False),
+        ], device=device)
+        b0, b2 = outs[0][0], outs[2][0]
+        if (not _states_equal(b0, state, machine.thread_num)
+                or _fold_mrc(b0, machine).tobytes()
+                != mrc_sampled.tobytes()):
+            errors.append(
+                "batched: job 0 PRIState/MRC not bit-identical to solo")
+        if (not _states_equal(b2, b0, machine.thread_num)
+                or _fold_mrc(b2, machine).tobytes()
+                != _fold_mrc(b0, machine).tobytes()):
+            errors.append(
+                "batched: repeated member diverges inside one bucket")
 
     if sharded:
         from ..parallel.sharded import run_sampled_sharded

@@ -6,7 +6,10 @@ with a plain C interface (no PyTorch headers, so a build takes seconds),
 named by a digest of the source, the files it includes from csrc/
 (`#include "name"`) and the flags, so an edited source rebuilds.
 `-Xptxas -v` output (registers, spills) is kept beside the library and
-returned by `build`. Each nvcc run, and each make of native/
+returned by `build`. A library listed in PARTS compiles its source once
+per set of `-D` defines there, all at once (one nvcc process each), and
+links the objects into one library: the kernels of a part are the code
+a single compile would give them, in a fraction of its time. Each nvcc run, and each make of native/
 (`ensure_native`), is recorded in runtime/telemetry.py's build store
 (`record_build`), and each library's first load in a process counts as a
 cache hit (on disk already) or miss (built) there.
@@ -30,6 +33,18 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# Libraries built from parts: name -> the -D defines of each part.
+# csrc/sampled_hist.cu: B1's rectangular instantiations with the entry,
+# and its triangular ones; csrc/sampled_hist_buf.cu: B1's buffer form,
+# and its per-row form for rows of at most one band-plan head per group
+# and for up to three.
+PARTS = {
+    "sampled_hist": (("SAMPLED_HIST_TRI_PART=0",),
+                     ("SAMPLED_HIST_TRI_PART=1",)),
+    "sampled_hist_buf": ((), ("SAMPLED_HIST_ROWS_NHMAX=1",),
+                         ("SAMPLED_HIST_ROWS_NHMAX=3",)),
+}
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
@@ -58,6 +73,8 @@ def library_path(name: str, defines: tuple = ()) -> str:
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
         text = f.read()
     flags = " ".join(NVCC_FLAGS + tuple(defines))
+    if not defines and name in PARTS:
+        flags += " parts " + repr(PARTS[name])
     h = hashlib.sha256(text + flags.encode())
     for inc in re.findall(rb'^#include "([^"]+)"', text, re.M):
         with open(os.path.join(CSRC, inc.decode()), "rb") as f:
@@ -78,20 +95,54 @@ def build(name: str, force: bool = False,
             return out, f.read()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(f"-D{x}" for x in defines),
-           "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    src = os.path.join(CSRC, f"{name}.cu")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if defines or name not in PARTS:
+        cmd = [nvcc_path(), *NVCC_FLAGS, *(f"-D{x}" for x in defines),
+               "-o", tmp, src]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        rc = proc.returncode
+    else:
+        log, rc = _build_parts(src, PARTS[name], tmp)
     _record_build(name, time.perf_counter() - t0)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    if rc != 0:
         raise RuntimeError(
-            f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{log}"
+            f"nvcc failed for {name}.cu (rc {rc}):\n{log}"
         )
     with open(log_path, "w") as f:
         f.write(log)
     os.replace(tmp, out)
     return out, log
+
+
+def _build_parts(src: str, parts, out: str) -> tuple[str, int]:
+    """Compile `src` once per part's defines, all at once, and link the
+    objects into the shared library `out`: (the logs, the first nonzero
+    return code or 0)."""
+    compile_flags = tuple(f for f in NVCC_FLAGS if f != "-shared")
+    objs = [f"{out}.part{i}.o" for i in range(len(parts))]
+    procs = [
+        subprocess.Popen(
+            [nvcc_path(), *compile_flags, *(f"-D{x}" for x in defines),
+             "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for defines, obj in zip(parts, objs)
+    ]
+    logs, rc = [], 0
+    for p in procs:
+        logs.append(p.communicate()[0])
+        rc = rc or p.returncode
+    if rc == 0:
+        link = subprocess.run(
+            [nvcc_path(), "-shared", "-Xcompiler", "-fPIC", "-o", out, *objs],
+            capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        rc = link.returncode
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    return "".join(logs), rc
 
 
 def ptxas_report(log: str) -> list[dict]:

@@ -46,6 +46,16 @@ one band-plan head, or up to three) and per nest kind (rectangular or
 triangular, `desc[D_TRI]`); the launch picks the one of its descriptor.
 A triangular nest's per-thread base table (core/trace.py::tri_base)
 goes to the kernel as a device tensor of its own (`tri_table`).
+
+The per-row form (`sampled_hist_rows`) serves the service's
+cross-request batches: R rows from different programs whose refs share
+one kernel signature, each with its own nest, source ref, radices and
+value index. On the card it is one launch of the buffer form's library
+(csrc/sampled_hist.cu's sampled_hist_launch_rows1 and _rows3, by the
+rows' most band-plan heads): each row's descriptor
+(`rows_matrix`), radix records and triangular base table (`tri_rows`)
+in device buffers at a row stride, staged per block. Its plain version
+(`sampled_hist_rows_plain`) is sampled_hist_plain row by row.
 """
 
 from __future__ import annotations
@@ -87,8 +97,9 @@ TERM_CHECK, TERM_INTERVAL, TERM_WINDOW = 0, 1, 2
 # the most members of a sink group in the descriptor (MAX_MEMBERS)
 MAX_DESC = 2048
 MAX_MEMBERS = 8
-# Launches of the buffer form (a part of LAUNCHES).
+# Launches of the buffer form and of the per-row form (parts of LAUNCHES).
 BUFFER_LAUNCHES = 0
+ROWS_LAUNCHES = 0
 
 
 def div_record(d: int) -> list[int]:
@@ -312,6 +323,41 @@ def instantiation(desc: np.ndarray) -> tuple[int, int, bool]:
     whether the nest is triangular."""
     return (int(desc[D_LV]), 1 if max_heads(desc) <= 1 else 3,
             bool(desc[D_TRI]))
+
+
+def rows_matrix(descs) -> np.ndarray:
+    """The per-row form's descriptors: int64 [R, W], row r descs[r]
+    zero-padded to W, the longest row's words."""
+    W = max(len(d) for d in descs)
+    out = np.zeros((len(descs), W), dtype=np.int64)
+    for r, d in enumerate(descs):
+        out[r, :len(d)] = d
+    return out
+
+
+def rows_instantiation(descs) -> tuple[int, int, bool]:
+    """(LV, NHMAX, TRI) of the one instantiation a per-row launch over
+    these descriptors takes: the rows' common source-ref level and nest
+    kind, NHMAX the most over the rows. Raises ValueError where the
+    rows' levels or nest kinds differ (rows of one kernel signature
+    never do)."""
+    insts = {(int(d[D_LV]), bool(d[D_TRI])) for d in descs}
+    if len(insts) != 1:
+        raise ValueError(f"per-row form: rows of different levels or nest "
+                         f"kinds {sorted(insts)} share no instantiation")
+    (lv, tri), = insts
+    return lv, 1 if max(max_heads(d) for d in descs) <= 1 else 3, tri
+
+
+def tri_rows(nts, device) -> torch.Tensor | None:
+    """The per-row form's base tables: int64 [R, W] on `device`, row r
+    nts[r]'s tri_table flattened and zero-padded to the longest; None
+    for rectangular rows."""
+    if not nts[0].tri:
+        return None
+    flat = [np.ascontiguousarray(nt.tri_base, np.int64).ravel()
+            for nt in nts]
+    return torch.as_tensor(rows_matrix(flat), device=device)
 
 
 def tri_table(nt, device) -> torch.Tensor | None:
@@ -659,6 +705,22 @@ def sampled_hist_plain(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
     return residual, hist, cold
 
 
+def sampled_hist_rows_plain(nts, ref_idxs, keys_RB, mask_RB, highs_rows,
+                            rx_R, raw: bool = False):
+    """Plain version of the per-row form: row r is sampled_hist_plain of
+    its own nest nts[r], source ref ref_idxs[r], radices highs_rows[r] and
+    value index rx_R[r]."""
+    R = keys_RB.shape[0]
+    outs = [
+        sampled_hist_plain(
+            nts[r], ref_idxs[r], keys_RB[r:r + 1],
+            None if mask_RB is None else mask_RB[r:r + 1], highs_rows[r],
+            rx_R[r:r + 1], raw)
+        for r in range(R)
+    ]
+    return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
+
+
 _ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
      ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int]
@@ -770,6 +832,113 @@ def sampled_hist_cuda(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
         LAUNCHES += 1
         BUFFER_LAUNCHES += form == "buffer"
     return residual, hist, cold
+
+
+_ARGTYPES_ROWS = (
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int]
+    + [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int]
+    + [ctypes.c_void_p] * 4
+)
+
+
+def rows_radix_records(highs_rows) -> np.ndarray:
+    """The per-row form's radix records: int64 [R, MAX_DEPTH * DIV_SIZE],
+    row r radix_records(highs_rows[r])."""
+    return np.stack([radix_records(h) for h in highs_rows])
+
+
+def sampled_hist_rows_cuda(nts, ref_idxs, keys_RB, mask_RB, highs_rows,
+                           rx_R, descs=None, descs_dev=None, tris=None,
+                           raw: bool = False, hrs_dev=None):
+    """Launch the per-row form (csrc/sampled_hist.cu's
+    sampled_hist_launch_rows1 or _rows3) on the current stream: row r
+    with its own descriptor, radix records and base table. keys_RB and
+    mask_RB as in sampled_hist_cuda. `descs` is the rows' rows_matrix
+    (built here from build_descriptor(nts[r], ref_idxs[r]) when None),
+    `descs_dev` its copy on the keys' device, `tris` the rows' tri_rows,
+    `hrs_dev` their rows_radix_records on the device (each made here
+    when None; a caller launching the same rows again makes them once).
+    Raises on a mismatch of the rows' instantiations, any argument the
+    kernel does not take, or a launch error."""
+    global LAUNCHES, ROWS_LAUNCHES
+    from . import _build
+
+    dev = keys_RB.device
+    if dev.type != "cuda":
+        raise ValueError(f"sampled_hist_rows_cuda needs CUDA tensors, got "
+                         f"{dev}")
+    R, B = keys_RB.shape
+    if not len(nts) == len(ref_idxs) == len(highs_rows) == R:
+        raise ValueError("per-row form: one nest, ref and radices per row")
+    ld = keys_RB.stride(0) if R > 1 else B
+    _check("keys", keys_RB, torch.int64, (R, B), dev, ld)
+    if mask_RB is not None:
+        _check("mask", mask_RB, torch.bool, (R, B), dev, ld)
+    _check("rx", rx_R, torch.int64, (R,), dev)
+    if descs is None:
+        descs = rows_matrix([build_descriptor(nt, ri)
+                             for nt, ri in zip(nts, ref_idxs)])
+    if not (isinstance(descs, np.ndarray) and descs.dtype == np.int64
+            and descs.ndim == 2 and descs.shape[0] == R
+            and descs.flags.c_contiguous):
+        raise ValueError("descs: expected rows_matrix's int64 [R, W] array")
+    _lv, nh, tri = rows_instantiation(descs)
+    if descs_dev is None:
+        descs_dev = torch.as_tensor(descs, device=dev)
+    _check("descs_dev", descs_dev, torch.int64, descs.shape, dev)
+    if hrs_dev is None:
+        hrs_dev = torch.as_tensor(rows_radix_records(highs_rows), device=dev)
+    _check("hrs_dev", hrs_dev, torch.int64, (R, MAX_DEPTH * DIV_SIZE), dev)
+    if tri:
+        if tris is None:
+            tris = tri_rows(nts, dev)
+        W = max(nt.tri_base.size for nt in nts)
+        _check("tris", tris, torch.int64, (R, W), dev)
+    elif tris is not None:
+        raise ValueError("tris: rectangular rows have none")
+    # the library's part of the rows' head-count class
+    fn = getattr(_build.load("sampled_hist_buf"),
+                 f"sampled_hist_launch_rows{nh}")
+    fn.argtypes = _ARGTYPES_ROWS
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        residual = torch.empty((R, B), dtype=torch.int64, device=dev)
+        hist = torch.zeros((R, N_BINS), dtype=torch.int64, device=dev)
+        cold = torch.zeros(R, dtype=torch.int64, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(keys_RB.data_ptr(),
+                None if mask_RB is None else mask_RB.data_ptr(), R, B, ld,
+                descs.ctypes.data, descs.shape[1], descs_dev.data_ptr(),
+                hrs_dev.data_ptr(), rx_R.data_ptr(),
+                None if tris is None else tris.data_ptr(),
+                0 if tris is None else tris.shape[1], int(raw),
+                residual.data_ptr(), hist.data_ptr(), cold.data_ptr(),
+                stream)
+        if rc != 0:
+            raise RuntimeError(f"sampled_hist_launch_rows failed: CUDA "
+                               f"error {rc}")
+        LAUNCHES += 1
+        ROWS_LAUNCHES += 1
+    return residual, hist, cold
+
+
+def sampled_hist_rows(nts, ref_idxs, keys_RB, mask_RB, highs_rows, rx_R,
+                      backend: str = "auto", descs=None, descs_dev=None,
+                      tris=None, raw: bool = False, hrs_dev=None):
+    """(residual[R,B], hist[R,64], cold[R]) of the per-row form, as
+    sampled_hist picks: the plain version for CPU tensors under "auto"
+    and under "torch", else the kernel (which raises on CPU tensors)."""
+    if backend == "torch" or (
+        backend == "auto" and keys_RB.device.type == "cpu"
+    ):
+        return sampled_hist_rows_plain(nts, ref_idxs, keys_RB, mask_RB,
+                                       highs_rows, rx_R, raw)
+    if backend not in ("auto", "cuda"):
+        raise ValueError(f"unknown backend {backend!r}")
+    return sampled_hist_rows_cuda(nts, ref_idxs, keys_RB, mask_RB,
+                                  highs_rows, rx_R, descs, descs_dev, tris,
+                                  raw, hrs_dev)
 
 
 def sampled_hist(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,

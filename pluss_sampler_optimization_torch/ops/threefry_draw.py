@@ -6,7 +6,9 @@ Pallas original): `randint` candidate keys over [0, span) and uint64
 key per row, B elements per row:
 
 - `threefry_randint(keys, B, span, device)`: row r is
-  jr.randint(keys[r], (B,), 0, span, int64), as int64 [R, B];
+  jr.randint(keys[r], (B,), 0, span, int64), as int64 [R, B]; `span` is
+  one int for every row or a sequence of one per row (the cross-request
+  draw's rows come from different programs);
 - `threefry_bits(keys, B, device, valid)`: row r is
   jr.bits(keys[r], (B,), uint64), UINT64_MAX where `valid` (bool or
   uint8 [R, B]) is False, as the order-preserving int64 image x ^ 2^63
@@ -16,7 +18,10 @@ A key is a pair of uint32 words as Python ints (sampler/threefry.py
 derives them on the host). Each entry launches the hand-written CUDA
 kernel csrc/threefry_draw.cu on a CUDA device, one launch per
 `MAX_ROWS` rows and `SEGMENT` columns, with the span's remainder record
-(`remainder_record`, computed here in exact integers), and takes its
+(`remainder_record`, computed here in exact integers; with a span per
+row, the rows' records travel in the launch beside their keys and the
+rows of each remainder kind take one launch, `launch_randint_rows`),
+and takes its
 plain torch version (`threefry_randint_plain`, `threefry_bits_plain`:
 sampler/threefry.py's `randint` and `bits64` row by row) on the CPU or
 under backend "torch". There is no fallback: "auto"/"cuda" on a CUDA
@@ -34,8 +39,10 @@ import torch
 from ..sampler import threefry
 
 # Kernel launches of the two entries; read by callers that must show a
-# run went through the kernel.
+# run went through the kernel. ROWS_LAUNCHES counts the launches of
+# randint with a span per row (a part of LAUNCHES).
 LAUNCHES = 0
+ROWS_LAUNCHES = 0
 MAX_ROWS = 128  # csrc/threefry_draw.cu's rows per launch
 # csrc/threefry_draw.cu's counters per thread and threads per block: a
 # launch covers each row in blocks of CPT * THREADS columns
@@ -52,6 +59,10 @@ _RANDINT_ARGTYPES = [_C.c_void_p, _C.c_longlong, _C.c_longlong,
                      _C.c_longlong, _C.c_uint, _C.c_uint, _C.c_ulonglong,
                      _C.c_ulonglong, _C.c_ulonglong, _C.c_int, _C.c_void_p,
                      _C.c_void_p]
+_ROWS_ARGTYPES = [_C.c_void_p, _C.c_longlong, _C.c_longlong, _C.c_longlong,
+                  _C.c_uint, _C.c_uint, _C.c_void_p, _C.c_void_p,
+                  _C.c_void_p, _C.c_int, _C.c_void_p, _C.c_longlong,
+                  _C.c_void_p, _C.c_void_p]
 _BITS_ARGTYPES = [_C.c_void_p, _C.c_longlong, _C.c_longlong, _C.c_longlong,
                   _C.c_uint, _C.c_uint, _C.c_void_p, _C.c_void_p,
                   _C.c_void_p]
@@ -95,9 +106,10 @@ def record_urem(n: int, span: int, rec: Record) -> int:
     return r - span if r >= span else r
 
 
-def _check_args(keys, B: int, span: int | None = None) -> list:
+def _check_args(keys, B: int, span=None) -> list:
     """The keys as a list of word pairs; raises ValueError unless each is
-    two uint32 words, B >= 1 and the span (where given) in [1, 2^46]."""
+    two uint32 words, B >= 1 and the span (where given: one int, or one
+    per key) in [1, 2^46]."""
     keys = [tuple(k) for k in keys]
     if not keys:
         raise ValueError("threefry: needs at least one key")
@@ -108,9 +120,24 @@ def _check_args(keys, B: int, span: int | None = None) -> list:
             raise ValueError(f"threefry: a key is two uint32 words, got {k}")
     if int(B) < 1:
         raise ValueError(f"threefry: B must be >= 1, got {B}")
-    if span is not None and not 1 <= span <= threefry.MAX_SPAN:
-        raise ValueError(f"threefry: span must be in [1, 2^46], got {span}")
+    spans = [] if span is None else (
+        [span] if isinstance(span, (int, np.integer)) else list(span))
+    if span is not None and not isinstance(span, (int, np.integer)) and (
+            len(spans) != len(keys)):
+        raise ValueError(f"threefry: {len(spans)} spans for {len(keys)} "
+                         "rows")
+    for sp in spans:
+        if not 1 <= sp <= threefry.MAX_SPAN:
+            raise ValueError(f"threefry: span must be in [1, 2^46], got "
+                             f"{sp}")
     return keys
+
+
+def _row_spans(span, R: int) -> list[int]:
+    """One span per row: `span` repeated, or its per-row sequence."""
+    if isinstance(span, (int, np.integer)):
+        return [int(span)] * R
+    return [int(sp) for sp in span]
 
 
 def _device(device) -> torch.device:
@@ -138,10 +165,12 @@ def _check_valid(valid, R: int, B: int, device):
     return valid.to(torch.bool)
 
 
-def threefry_randint_plain(keys, B: int, span: int, device="cpu"):
-    """Plain torch version: int64 [R, B] randint rows."""
+def threefry_randint_plain(keys, B: int, span, device="cpu"):
+    """Plain torch version: int64 [R, B] randint rows (`span` one int,
+    or one per row)."""
     keys = _check_args(keys, B, span)
-    return torch.stack([threefry.randint(k, B, span, device) for k in keys])
+    return torch.stack([threefry.randint(k, B, sp, device)
+                        for k, sp in zip(keys, _row_spans(span, len(keys)))])
 
 
 def threefry_bits_plain(keys, B: int, device="cpu", valid=None):
@@ -203,6 +232,37 @@ def launch_randint(fn, words, B: int, span: int, out, stream) -> int:
     return n
 
 
+def launch_randint_rows(fn, words, B: int, spans, out, stream) -> int:
+    """Launch `fn` (csrc/threefry_draw.cu's per-row randint entry, or its
+    host twin with the same arguments) over out's rows, row r with its
+    own span spans[r]: the rows of each remainder kind, MAX_ROWS at a
+    time, in one launch per SEGMENT columns, each row writing its own
+    output row. Returns the launches; raises on a failed launch."""
+    recs = [remainder_record(sp) for sp in spans]
+    R = out.shape[0]
+    n = 0
+    for kind in (REM_POW2, REM_BIG, REM_SMALL):
+        rows = [r for r in range(R) if recs[r].kind == kind]
+        for i in range(0, len(rows), MAX_ROWS):
+            sel = rows[i:i + MAX_ROWS]
+            w = np.ascontiguousarray(words[sel])
+            d = np.array([spans[r] for r in sel], dtype=np.uint64)
+            m = np.array([recs[r].recip for r in sel], dtype=np.uint64)
+            mult = np.array([recs[r].mult for r in sel], dtype=np.uint64)
+            orow = np.array(sel, dtype=np.uint32)
+            for c in range(0, B, SEGMENT):
+                cols = min(SEGMENT, B - c)
+                rc = fn(w.ctypes.data, len(sel), B, cols, c >> 32,
+                        c & threefry.M32, d.ctypes.data, m.ctypes.data,
+                        mult.ctypes.data, kind, orow.ctypes.data, R,
+                        out.data_ptr() + 8 * c, stream)
+                if rc != 0:
+                    raise RuntimeError(f"threefry randint (span per row) "
+                                       f"launch failed: CUDA error {rc}")
+                n += 1
+    return n
+
+
 def launch_bits(fn, words, B: int, valid, out, stream) -> int:
     """As launch_randint for the bits entry; valid a bool [R, B] tensor
     on out's device, or None."""
@@ -226,17 +286,26 @@ def _cuda_device(device, name: str) -> torch.device:
     return device
 
 
-def threefry_randint_cuda(keys, B: int, span: int, device):
-    """csrc/threefry_draw.cu's randint entry: int64 [R, B] on `device`."""
-    global LAUNCHES
+def threefry_randint_cuda(keys, B: int, span, device):
+    """csrc/threefry_draw.cu's randint entry: int64 [R, B] on `device`.
+    With one span per row (a sequence), the per-row entry: one launch
+    per remainder kind present (launch_randint_rows)."""
+    global LAUNCHES, ROWS_LAUNCHES
     keys = _check_args(keys, B, span)
     device = _cuda_device(device, "threefry_randint_cuda")
     out = torch.empty((len(keys), B), dtype=torch.int64, device=device)
-    fn = _fn("threefry_randint_launch", _RANDINT_ARGTYPES)
+    per_row = not isinstance(span, (int, np.integer))
+    fn = (_fn("threefry_randint_rows_launch", _ROWS_ARGTYPES) if per_row
+          else _fn("threefry_randint_launch", _RANDINT_ARGTYPES))
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        LAUNCHES += launch_randint(fn, randint_words(keys), B, span, out,
-                                   stream)
+        if per_row:
+            n = launch_randint_rows(fn, randint_words(keys), B,
+                                    _row_spans(span, len(keys)), out, stream)
+            ROWS_LAUNCHES += n
+        else:
+            n = launch_randint(fn, randint_words(keys), B, span, out, stream)
+        LAUNCHES += n
     return out
 
 
@@ -264,9 +333,10 @@ def _use_plain(device, backend: str) -> bool:
     return backend == "auto" and torch.device(device).type == "cpu"
 
 
-def threefry_randint(keys, B: int, span: int, device, backend="auto"):
-    """randint rows on `device`: the kernel on CUDA under "auto"/"cuda",
-    the plain version on the CPU or under "torch"."""
+def threefry_randint(keys, B: int, span, device, backend="auto"):
+    """randint rows on `device` (`span` one int, or one per row): the
+    kernel on CUDA under "auto"/"cuda", the plain version on the CPU or
+    under "torch"."""
     if _use_plain(device, backend):
         return threefry_randint_plain(keys, B, span, device)
     return threefry_randint_cuda(keys, B, span, device)

@@ -60,7 +60,8 @@ Triangular nests run as in run_sampled; one with a non-unit step raises
 NotImplementedError at `_program_rows`, the JAX package's unit-step
 gate. The exact engines' sharded forms (run_periodic_sharded,
 run_analytic_sharded, run_dense_sharded, run_exact_sharded) are at the
-end of this module. Not ported yet: replica placement (ROADMAP.md, A6).
+end of this module. Without a mesh or a device, the entry points take
+the enclosing replica scope's mesh (parallel/placement.py).
 """
 
 from __future__ import annotations
@@ -120,8 +121,16 @@ from .mesh import Mesh, build_mesh
 
 
 def _resolve_mesh(mesh: Mesh | None, device) -> Mesh:
-    """The run's mesh: the given one, or every visible card (CUDA, the
-    default) or a one-device mesh on the device the caller names."""
+    """The run's mesh: the given one, else the enclosing replica scope's
+    (parallel/placement.py) where no device is named, else every
+    visible card (CUDA, the default) or a one-device mesh on the device
+    the caller names."""
+    if mesh is None and device is None:
+        from .placement import active_mesh
+
+        mesh = active_mesh()
+        if mesh is not None:
+            return mesh
     if mesh is None:
         dev = resolve_device(device)
         if dev == torch.device("cuda"):

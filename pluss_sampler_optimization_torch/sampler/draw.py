@@ -25,8 +25,10 @@ package's accelerator batch.
 The key schedule (seed -> base key -> fold_in(attempt) -> split) runs on
 the host (sampler/threefry.py). The constants and the plan below are
 copied from the JAX package verbatim: they are semantics, and a change
-changes the sample sets. Not ported yet: draw_bucket_keys_device_multi
-(multi-request batching, ROADMAP A6).
+changes the sample sets. draw_bucket_keys_device_multi draws the rows of
+a cross-request bucket (the service's batches): rows of different
+programs, each with its own space and s, through B3's randint with a
+span per row.
 """
 
 from __future__ import annotations
@@ -115,7 +117,8 @@ def _select_exact(sk, valid_first, s: int, pri_keys, backend: str):
     """Uniform s-subset of the unique representatives of each sorted row.
 
     `valid_first` (bool [R, B]) marks the first occurrence of each
-    non-sentinel key; `pri_keys` are the rows' priority keys. Returns
+    non-sentinel key; `pri_keys` are the rows' priority keys; `s` is one
+    count for every row or a sequence of one per row. Returns
     (chosen [R, B], U [R], n_chosen [R]): priorities are independent
     uint64 draws (compared as their int64 images), the s smallest among
     representatives win, and a tie at the threshold chooses more."""
@@ -127,19 +130,27 @@ def _select_exact(sk, valid_first, s: int, pri_keys, backend: str):
     with record_function("draw: sort priorities"):
         spri = torch.sort(pri, dim=1).values
     with record_function("draw: threshold select"):
-        thr = spri[:, min(max(s - 1, 0), B - 1)]
+        if isinstance(s, (int, np.integer)):
+            thr = spri[:, min(max(s - 1, 0), B - 1)]
+        else:
+            col = torch.tensor([min(max(int(x) - 1, 0), B - 1) for x in s],
+                               dtype=torch.int64, device=spri.device)
+            thr = spri.gather(1, col[:, None])[:, 0]
         del spri
         chosen = valid_first & (pri <= thr[:, None])
         n_chosen = chosen.sum(dim=1)
     return chosen, U, n_chosen
 
 
-def _rect_draw_body(rng_keys, space: int, s: int, B: int, device,
+def _rect_draw_body(rng_keys, space, s, B: int, device,
                     backend: str = "auto"):
     """One rectangular draw + dedup + thin per key of `rng_keys`, as
     [R, B] rows (the JAX package's per-ref body, vmapped over R keys:
     threefry streams are counter-based per key, so a row is its key's
-    per-ref draw). Returns (sorted keys, chosen, U, n_chosen)."""
+    per-ref draw). `space` and `s` are one value for every row, or one
+    per row (the JAX package's _rect_draw_kernel_batch_multi: the rows'
+    own operands, B3's randint with a span per row). Returns (sorted
+    keys, chosen, U, n_chosen)."""
     subs = [threefry.split(k) for k in rng_keys]
     with record_function("draw: B3 randint"):
         keys = threefry_randint([k1 for k1, _ in subs], B, space, device,
@@ -291,3 +302,64 @@ def draw_bucket_keys_device(nt, ref_indices, cfg, seeds, batch: int,
                 groups.append(BucketDraw([j], d[0][None], d[1][None],
                                          *d[2:]))
     return groups
+
+
+def draw_bucket_keys_device_multi(entries, batch: int, device=None) -> list:
+    """Device draw for one cross-request union bucket, on `device` (as
+    draw_sample_keys_device).
+
+    `entries` is [(nt, ref_idx, cfg, seed)]: members of one signature
+    bucket that may span several programs and sampler configs, so they
+    do not share a draw plan: each member plans with its own nest and
+    config, and the members whose plans land on one buffer size B draw
+    as the rows of one [R, B] draw, each with its own base key, space
+    and s (B3's randint with a span per row). Triangular members and
+    the single member of a B take the per-ref draw; a row the first
+    attempt does not certify replays its member's per-ref retry loop.
+
+    Returns a list parallel to entries of (keys (B,), chosen (B,), s,
+    highs), or None for a member off the device path (the caller draws
+    it on the host). Each member's row equals its
+    draw_sample_keys_device: its group is keyed by its own planned B,
+    and threefry streams are counter-based per key."""
+    from .sampled import resolve_device
+
+    device = resolve_device(device)
+    out: list = [None] * len(entries)
+    rect: dict = {}
+    for i, (nt, ri, cfg, sd) in enumerate(entries):
+        plan = plan_draw(nt, ri, cfg, batch)
+        if plan is None:
+            continue
+        B, tri, s, highs, excl, space_box = plan
+        if tri:
+            out[i] = draw_sample_keys_device(nt, ri, cfg, seed=sd,
+                                             batch=batch, device=device)
+            continue
+        rect.setdefault(B, []).append((i, s, highs, space_box, sd))
+    for B, grp in rect.items():
+        if len(grp) == 1:
+            i = grp[0][0]
+            nt, ri, cfg, sd = entries[i]
+            out[i] = draw_sample_keys_device(nt, ri, cfg, seed=sd,
+                                             batch=batch, device=device)
+            continue
+        bases = [threefry.fold_in(_draw_base_key(sd), 0)
+                 for _i, _s, _h, _sp, sd in grp]
+        backends = {_backend(entries[i][2]) for i, *_ in grp}
+        # rows of one draw share one backend: "torch" where any member
+        # asks for the plain streams, which draw the same bits
+        backend = "torch" if "torch" in backends else backends.pop()
+        sk, chosen, U, n_chosen = _rect_draw_body(
+            bases, [sp for _i, _s, _h, sp, _sd in grp],
+            [s for _i, s, _h, _sp, _sd in grp], B, device, backend)
+        counts = _host_counts(U, n_chosen)
+        for j, (i, s, highs, _sp, sd) in enumerate(grp):
+            u, n = counts[j]
+            if u >= s and n == s:
+                out[i] = (sk[j], chosen[j], s, highs)
+            else:
+                nt, ri, cfg, _sd = entries[i]
+                out[i] = draw_sample_keys_device(nt, ri, cfg, seed=sd,
+                                                 batch=batch, device=device)
+    return out

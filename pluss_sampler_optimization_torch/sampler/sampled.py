@@ -80,7 +80,7 @@ from ..config import MachineConfig, SamplerConfig
 from ..core.trace import NestTrace, ProgramTrace
 from ..ir import Program
 from ..ops.histogram import SENTINEL, sorted_k_unique
-from ..runtime import telemetry
+from ..runtime import faults, telemetry
 from ..runtime.hist import PRIState
 from .nextuse import INF
 
@@ -98,11 +98,14 @@ _FUSED_HOST_CHUNKS = 8
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device a run uses: CUDA unless the caller asks for the CPU.
-    Raises where CUDA is asked for (or implied) but absent — the port
-    never carries on on the CPU by itself."""
+    """The device a run uses: `device`, else the enclosing replica
+    scope's (parallel/placement.py::device_scope), else CUDA. Raises
+    where CUDA is asked for (or implied) but absent — the port never
+    carries on on the CPU by itself."""
     if device is None:
-        device = "cuda"
+        from ..parallel import placement
+
+        device = placement.active_device() or "cuda"
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -547,6 +550,22 @@ def _bucket_rows(trace: ProgramTrace, rows) -> "collections.OrderedDict":
     return buckets
 
 
+def _bucket_rows_multi(job_plans) -> "collections.OrderedDict":
+    """Cross-request _bucket_rows: the rows of several (trace, rows)
+    program plans in union kernel-signature buckets, signature digest ->
+    [(job index, row index, nest index, ref index), ...], ordered by
+    first appearance. Keyed by the digest alone: across programs a nest
+    index means nothing, and every numeric difference between members
+    rides in each row's own descriptor. Per-member seeds (cfg.seed *
+    1000003 + row index within the member's own program) and per-job
+    result order stay those of each job's solo run."""
+    buckets: "collections.OrderedDict" = collections.OrderedDict()
+    for j, (trace, rows) in enumerate(job_plans):
+        for idx, (k, ri, sig) in enumerate(rows):
+            buckets.setdefault(sig, []).append((j, idx, k, ri))
+    return buckets
+
+
 def _host_fuse_plan(s: int, batch: int) -> tuple[int, int]:
     """(chunks per bucket dispatch, dispatch count) for a ref with s
     drawn samples: the chunk group grows geometrically (1, 2, 4, ...,
@@ -560,7 +579,8 @@ def _host_fuse_plan(s: int, batch: int) -> tuple[int, int]:
 
 def bucket_dispatch(nt, ref_idx, keys_RB, mask_RB, highs, rx_R,
                     capacity: int, backend: str = "auto", desc=None,
-                    tri_base=None, raw: bool = False, desc_dev=None):
+                    tri_base=None, raw: bool = False, desc_dev=None,
+                    hrs_dev=None):
     """One bucket dispatch: the fused kernel, then the exact pair
     reduction of its residual stream per member. Returns
     (share_keys[R,cap], share_counts[R,cap], n_unique[R], cold[R],
@@ -572,13 +592,26 @@ def bucket_dispatch(nt, ref_idx, keys_RB, mask_RB, highs, rx_R,
     parameter form carries it) and `tri_base` a triangular nest's base
     table on the device (`tri_table`), all made once per bucket. `raw`
     takes the kernel's raw-noshare form: every found sample comes back
-    as a pair and the histogram is empty."""
-    from ..ops.sampled_hist import sampled_hist
+    as a pair and the histogram is empty.
 
-    residual, hist, cold = sampled_hist(
-        nt, ref_idx, keys_RB, mask_RB, highs, rx_R, backend, desc, tri_base,
-        raw, desc_dev,
-    )
+    With `nt`, `ref_idx` and `highs` lists of one entry per row, the
+    dispatch is the per-row form (ops/sampled_hist.py::sampled_hist_rows:
+    rows of different programs sharing one signature; on the CPU its
+    plain version): `desc` is then the rows' rows_matrix, `desc_dev` its
+    device copy, `tri_base` the rows' tri_rows and `hrs_dev` their radix
+    records on the device."""
+    from ..ops.sampled_hist import sampled_hist, sampled_hist_rows
+
+    if isinstance(nt, (list, tuple)):
+        residual, hist, cold = sampled_hist_rows(
+            nt, ref_idx, keys_RB, mask_RB, highs, rx_R, backend, desc,
+            desc_dev, tri_base, raw, hrs_dev,
+        )
+    else:
+        residual, hist, cold = sampled_hist(
+            nt, ref_idx, keys_RB, mask_RB, highs, rx_R, backend, desc,
+            tri_base, raw, desc_dev,
+        )
 
     def reduce(cap):
         outs = [
@@ -1172,16 +1205,8 @@ def _run_dispatches(trace, rows, cfg, dev, batch, capacity, backend, raw,
                     tuple(x.cpu().numpy() for x in reduce(dispatch_cap)))
         with _span(spans, "decode", "merge"):
             for j, ((idx, _ri), n) in enumerate(zip(members, n_samples)):
-                res = accs[idx]
-                res.n_samples = n
-                res.cold += float(cold[j])
-                decode_pairs(mk[j], mc[j], res.noshare, res.share)
-                # {2^e: count}: hist_update's pow2_floor(2^e) is 2^e,
-                # so the fold is bit-identical to raw keys
-                ns = res.noshare
-                for e in np.nonzero(nh[j])[0]:
-                    key = 1 << int(e)
-                    ns[key] = ns.get(key, 0.0) + float(nh[j][e])
+                accs[idx].n_samples = n
+                _merge_row(accs[idx], mk[j], mc[j], cold[j], nh[j])
                 if final:
                     finalize(idx)
 
@@ -1229,6 +1254,19 @@ def _run_dispatches(trace, rows, cfg, dev, batch, capacity, backend, raw,
         telemetry.gauge("expected_chunks", plan.get("expected_chunks", 0))
         telemetry.gauge("pipeline_overlap_s", overlap_s)
     return [results[idx] for idx in range(len(rows))]
+
+
+def _merge_row(res: SampledRefResult, keys, counts, cold, hist) -> None:
+    """Fold one member row of a drained dispatch into its result: the
+    cold count, the exact (key, count) pairs, and the pow2 histogram as
+    {2^e: count} (hist_update's pow2_floor(2^e) is 2^e, so the fold is
+    bit-identical to raw keys)."""
+    res.cold += float(cold)
+    decode_pairs(keys, counts, res.noshare, res.share)
+    ns = res.noshare
+    for e in np.nonzero(hist)[0]:
+        key = 1 << int(e)
+        ns[key] = ns.get(key, 0.0) + float(hist[e])
 
 
 def _fetch_async(out, dev: torch.device):
@@ -1443,6 +1481,261 @@ def run_sampled(
     return state, results
 
 
+def sampled_outputs_multi(
+    jobs,
+    batch: int | None = None,
+    capacity: int = DEFAULT_CAPACITY,
+    device=None,
+    spans: dict | None = None,
+    counters: dict | None = None,
+) -> list[list[SampledRefResult]]:
+    """Cross-request bucket runner: several jobs share one dispatch plan
+    (the engine half of the service's batching,
+    service/executor.py::BatchScheduler).
+
+    `jobs` is [(program, machine, cfg)] or [(program, machine, cfg,
+    raw_noshare)] (raw_noshare: the raw route of a v2 member). The rows
+    of every job are planned into the union of kernel-signature buckets
+    (_bucket_rows_multi), and each bucket dispatches the per-row form of
+    kernel B1 (bucket_dispatch with per-row lists: each row its own
+    nest, descriptor and radices; the plain version on the CPU) over
+    rows that mix members of every job. Each member stays exact:
+
+    - its sample stream is its solo run's: its own seed (cfg.seed *
+      1000003 + its row index in its own program), highs and count.
+      Device-drawn members draw through draw_bucket_keys_device_multi
+      (B3's randint with a span per row) and stack with the members of
+      the same buffer size B, route and raw flag, in column spans of at
+      most _FUSED_HOST_CHUNKS batches; host-drawn members draw their
+      numpy streams and share one chunk plan per route and raw flag,
+      a member shorter than the plan riding later dispatches masked;
+    - the classify of each row is its solo classify; pair counts are
+      exact integers, so a capacity regrow (redone for the whole
+      dispatch) and the decode change nothing at member grain.
+
+    Returns one result list per job, in that job's solo order, each
+    equal field for field to its solo sampled_outputs. Writes the JAX
+    package's spans ("bucket" batched, "draw", "dispatch"
+    form="fused_multi", "fetch", "merge"), counters ("dispatches",
+    "dispatches_fused", "dispatches_batched", "pipeline_stalls",
+    "capacity_regrows") and gauges ("fuse_refs", "pipeline_depth",
+    "ref_buckets", "ref_buckets_union", "expected_chunks",
+    "pipeline_overlap_s", "batch_jobs", "refs_per_dispatch"), the spans'
+    host seconds into `spans` and the counts into `counters`."""
+    from ..ops.sampled_hist import (
+        build_descriptor,
+        rows_matrix,
+        rows_radix_records,
+        tri_rows,
+    )
+    from .draw import draw_bucket_keys_device_multi
+
+    dev = resolve_device(device)
+    if batch is None:
+        batch = default_batch(dev)
+    norm = [(job[0], job[1], job[2] or SamplerConfig(),
+             bool(job[3]) if len(job) > 3 else False) for job in jobs]
+    plans = [_program_rows(p, m) for p, m, _c, _r in norm]
+    depth = max(1, max((c.pipeline_depth for _p, _m, c, _r in norm),
+                       default=1))
+    results: dict = {}
+    pending: collections.deque = collections.deque()
+    cap = capacity
+    overlap_s = 0.0
+    n_buckets = most = n_dispatches = n_refs = 0
+
+    def drain(entry):
+        nonlocal cap, overlap_s
+        rows, host, event, reduce, dispatch_cap, t0 = entry
+        overlap_s += max(0.0, time.perf_counter() - t0)
+        with _span(spans, "dispatch", "fetch", fused=True, batched=True):
+            if event is not None:
+                event.synchronize()
+            mk, mc, max_nu, cold, nh = telemetry.record_fetch(
+                tuple(x.numpy() for x in host))
+        while int(max_nu.max()) > dispatch_cap:
+            dispatch_cap = max(dispatch_cap * 4, int(max_nu.max()))
+            cap = max(cap, dispatch_cap)
+            _count(counters, "capacity_regrows")
+            with _span(spans, "dispatch", "fetch", fused=True, regrow=True):
+                mk, mc, max_nu = telemetry.record_fetch(
+                    tuple(x.cpu().numpy() for x in reduce(dispatch_cap)))
+        with _span(spans, "decode", "merge"):
+            for j, m in enumerate(rows):
+                _merge_row(m["acc"], mk[j], mc[j], cold[j], nh[j])
+                m["left"] -= 1
+                if m["left"] == 0:
+                    results[m["key"]] = m["acc"]
+
+    def group_inputs(rows, backend):
+        """The per-row form's rows tensors, made once per group: value
+        indices, and on a kernel route the descriptors (host and
+        device), triangular base tables and radix records."""
+        rx = torch.tensor([m["ri"] for m in rows], dtype=torch.int64,
+                          device=dev)
+        if dev.type != "cuda" or backend == "torch":
+            return rx, None, None, None, None
+        descs = rows_matrix([build_descriptor(m["nt"], m["ri"])
+                             for m in rows])
+        return (rx, descs, torch.as_tensor(descs, device=dev),
+                tri_rows([m["nt"] for m in rows], dev),
+                torch.as_tensor(rows_radix_records(
+                    [m["ph"] for m in rows]), device=dev))
+
+    def dispatch(rows, inputs, keys_RB, mask_RB, backend, raw):
+        nonlocal n_dispatches, n_refs
+        rx, descs, descs_dev, tris, hrs_dev = inputs
+        _count(counters, "dispatches")
+        _count(counters, "dispatches_fused")
+        _count(counters, "dispatches_batched")
+        with _span(spans, "dispatch", form="fused_multi", refs=len(rows)):
+            out, reduce = bucket_dispatch(
+                [m["nt"] for m in rows], [m["ri"] for m in rows], keys_RB,
+                mask_RB, [m["ph"] for m in rows], rx, cap, backend, descs,
+                tris, raw, descs_dev, hrs_dev,
+            )
+            host, event = _fetch_async(out, dev)
+        n_dispatches += 1
+        n_refs += len(rows)
+        pending.append((rows, host, event, reduce, cap, time.perf_counter()))
+        while len(pending) >= depth:
+            _count(counters, "pipeline_stalls")
+            drain(pending.popleft())
+
+    for members_all in _bucket_rows_multi(plans).values():
+        live = []
+        for j, idx, k, ri in members_all:
+            nt = plans[j][0].nests[k]
+            _p, _m, cfg, raw = norm[j]
+            highs, s_m = _sample_highs(nt, ri, cfg)
+            acc = SampledRefResult(name=nt.tables.ref_names[ri], noshare={},
+                                   share={}, cold=0.0, n_samples=0)
+            if s_m == 0:  # degenerate ref: nothing to draw
+                results[(j, idx)] = acc
+                continue
+            # "native" (the CPU's route) classifies through the plain
+            # version here, which it equals
+            backend = _sampled_backend(cfg, dev, raw)
+            live.append({
+                "key": (j, idx), "nt": nt, "ri": ri, "cfg": cfg,
+                "raw": raw, "ph": _pad_highs(highs),
+                "seed": cfg.seed * 1000003 + idx,
+                "backend": "torch" if backend == "native" else backend,
+                "drawn": None, "left": 0, "acc": acc,
+            })
+        if not live:
+            continue
+        n_buckets += 1
+        n = 0
+        with telemetry.span("bucket", engine="sampled", batched=True,
+                            refs=",".join(m["acc"].name for m in live)):
+            dev_members = [m for m in live if _use_device_draw(m["cfg"], dev)]
+            if dev_members:
+                with _span(spans, "draw", where="device"):
+                    drawn = draw_bucket_keys_device_multi(
+                        [(m["nt"], m["ri"], m["cfg"], m["seed"])
+                         for m in dev_members], batch, dev)
+                for m, d in zip(dev_members, drawn):
+                    m["drawn"] = d
+            groups: dict = {}
+            host_groups: dict = {}
+            for m in live:
+                if m["drawn"] is None:
+                    host_groups.setdefault((m["backend"], m["raw"]),
+                                           []).append(m)
+                    continue
+                m["acc"].n_samples = m["drawn"][2]
+                # only equal buffer sizes stack: a member keeps the
+                # exact buffer its solo run draws
+                groups.setdefault(
+                    (int(m["drawn"][0].shape[0]), m["backend"], m["raw"]),
+                    []).append(m)
+            for (B, backend, raw), grp in groups.items():
+                keys_RB = torch.stack([m["drawn"][0] for m in grp])
+                mask_RB = torch.stack([m["drawn"][1] for m in grp])
+                for m in grp:
+                    m["drawn"] = None
+                span_len = min(B, _FUSED_HOST_CHUNKS * batch)
+                inputs = group_inputs(grp, backend)
+                for m in grp:
+                    m["left"] += -(-B // span_len)
+                for lo in range(0, B, span_len):
+                    n += 1
+                    dispatch(grp, inputs, keys_RB[:, lo:lo + span_len],
+                             mask_RB[:, lo:lo + span_len], backend, raw)
+                del keys_RB, mask_RB
+            for (backend, raw), grp in host_groups.items():
+                with _span(spans, "draw", where="host"):
+                    keys = [draw_sample_keys(m["nt"], m["ri"], m["cfg"],
+                                             seed=m["seed"])[0]
+                            for m in grp]
+                for m, ka in zip(grp, keys):
+                    m["acc"].n_samples = len(ka)
+                g, n_groups = _host_fuse_plan(max(len(ka) for ka in keys),
+                                              batch)
+                span_len = g * batch
+                inputs = group_inputs(grp, backend)
+                for m in grp:
+                    m["left"] += n_groups
+                for gi in range(n_groups):
+                    lo = gi * span_len
+                    with _span(spans, "stage", tele=None):
+                        buf = np.empty((len(grp), span_len), dtype=np.int64)
+                        msk = np.zeros((len(grp), span_len), dtype=bool)
+                        for row, ka in enumerate(keys):
+                            seg = ka[lo:lo + span_len]
+                            buf[row, :len(seg)] = seg
+                            buf[row, len(seg):] = ka[0]
+                            msk[row, :len(seg)] = True
+                        keys_RB = torch.from_numpy(buf).to(dev)
+                        mask_RB = torch.from_numpy(msk).to(dev)
+                    n += 1
+                    dispatch(grp, inputs, keys_RB, mask_RB, backend, raw)
+        most = max(most, n)
+    while pending:
+        drain(pending.popleft())
+    _gauge(counters, "fuse_refs", 1)
+    _gauge(counters, "pipeline_depth", depth)
+    _gauge(counters, "ref_buckets", n_buckets)
+    _gauge(counters, "ref_buckets_union", n_buckets)
+    _gauge(counters, "expected_chunks", most)
+    _gauge(counters, "pipeline_overlap_s", overlap_s)
+    _gauge(counters, "batch_jobs", len(jobs))
+    if n_dispatches:
+        _gauge(counters, "refs_per_dispatch", n_refs / n_dispatches)
+    return [[results[(j, idx)] for idx in range(len(rows))]
+            for j, (_trace, rows) in enumerate(plans)]
+
+
+def run_sampled_multi(
+    jobs,
+    batch: int | None = None,
+    capacity: int = DEFAULT_CAPACITY,
+    device=None,
+    spans: dict | None = None,
+    counters: dict | None = None,
+) -> list[tuple[PRIState, list[SampledRefResult]]]:
+    """Batched entry point: jobs is [(program, machine, cfg | None, v2)];
+    returns one (PRIState, results) per job, each equal to
+    run_sampled(program, machine, cfg, v2=v2, device=device) on its own
+    (sampled_outputs_multi; a v2 member takes the raw route, as
+    run_sampled's default). Runs on CUDA unless `device="cpu"`."""
+    norm = [(p, m, c if c is not None else SamplerConfig(), bool(v2))
+            for p, m, c, v2 in jobs]
+    with telemetry.span("engine", engine="sampled",
+                        batch_members=len(norm)):
+        outs = sampled_outputs_multi(
+            [(p, m, c, v2) for p, m, c, v2 in norm], batch=batch,
+            capacity=capacity, device=device, spans=spans,
+            counters=counters,
+        )
+        folded = []
+        with _span(spans, "fold", "merge", stage="fold_results"):
+            for (_p, m, _c, v2), res in zip(norm, outs):
+                folded.append((fold_results(res, m.thread_num, v2), res))
+    return folded
+
+
 def _stream_order(keys: np.ndarray, seed: int) -> np.ndarray:
     """Deterministic uniform round-assignment order for one ref's
     drawn key set: argsort by a splitmix64 hash of (key, seed).
@@ -1537,6 +1830,7 @@ def run_sampled_progressive(
     device=None,
     spans: dict | None = None,
     counters: dict | None = None,
+    fault_key=None,
 ) -> tuple[PRIState, list[SampledRefResult], dict]:
     """Round-based sampled engine with confidence-banded early exit.
 
@@ -1561,9 +1855,9 @@ def run_sampled_progressive(
     monotone-clamped band width. Runs on CUDA unless `device="cpu"`;
     `spans` gathers host seconds per stage ("draw", "stage",
     "dispatch", "decode", "fold", "bootstrap") and `counters` counts
-    "progressive_rounds", "dispatches" and "capacity_regrows". The JAX
-    package's `fault_key` (the service's `round_exec` chaos site) waits
-    for the service.
+    "progressive_rounds", "dispatches" and "capacity_regrows".
+    `fault_key` keys the `round_exec` chaos site (runtime/faults.py)
+    fired at each round start, as the JAX package's does.
 
     Returns (state, results, info) with info = {"rounds" completed,
     "rounds_total", "band_width", "converged", "stopped"
@@ -1630,6 +1924,11 @@ def run_sampled_progressive(
         stopped = None
         done = 0
         for r in range(n_rounds):
+            # chaos site: one occurrence per (request, round); a
+            # latency/hang here overruns the deadline the boundary
+            # check below observes
+            faults.fire("round_exec", key=fault_key, round=r,
+                        model=program.name)
             if r > 0 and should_stop is not None and should_stop():
                 stopped = "deadline"
                 break

@@ -19,11 +19,11 @@ and requires bit-identity to the solo run. `--kernel-backend`
 (repeatable: cuda, torch, native) re-runs each seed's solo config per
 named backend (SamplerConfig.kernel_backend) and requires bit-identity
 to the solo run, which is itself drift-bounded against the numpy
-oracle. `--batched` (the JAX package's run_sampled_multi check) is
-refused: the batched engine is not ported yet (ROADMAP A6.4).
+oracle. `--batched` also runs each seed through run_sampled_multi in a
+3-job union bucket and requires bit-identity to the solo run.
 
 Exit code: nonzero on any oracle mismatch, drift violation, accepted
-mutant, sharded or backend divergence, or parser crash. Failures print
+mutant, batched, sharded or backend divergence, or parser crash. Failures print
 the seed and the contract clause violated; re-run a single seed with
 `--seeds 1 --start-seed S` (the generator is deterministic per seed).
 """
@@ -53,8 +53,8 @@ def main(argv=None) -> int:
     ap.add_argument("--mutants", type=int, default=4,
                     help="invalid mutants per seed")
     ap.add_argument("--batched", action="store_true",
-                    help="refused: run_sampled_multi is not ported yet "
-                         "(ROADMAP A6.4)")
+                    help="also check run_sampled_multi bit-identity vs "
+                         "solo per seed (3-job union bucket)")
     ap.add_argument("--sharded", action="store_true",
                     help="also check run_sampled_sharded bit-identity "
                          "vs solo per seed (2-shard mesh)")
@@ -71,11 +71,6 @@ def main(argv=None) -> int:
     ap.add_argument("-v", "--verbose", action="store_true",
                     help="one line per seed")
     args = ap.parse_args(argv)
-    if args.batched:
-        raise SystemExit(
-            "--batched checks run_sampled_multi, the batched engine of "
-            "the service, which is not ported yet (ROADMAP A6.4)"
-        )
 
     def progress(r):
         if args.verbose:
@@ -90,7 +85,7 @@ def main(argv=None) -> int:
     summary = fuzz.run_seeds(
         args.seeds, start=args.start_seed, ratio=args.ratio,
         drift_max=args.drift_max, n_mutants=args.mutants,
-        sharded=args.sharded,
+        batched=args.batched, sharded=args.sharded,
         kernel_backends=tuple(args.kernel_backends),
         progress=progress, device=args.device,
     )

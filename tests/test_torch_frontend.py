@@ -13,8 +13,10 @@ the analysis' own wall time; the tool twins print the JAX tools'
 lines. The port's analysis path imports no JAX.
 """
 
+import contextlib
 import dataclasses
 import importlib.util
+import io
 import json
 import os
 import re
@@ -22,6 +24,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 from _torch_native import native_built
 
 import pluss_sampler_optimization_torch as T
@@ -89,10 +92,22 @@ def test_check_seed_on_the_cpu(seed):
 
 
 def test_batched_check_is_refused():
-    with pytest.raises(NotImplementedError, match="A6.4"):
-        t_fuzz.check_seed(0, device="cpu", batched=True)
-    with pytest.raises(SystemExit, match="A6.4"):
-        t_fuzz_ir.main(["--seeds", "1", "--batched", "--device", "cpu"])
+    """The batched check (run_sampled_multi, ported with the service)
+    is no longer refused: a seed's program in a 3-job union bucket is
+    bit-identical to its solo run, in check_seed and in fuzz_ir."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)  # small ops: a thread team only spins
+    try:
+        r = t_fuzz.check_seed(0, device="cpu", batched=True, sampled=False)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(
+                io.StringIO()):
+            rc = t_fuzz_ir.main(["--seeds", "1", "--batched", "--device",
+                                 "cpu"])
+    finally:
+        torch.set_num_threads(n)
+    assert r["ok"], r["errors"]
+    assert rc == 0 and out.getvalue().startswith("fuzz: 1/1 seeds passed")
 
 
 def _mask_wall(text: str) -> str:

@@ -75,6 +75,9 @@ COPIED = (
                                     "attribution.py", "ledger.py",
                                     "regress.py", "metrics.py",
                                     "profiler.py", "slo.py")]
+    + ["runtime/faults.py", "service/breakers.py", "service/cache.py"]
+    + [f"analysis/concurrency/{f}" for f in ("_scan.py", "graph.py",
+                                             "lints.py", "fixtures.py")]
 )
 
 
@@ -190,7 +193,14 @@ def test_port_imports_no_jax():
         "from pluss_sampler_optimization_torch.tools import (\n"
         "    check_bundle, check_dispatch_stats, check_drift, check_ledger,\n"
         "    check_profile, check_regression, check_slo,\n"
-        "    check_telemetry_schema)\n"
+        "    check_telemetry_schema, check_service_store, check_chaos,\n"
+        "    check_precision, loadgen, check_concurrency,\n"
+        "    lint_determinism)\n"
+        "import pluss_sampler_optimization_torch.service\n"
+        "import pluss_sampler_optimization_torch.parallel.placement\n"
+        "import pluss_sampler_optimization_torch.analysis.concurrency\n"
+        "from pluss_sampler_optimization_torch.sampler.sampled import "
+        "run_sampled_multi\n"
         "import chip_smoke\n"
         "T.run_sampled(gemm(8), T.MachineConfig(), T.SamplerConfig(),"
         " device='cpu')\n"
@@ -202,6 +212,13 @@ def test_port_imports_no_jax():
         "    assert main(['sample', '--n', '8', '--device', 'cpu',"
         " '--ledger', led]) == 0\n"
         "    assert main(['stats', '--ledger', led]) == 0\n"
+        "    req = os.path.join(tempfile.mkdtemp(), 'r.jsonl')\n"
+        "    open(req, 'w').write('{\"model\": \"gemm\", \"n\": 8, '\n"
+        "                         '\"engine\": \"sampled\"}\\n')\n"
+        "    assert main(['serve', '--device', 'cpu', '--requests', req,"
+        " '--batch-window-ms', '1']) == 0\n"
+        "run_sampled_multi([(gemm(8), T.MachineConfig(), None, False)],"
+        " device='cpu')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'pluss_sampler_optimization_tpu'))]\n"
         "assert not bad, bad\n"

@@ -682,3 +682,125 @@ def test_device_draw_on_card_equals_cpu(name, cuda):
         assert torch.equal(g.chosen.cpu(), w.chosen)
         assert (g.s, g.highs) == (w.s, w.highs)
         assert (g.chosen.sum(dim=1) == g.s).all()
+
+
+def _row_bucket_inputs(progs, cfg, dev, rng):
+    """Every union bucket of `progs` with rows from two or more programs:
+    (nests, refs, keys, mask, radices, rx) of one per-row launch, each
+    row its own member's draw padded with a masked tail."""
+    plans = [S._program_rows(p, T.MachineConfig()) for p in progs]
+    for members in S._bucket_rows_multi(plans).values():
+        if len({j for j, *_ in members}) < 2:
+            continue
+        nts = [plans[j][0].nests[k] for j, _idx, k, _ri in members]
+        ris = [ri for *_, ri in members]
+        hs, ks = [], []
+        for nt, (_j, idx, _k, ri) in zip(nts, members):
+            highs, _ = S._sample_highs(nt, ri, cfg)
+            hs.append(S._pad_highs(highs))
+            ks.append(S.draw_sample_keys(nt, ri, cfg, seed=idx)[0])
+        B = max(len(x) for x in ks) + 9
+        keys = np.stack([np.concatenate([x, np.full(B - len(x), x[0])])
+                         for x in ks])
+        mask = rng.random(keys.shape) < 0.9
+        for r, x in enumerate(ks):
+            mask[r, len(x):] = False
+        yield (nts, ris, torch.from_numpy(keys).to(dev),
+               torch.from_numpy(mask).to(dev), hs,
+               torch.tensor(ris, device=dev))
+
+
+# triangular rows share a signature only where their base tables have
+# one shape: trmm 40 and 46, syrk-tri 52 and 60 do
+@pytest.mark.parametrize("models", [(("gemm", 48), ("gemm", 64), ("2mm", 40)),
+                                    (("trmm", 40), ("trmm", 46)),
+                                    (("syrk-tri", 52), ("syrk-tri", 60))])
+def test_per_row_form_matches_plain_and_per_program_launches(models, cuda):
+    """B1's per-row form (rows of different programs sharing a
+    signature) equals its plain version and the same rows launched one
+    program at a time, in both launch flags."""
+    rng = np.random.default_rng(5)
+    cfg = T.SamplerConfig(ratio=0.3, seed=4)
+    progs = [REGISTRY[m](n) for m, n in models]
+    n_launches = 0
+    for nts, ris, keys, mask, hs, rx in _row_bucket_inputs(progs, cfg, cuda,
+                                                           rng):
+        for raw in (False, True):
+            r0 = sh.ROWS_LAUNCHES
+            got = sh.sampled_hist_rows(nts, ris, keys, mask, hs, rx, raw=raw)
+            assert sh.ROWS_LAUNCHES == r0 + 1
+            want = sh.sampled_hist_rows_plain(nts, ris, keys, mask, hs, rx,
+                                              raw)
+            per = [sh.sampled_hist_cuda(nts[r], ris[r], keys[r:r + 1],
+                                        mask[r:r + 1], hs[r], rx[r:r + 1],
+                                        raw=raw) for r in range(len(nts))]
+            for i, (a, b) in enumerate(zip(got, want)):
+                assert torch.equal(a, b)
+                assert torch.equal(a, torch.cat([p[i] for p in per]))
+            n_launches += 1
+    assert n_launches
+
+
+def test_threefry_span_per_row_matches_plain_and_solo_launches(cuda):
+    """B3's randint with a span per row (every remainder kind mixed in
+    one call) equals its plain version and each row's solo launch."""
+    rng = np.random.default_rng(8)
+    keys = [tuple(int(x) for x in rng.integers(0, 1 << 32, size=2))
+            for _ in range(6)]
+    spans = [1 << 20, 1000, (1 << 40) + 3, 7, 1 << 33, 4_190_209]
+    for B in (1, 1023, 1 << 16):
+        r0 = td.ROWS_LAUNCHES
+        got = td.threefry_randint(keys, B, spans, cuda)
+        assert td.ROWS_LAUNCHES == r0 + 3  # one launch per remainder kind
+        assert torch.equal(got, td.threefry_randint_plain(keys, B, spans,
+                                                          cuda))
+        solo = torch.cat([td.threefry_randint([k], B, sp, cuda)
+                          for k, sp in zip(keys, spans)])
+        assert torch.equal(got, solo)
+
+
+def test_run_sampled_multi_on_card_equals_solo(cuda):
+    """A batch of mixed models and sizes on the card: each member equal
+    to its solo run_sampled, through the per-row forms."""
+    jobs = [(REGISTRY["gemm"](64), T.MachineConfig(),
+             T.SamplerConfig(ratio=0.2, seed=0), False),
+            (REGISTRY["gemm"](96), T.MachineConfig(),
+             T.SamplerConfig(ratio=0.2, seed=1), False),
+            (REGISTRY["2mm"](64), T.MachineConfig(),
+             T.SamplerConfig(ratio=0.2, seed=0), True),
+            (REGISTRY["trmm"](72), T.MachineConfig(),
+             T.SamplerConfig(ratio=0.2, seed=2), False)]
+    b1, b3 = sh.ROWS_LAUNCHES, td.ROWS_LAUNCHES
+    outs = S.run_sampled_multi(jobs, capacity=2)
+    assert sh.ROWS_LAUNCHES > b1 and td.ROWS_LAUNCHES > b3
+    for (p, m, c, v2), (state, res) in zip(jobs, outs):
+        st, r2 = S.run_sampled(p, m, c, v2=v2)
+        assert state_to_json(state) == state_to_json(st)
+        assert [(a.noshare, a.share, a.cold, a.n_samples) for a in res] == [
+            (a.noshare, a.share, a.cold, a.n_samples) for a in r2]
+
+
+def test_serve_on_card_raises_nothing(cuda, tmp_path):
+    """The CLI's serve on the card: sampled (solo and in a batch window)
+    and exact requests answer ok, and a repeat answers from the store."""
+    import json
+
+    from pluss_sampler_optimization_torch.cli import main
+
+    reqs = tmp_path / "r.jsonl"
+    reqs.write_text("".join(json.dumps(d) + "\n" for d in (
+        {"id": "a", "model": "gemm", "n": 128, "engine": "sampled"},
+        {"id": "b", "model": "syrk", "n": 96, "engine": "sampled",
+         "seed": 1},
+        {"id": "c", "model": "gemm", "n": 64, "engine": "exact"},
+    )))
+    for rnd in range(2):
+        out = tmp_path / f"o{rnd}.jsonl"
+        assert main(["serve", "--cache-dir", str(tmp_path / "s"),
+                     "--batch-window-ms", "50", "--requests", str(reqs),
+                     "--responses", str(out)]) == 0
+        docs = [json.loads(x) for x in out.read_text().splitlines()]
+        assert [d["ok"] for d in docs] == [True] * 3
+        assert all(not d["degraded"] for d in docs)
+        if rnd:
+            assert {d["cache"] for d in docs} == {"disk"}

@@ -26,7 +26,6 @@ import torch
 
 import pluss_sampler_optimization_torch.config as TC
 import pluss_sampler_optimization_tpu.config as JC
-from pluss_sampler_optimization_torch.cli import _request_fingerprint
 from pluss_sampler_optimization_torch.cli import main as t_main
 from pluss_sampler_optimization_torch.models import REGISTRY as T_MODELS
 from pluss_sampler_optimization_torch.runtime.obs import (
@@ -156,9 +155,7 @@ def test_fingerprint_is_the_jax_services(argv):
 
     args = t_cli._parser().parse_args(argv)
     program = T_MODELS[args.model](args.n)
-    machine = TC.MachineConfig(thread_num=args.threads,
-                               chunk_size=args.chunk)
-    got = _request_fingerprint(args, program, machine, args.engine)
+    got = t_cli._request_from_args(args, args.engine).fingerprint(program)
     want = AnalysisRequest(
         model=args.model, n=args.n, tsteps=args.tsteps, engine=args.engine,
         runtime=args.runtime, threads=args.threads, chunk=args.chunk,
