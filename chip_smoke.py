@@ -8,6 +8,7 @@
     python3 chip_smoke.py --frontend-only  # the frontend (phase 18)
     python3 chip_smoke.py --obs-only       # observability (phase 19)
     python3 chip_smoke.py --serve-only     # the analysis service (phase 20)
+    python3 chip_smoke.py --fabric-only    # the serving fabric (phase 21)
 
 SamplerConfig() resolves to the device draw on the card (threefry on
 kernel B3), as the JAX package's auto does on an accelerator. Phases,
@@ -219,7 +220,10 @@ each printing its own lines; any failure exits non-zero:
    and B3 launches, one device draw and one B1 dispatch of it bit-equal
    to plain; e. a flight-recorder bundle with the CUDA memory snapshot
    through the check_bundle twin, the check_profile (gemm(1024)) and
-   check_slo twins. The in-process launches join the kernels line;
+   check_slo twins, the host's state beside check_profile (this
+   process's threads, other port processes, the card's compute
+   processes; tools/profile_cost.py splits the profiler's cost). The
+   in-process launches join the kernels line;
 20. the analysis service (service/, the CLI's serve): a. solo requests
    through `serve --cache-dir --max-workers 1`: sampled GEMM 2*--n and
    --n (ratio 0.1, seed 0, device draw), syrk-tri --tri-n, exact GEMM
@@ -243,7 +247,21 @@ each printing its own lines; any failure exits non-zero:
    at small size on the card. Every non-chaos run ends with no solo
    fallback, degrade, failure or open breaker. The launches join the
    kernels line, and its B1 and B3 entries carry the per-row forms'
-   times (rows_ms) beside the per-program launches' and their bound.
+   times (rows_ms) beside the per-program launches' and their bound;
+21. the serving fabric (service/fabric/, the CLI's serve-router and
+   serve-worker): the card's free memory after empty_cache; GEMM --n,
+   syrk-tri --tri-n, a duplicate line, the GEMM program as a --dump-ir
+   document and a made nest as an inline one through the check_fabric
+   twin with serve-worker processes on cuda:0 (1 and 2 workers cold, 2
+   warm with no miss, the ring's assignment across restarts, 3 workers
+   with the busiest SIGKILLed mid-load, the fleet's stats, metrics,
+   trace join and dump_debug, no orphan), every digest equal to the
+   direct run_sampled's and phase 20's single-process service's; each
+   worker's seconds from spawn to ready, a fresh worker's first request,
+   no re-dispatch or heartbeat timeout outside the kill phase; then the
+   TCP front driven by the loadgen twin's --connect and the workers'
+   dispatch counters from the fleet stats and metrics. The workers'
+   launches are their processes', not the kernels line's.
 
 Then one JSON line of kernel numbers (B1 timed over the dispatches of
 phases 5 and 13, its launches those of phases 7, 8b's serial run, 8c,
@@ -2995,7 +3013,10 @@ def phase_obs(n: int, card: str) -> tuple:
           f"snapshot ({os.path.getsize(bundle['profile'])} B) passes "
           "check_bundle")
     _reset_launches()
-    _tool("check_profile", "--device", "cuda", "--n", str(OBS_PROFILE_N))
+    try:
+        _tool("check_profile", "--device", "cuda", "--n", str(OBS_PROFILE_N))
+    finally:
+        print(f"obs: check_profile's host: {_host_state()}")
     _tool("check_slo", led)
     l1, _, l3 = _launches()
     b1, b3 = b1 + l1, b3 + l3
@@ -3005,6 +3026,32 @@ def phase_obs(n: int, card: str) -> tuple:
     print(f"obs: phase 19 took {time.perf_counter() - t_phase:.1f} s; "
           f"{b1} B1, {b2} B2, {b3} B3 launches in this process")
     return b1, b2, b3
+
+
+def _host_state() -> str:
+    """The host beside a timed check: this process's Python threads, the
+    port's other Python processes and the card's compute processes."""
+    import threading
+
+    others = 0
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read().split(b"\0")
+        except OSError:
+            continue
+        if b"python" in os.path.basename(argv[0]) and any(
+                b"pluss_sampler_optimization" in a or b"chip_smoke" in a
+                for a in argv):
+            others += 1
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.split()
+    return (f"{threading.active_count()} Python threads in this process, "
+            f"{others} other port processes, {len(apps)} compute "
+            f"processes on the card")
 
 
 def _stage_kernels_vs_plain(n: int) -> int:
@@ -3418,6 +3465,8 @@ def phase_serve(n: int, tri_n: int) -> tuple:
                     doc.get("mrc_digest") != want):
                 raise AssertionError(f"serve: {doc.get('id')}: {doc}")
             if m != "exact":
+                SERVE_SOLO[(m, size)] = (want, direct[size][1])
+            if m != "exact":
                 # the request's own time: its latency less its wait for
                 # the requests ahead of it (--max-workers 1)
                 own = row["latency_s"] - row["queue_s"]
@@ -3593,6 +3642,270 @@ def phase_serve(n: int, tri_n: int) -> tuple:
     return b1, b3, rows_b1_tot, rows_b3_tot
 
 
+# Phase 21, the serving fabric on the card (--fabric-only: the build,
+# then this phase). The request set, ratio 0.1, seed 0, the device draw:
+# GEMM n and syrk-tri tri_n at the main paths' sizes, a byte-different
+# duplicate of the GEMM line, the GEMM program as the --dump-ir document
+# --program-json reads (its structural twin: the same fingerprint), and
+# a made nest (9 refs of one map at FABRIC_MADE_N, tests/_torch_made.py)
+# as an inline document. The workers are `serve-worker` processes on
+# cuda:0 beside this one; their launches are theirs, not this process's
+# kernels line's.
+FABRIC_DEVICE = "cuda:0"
+FABRIC_MADE_N = 256
+FABRIC_LOADGEN_REQUESTS = 8
+FABRIC_TIMEOUT_S = 120.0
+# phase 20's single-process answers, each equal to its direct run:
+# (model, size) -> (MRC digest, the direct run_sampled's seconds)
+SERVE_SOLO: dict = {}
+
+
+def _fabric_lines(n: int, tri_n: int) -> tuple:
+    """(request lines, {id: program} of their direct runs)."""
+    from pluss_sampler_optimization_torch.frontend.schema import (
+        program_to_json,
+    )
+    from pluss_sampler_optimization_torch.models import gemm, syrk_tri
+
+    made = _made_nests(FABRIC_MADE_N)[1]
+    g = _serve_request("gemm", n, 0, rid="fab-gemm")
+    lines = [g, _serve_request("syrk-tri", tri_n, 0, rid="fab-syrk-tri"),
+             {**dict(reversed(list(g.items()))), "id": "fab-dup"}]
+    for rid, prog in (("fab-twin", gemm(n)), ("fab-custom", made)):
+        lines.append({"id": rid, "engine": "sampled", "ratio": 0.1,
+                      "seed": 0, "program": program_to_json(prog)})
+    progs = {"fab-gemm": gemm(n), "fab-syrk-tri": syrk_tri(tri_n),
+             "fab-dup": gemm(n), "fab-twin": gemm(n), "fab-custom": made}
+    return lines, progs
+
+
+def _router_up(cmd: list, err_path: str) -> tuple:
+    """Start a serve-router on its TCP front: (process, (host, port))."""
+    import re
+
+    with open(err_path, "w") as errf:
+        proc = subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=errf,
+                                text=True)
+    deadline = time.time() + FABRIC_TIMEOUT_S
+    while time.time() < deadline:
+        with open(err_path) as f:
+            m = re.search(r"JSONL TCP front on (\S+):(\d+)", f.read())
+        if m:
+            return proc, (m.group(1), int(m.group(2)))
+        if proc.poll() is not None:
+            break
+        time.sleep(0.25)
+    proc.kill()
+    proc.wait()
+    with open(err_path) as f:
+        raise AssertionError(f"fabric: router never came up: "
+                             f"{f.read()[-800:]}")
+
+
+def _control(addr, *kinds) -> dict:
+    """The router's answers to control lines, {kind: answer}."""
+    import socket
+
+    sock = socket.create_connection(addr, timeout=FABRIC_TIMEOUT_S)
+    rf = sock.makefile("r", encoding="utf-8")
+    wf = sock.makefile("w", encoding="utf-8")
+    out = {}
+    for kind in kinds:
+        wf.write(json.dumps({"id": f"chip-{kind}", "type": kind}) + "\n")
+        wf.flush()
+        doc = json.loads(rf.readline())
+        if not doc.get("ok"):
+            raise AssertionError(f"fabric: {kind}: {doc}")
+        out[kind] = doc[kind]
+    sock.close()
+    return out
+
+
+def _fabric_loadgen(tmp: str) -> None:
+    """A cold 2-worker fabric on its TCP front, driven once by the
+    loadgen twin's --connect (a subprocess); then the workers' dispatch
+    counters from the fleet stats and metrics answers, a SIGTERM drain,
+    and no worker left."""
+    import signal
+
+    from pluss_sampler_optimization_torch.tools import check_fabric
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "loadgen")
+    os.makedirs(root)
+    proc, addr = _router_up([
+        sys.executable, "-m", "pluss_sampler_optimization_torch.cli",
+        "serve-router", "--workers", "2", "--listen", "127.0.0.1:0",
+        "--device", FABRIC_DEVICE, "--cache-dir", os.path.join(root, "store"),
+        "--ledger", os.path.join(root, "l.jsonl")],
+        os.path.join(root, "router.err"))
+    try:
+        out = os.path.join(root, "loadgen.json")
+        lg = subprocess.run([
+            sys.executable, "-m", "pluss_sampler_optimization_torch.tools."
+            "loadgen", "--connect", f"{addr[0]}:{addr[1]}", "--requests",
+            str(FABRIC_LOADGEN_REQUESTS), "--rate", "50", "--json", out],
+            capture_output=True, text=True, timeout=FABRIC_TIMEOUT_S)
+        if lg.returncode != 0:
+            raise AssertionError(f"fabric: loadgen --connect exited "
+                                 f"{lg.returncode}: {lg.stderr[-800:]}")
+        with open(out) as f:
+            rep = json.load(f)
+        if (rep["ok"], rep["failed"], rep["missing"]) != (
+                FABRIC_LOADGEN_REQUESTS, 0, 0):
+            raise AssertionError(f"fabric: loadgen --connect: {rep}")
+        print(f"fabric: loadgen --connect {addr[0]}:{addr[1]}: "
+              f"{rep['ok']}/{rep['submitted']} ok, latency p50 "
+              f"{rep['latency_p50_s']} s p95 {rep['latency_p95_s']} s, "
+              f"the fabric's overhead p50 {rep['overhead_p50_s']} s, "
+              f"goodput {rep['goodput_rps']} req/s")
+        ctl = _control(addr, "stats", "metrics")
+        per = []
+        for wid, st in sorted(ctl["stats"]["worker_stats"].items()):
+            ex = st["executor"]
+            cnt = (ctl["metrics"]["workers"].get(wid) or {}).get(
+                "counters", {})
+            per.append(f"worker {wid}: {cnt.get('dispatches', 0)} "
+                       f"dispatches, {ex['completed']} completed, "
+                       f"{ex['coalesced']} coalesced, "
+                       f"{ex['batches_formed']} batches")
+        print(f"fabric: workers' dispatch counters (fleet stats and "
+              f"metrics): {'; '.join(per)}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=FABRIC_TIMEOUT_S)
+        if rc != 0:
+            raise AssertionError(f"fabric: loadgen router exited {rc}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for _ in range(20):
+        left = check_fabric.orphan_pids(root)
+        if not left:
+            break
+        time.sleep(0.25)
+    if left:
+        raise AssertionError(f"fabric: workers {left} outlived the router")
+    print(f"fabric: the TCP front with loadgen: "
+          f"{time.perf_counter() - t0:.1f} s, drained on SIGTERM, no "
+          "worker left")
+
+
+def phase_fabric(n: int, tri_n: int) -> None:
+    """Phase 21, the serving fabric on the card.
+
+    The check_fabric twin with workers on cuda:0 over _fabric_lines:
+    1 and 2 workers cold (identity), 2 warm (zero misses), the
+    ring's assignment across restarts, 3 workers with the busiest one
+    SIGKILLed mid-load (every request once, re-dispatched ones
+    bit-equal), the fleet's stats, metrics, trace join and dump_debug,
+    and no orphan after any of them; every answer's digest equal to the
+    direct run_sampled's and to phase 20's single-process service (with
+    --fabric-only, the CLI's serve over the same lines here); each
+    worker's seconds from spawn to its ready line, a fresh worker's
+    first-request latency, and no heartbeat timeout or re-dispatch
+    outside the kill phase. Then the TCP front once with the loadgen
+    twin's --connect and the workers' dispatch counters."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pluss_sampler_optimization_torch.tools import check_fabric
+
+    t_phase = time.perf_counter()
+    _buffer_form_built()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"fabric: the card's free memory after empty_cache: "
+          f"{free / 2**30:.1f} of {total / 2**30:.1f} GiB")
+    lines, progs = _fabric_lines(n, tri_n)
+    solo = {"fab-gemm": ("gemm", n), "fab-syrk-tri": ("syrk-tri", tri_n)}
+    # phase 20 held these two against their direct runs already
+    direct = {rid: SERVE_SOLO[k] for rid, k in solo.items()
+              if k in SERVE_SOLO}
+    for rid, prog in progs.items():
+        if rid not in direct and rid not in ("fab-dup", "fab-twin"):
+            direct[rid] = _direct(prog)
+    for rid in ("fab-dup", "fab-twin"):
+        direct[rid] = direct["fab-gemm"]
+    want = {rid: d for rid, (d, _wall) in direct.items()}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fabric_")
+    try:
+        if all(k in SERVE_SOLO for k in solo.values()):
+            single = {rid: SERVE_SOLO[k][0] for rid, k in solo.items()}
+            src = "phase 20's single-process"
+        else:
+            docs = _serve_cli(tmp, "fabric-solo", lines,
+                              os.path.join(tmp, "store"),
+                              os.path.join(tmp, "l.jsonl"),
+                              "--max-workers", "1")
+            single = {d["id"]: d["mrc_digest"] for d in docs}
+            src = "the single-process serve"
+        for rid, d in single.items():
+            if d != want[rid]:
+                raise AssertionError(f"fabric: {rid}: {src} digest {d}, "
+                                     f"the direct run's {want[rid]}")
+        print(f"fabric: the direct runs' digests {want}, equal to {src} "
+              "service")
+        reqs = os.path.join(tmp, "requests.jsonl")
+        with open(reqs, "w") as f:
+            f.writelines(json.dumps(d) + "\n" for d in lines)
+        out = os.path.join(tmp, "report.json")
+        t0 = time.perf_counter()
+        rc = check_fabric.main(["--device", FABRIC_DEVICE, "--requests", reqs,
+                                "--json", out])
+        with open(out) as f:
+            report = json.load(f)
+        if rc != 0:
+            raise AssertionError(f"fabric: check_fabric: "
+                                 f"{report['problems']}")
+        print(f"fabric: check_fabric (identity, warm, restarts, kill, "
+              f"fleet, orphans) on {FABRIC_DEVICE}: 0 problems in "
+              f"{time.perf_counter() - t0:.1f} s")
+        phases = report["phases"]
+        for tag in ("w1", "w2", "w2warm", "kill", "fleet"):
+            ph = phases[tag]
+            got = {i: d["mrc_digest"] for i, d in ph["docs"].items()}
+            if got != want or not all(d["ok"] for d in ph["docs"].values()):
+                raise AssertionError(f"fabric: {tag}: digests {got}, want "
+                                     f"{want}")
+            if tag != "kill" and ph["redispatched"]:
+                raise AssertionError(f"fabric: {tag}: re-dispatched "
+                                     f"{ph['redispatched']} with no worker "
+                                     "killed")
+            ready = ", ".join(
+                f"worker {w} {s:.2f} s (context and libraries "
+                f"{ph['warm_s'].get(w, float('nan')):.2f} s)"
+                for w, s in sorted(ph["ready_s"].items()))
+            print(f"fabric: {tag}: {ph['seconds']:.1f} s, digests equal "
+                  f"to the direct runs; spawn to ready: {ready}"
+                  + (f"; router: {ph['router']}" if ph["router"] else ""))
+        if any(phases["w2warm"]["docs"][i]["cache"] == "miss" for i in want):
+            raise AssertionError("fabric: w2warm: a miss on a warm store")
+        kill = phases["kill"]
+        if not kill["redispatched"]:
+            raise AssertionError("fabric: kill: nothing re-dispatched")
+        fleet = phases["fleet"]["router"]
+        if fleet["redispatched"] or any(fleet["reconnects"].values()):
+            raise AssertionError(f"fabric: fleet: a heartbeat timeout or "
+                                 f"re-dispatch with no worker killed: "
+                                 f"{fleet}")
+        print(f"fabric: kill: {kill['redispatched']} re-dispatched, each "
+              "answered once, bit-equal; outside the kill phase no "
+              "re-dispatch (w1, w2, w2warm, fleet) and no link reconnect, "
+              "i.e. no heartbeat timeout (fleet)")
+        first = phases["w1"]["docs"]["fab-gemm"]
+        print(f"fabric: a fresh worker's first request (fab-gemm, w1): "
+              f"latency {first['latency_s']:.3f} s, executed in "
+              f"{first['execute_s']:.3f} s, beside the warmed direct "
+              f"run_sampled's {direct['fab-gemm'][1]:.3f} s")
+        _fabric_loadgen(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"fabric: phase 21 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=2048,
@@ -3617,6 +3930,10 @@ def main(argv=None) -> int:
                     "20 (serve with its store, a batch window on the "
                     "per-row forms of B1 and B3, replicas, the chaos and "
                     "precision twins); no result line")
+    ap.add_argument("--fabric-only", action="store_true",
+                    help="build, then only the serving fabric's phase 21 "
+                    "(the check_fabric twin with workers on the card, "
+                    "loadgen --connect); no result line")
     ap.add_argument("--scaling-only", action="store_true",
                     help="build, then only the sharded engine's fused "
                     "form over 1, 2, ... every visible card at GEMM n and "
@@ -3675,6 +3992,10 @@ def main(argv=None) -> int:
     if args.serve_only:
         _buffer_form_built()
         phase_serve(args.n, args.tri_n)
+        print(card)
+        return 0
+    if args.fabric_only:
+        phase_fabric(args.n, args.tri_n)
         print(card)
         return 0
     phase_cold_warm(args.n, cfg)
@@ -3760,6 +4081,7 @@ def main(argv=None) -> int:
     serve_b1, serve_b3, rows_b1, rows_b3 = phase_serve(args.n, args.tri_n)
     b1_launches += serve_b1
     b3["launches"] += serve_b3
+    phase_fabric(args.n, args.tri_n)
     b1_launches += sum(r[0] for r in runs)
     b2["launches"] = sum(r[1] for r in runs) + obs_b2
     b3["launches"] += sum(r[2] for r in runs)

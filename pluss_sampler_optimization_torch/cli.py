@@ -1,4 +1,4 @@
-"""Command line of the port: the `acc`, `speed`, `sample`, `trace`, `analyze` and `stats` modes.
+"""Command line of the port: the `acc`, `speed`, `sample`, `trace`, `analyze`, `stats`, `serve`, `serve-worker` and `serve-router` modes.
 
     python -m pluss_sampler_optimization_torch acc --model gemm --n 128
     python -m pluss_sampler_optimization_torch acc --engine exact --shard
@@ -17,6 +17,8 @@
     python -m pluss_sampler_optimization_torch sample --telemetry-out t.json \
         --trace-out c.json --metrics-out m.prom --ledger l.jsonl
     python -m pluss_sampler_optimization_torch stats --ledger l.jsonl
+    python -m pluss_sampler_optimization_torch serve-router --workers 2 \
+        --cache-dir st --requests r.jsonl
 
 The modes of the JAX package's CLI, with its lines in its order:
 
@@ -57,7 +59,15 @@ The modes of the JAX package's CLI, with its lines in its order:
   runs. Exit 0 when the program can be simulated;
 - `stats`: the run ledger at `--ledger` aggregated per engine (latency
   percentiles, cache hit rates, degradations, drift status), the JAX
-  CLI's lines; no engine runs.
+  CLI's lines; no engine runs;
+- `serve`: a JSONL request batch through the analysis service;
+  `serve-worker` the same service behind the serving fabric's wire
+  listener (`--listen`), `serve-router` the fabric's router over
+  `--worker HOST:PORT` workers or `--workers N` supervised
+  `serve-worker` processes (service/fabric/). A worker's
+  `--worker-devices D` is D devices of its `--device`: the first D
+  cards under `--device cuda`, else D replicas' worth of the one named
+  device.
 
 Observability (runtime/telemetry.py, runtime/obs/), in acc, speed,
 sample and trace: `--telemetry-out PATH` records the run's spans,
@@ -92,6 +102,7 @@ import types
 
 from .config import KERNEL_BACKENDS, MachineConfig, SamplerConfig
 
+_SERVE_FAMILY = ("serve", "serve-worker", "serve-router")
 ENGINES = ("oracle", "numpy", "native", "native-par", "dense", "stream",
            "periodic", "analytic", "exact", "sampled", "sharded")
 _SHARDED_EXACT = ("periodic", "analytic", "exact")
@@ -103,7 +114,8 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="pluss_sampler_optimization_torch")
     ap.add_argument("mode", nargs="?",
                     choices=["acc", "speed", "sample", "trace", "serve",
-                             "analyze", "stats"])
+                             "serve-worker", "serve-router", "analyze",
+                             "stats"])
     ap.add_argument("--list-models", action="store_true",
                     help="print the model registry (nest/ref geometry "
                     "+ exact-router analytic audit status, from "
@@ -545,6 +557,99 @@ def _parser() -> argparse.ArgumentParser:
         "the router pulls each worker's stats/metrics/slo_inputs "
         "snapshot over the wire (default 5)",
     )
+    ap.add_argument(
+        "--listen",
+        default=None,
+        metavar="HOST:PORT",
+        help="serve-worker: bind the fabric wire listener here "
+        "(default 127.0.0.1:0 = ephemeral; the bound address prints "
+        "as a 'fabric-worker ready' line on stdout). serve-router: "
+        "additionally accept plain JSONL TCP clients here (loadgen "
+        "--connect drives it); without it the router serves the "
+        "--requests batch only.",
+    )
+    ap.add_argument(
+        "--worker",
+        action="append",
+        default=None,
+        metavar="HOST:PORT",
+        help="serve-router: a fabric worker's wire address "
+        "(repeatable — one per externally-launched serve-worker "
+        "process). Mutually exclusive with --workers.",
+    )
+    ap.add_argument(
+        "--workers",
+        type=int,
+        default=None,
+        metavar="N",
+        help="serve-router: supervise N serve-worker subprocesses "
+        "(ephemeral ports, worker ids 0..N-1), forwarding the "
+        "service flags and --device (--cache-dir is the SHARED disk "
+        "tier, --ledger the shared run ledger) and reaping every "
+        "child on exit — zero orphans. Mutually exclusive with "
+        "--worker.",
+    )
+    ap.add_argument(
+        "--worker-id",
+        type=int,
+        default=0,
+        metavar="K",
+        help="serve-worker: this worker's id — its position in the "
+        "router's consistent-hash ring and the worker_id stamped on "
+        "its ledger rows (default 0; the --workers supervisor "
+        "assigns 0..N-1)",
+    )
+    ap.add_argument(
+        "--worker-devices",
+        type=int,
+        default=None,
+        metavar="D",
+        help="serve-worker: serve on D devices of --device: the "
+        "first D cards under --device cuda (refused past the visible "
+        "count), else D replicas' worth of the one named device "
+        "(cpu, cuda:K). With --workers the supervisor forwards it to "
+        "every child.",
+    )
+    ap.add_argument(
+        "--hb-interval-s",
+        type=float,
+        default=None,
+        metavar="SECONDS",
+        help="fabric heartbeat period: the router pings every link "
+        "this often (default 2)",
+    )
+    ap.add_argument(
+        "--hb-timeout-s",
+        type=float,
+        default=None,
+        metavar="SECONDS",
+        help="fabric liveness bound: a link silent this long is "
+        "declared failed and reconnected (default 10)",
+    )
+    ap.add_argument(
+        "--reconnect-attempts",
+        type=int,
+        default=None,
+        metavar="N",
+        help="fabric: consecutive failed reconnects before a worker "
+        "is declared DEAD and its in-flight requests re-dispatch to "
+        "each fingerprint's ring successor (default 3)",
+    )
+    ap.add_argument(
+        "--reconnect-delay-s",
+        type=float,
+        default=None,
+        metavar="SECONDS",
+        help="fabric: pause between reconnect attempts (default 0.2)",
+    )
+    ap.add_argument(
+        "--no-fabric-trace",
+        action="store_true",
+        help="serve-router: disable distributed tracing (no trace "
+        "blocks on wire frames, no router ledger rows). MRC bytes "
+        "are bit-identical either way — tracing is pure serving "
+        "metadata",
+    )
     return ap
 
 
@@ -828,15 +933,82 @@ def _check_args(args, engine: str) -> None:
 
 
 def _check_serve_args(args) -> None:
-    """The JAX CLI's checks of the serving flags (the fabric's
-    --stats-interval-s included: the fabric modes wait for their own
-    slice, so it is refused in every mode)."""
-    if args.stats_interval_s is not None:
+    """The JAX CLI's checks of the serving and fabric flags; past them,
+    a worker's --worker-devices D under --device cuda must not exceed
+    the visible cards."""
+    _fabric_flags = [
+        flag for flag, on in (
+            ("--listen", args.listen is not None),
+            ("--worker", args.worker is not None),
+            ("--workers", args.workers is not None),
+            ("--worker-id", args.worker_id != 0),
+            ("--worker-devices", args.worker_devices is not None),
+            ("--hb-interval-s", args.hb_interval_s is not None),
+            ("--hb-timeout-s", args.hb_timeout_s is not None),
+            ("--reconnect-attempts",
+             args.reconnect_attempts is not None),
+            ("--reconnect-delay-s",
+             args.reconnect_delay_s is not None),
+            ("--stats-interval-s",
+             args.stats_interval_s is not None),
+            ("--no-fabric-trace", args.no_fabric_trace),
+        ) if on
+    ]
+    if _fabric_flags and args.mode not in ("serve-worker",
+                                           "serve-router"):
         raise SystemExit(
-            "--stats-interval-s configure(s) the serving "
+            f"{', '.join(_fabric_flags)} configure(s) the serving "
             "fabric; they apply to serve-worker/serve-router only"
         )
-    if args.mode != "serve":
+    if args.mode == "serve-router":
+        if (args.worker is None) == (args.workers is None):
+            raise SystemExit(
+                "serve-router needs exactly one of --worker "
+                "HOST:PORT (repeatable, external workers) or "
+                "--workers N (supervised subprocesses)"
+            )
+        if args.workers is not None and args.workers < 1:
+            raise SystemExit("--workers must be >= 1")
+        # --slo-latency-p95-s/--slo-error-budget are fleet-level on
+        # the router: the sentinel evaluates over the workers' merged
+        # slo_inputs (runtime/obs/fleet.FleetView), not local engine
+        # counters
+        _worker_side = [
+            flag for flag, on in (
+                ("--profile-hz", args.profile_hz is not None),
+                ("--regress-bench", args.regress_bench is not None),
+                ("--ledger-gc-interval-s",
+                 args.ledger_gc_interval_s is not None),
+            ) if on
+        ]
+        if _worker_side:
+            raise SystemExit(
+                f"{', '.join(_worker_side)} observe engine "
+                "execution; run them on the serve-worker processes "
+                "(the router executes no engine work)"
+            )
+    if args.mode == "serve-worker":
+        if args.worker is not None or args.workers is not None:
+            raise SystemExit(
+                "--worker/--workers describe the router's worker "
+                "set; serve-worker takes --listen/--worker-id"
+            )
+        if args.worker_id < 0:
+            raise SystemExit("--worker-id must be >= 0")
+        if args.worker_devices is not None and args.worker_devices < 1:
+            raise SystemExit("--worker-devices must be >= 1")
+    if args.worker_devices is not None and args.device == "cuda":
+        import torch
+
+        have = torch.cuda.device_count()
+        if args.worker_devices > have:
+            raise SystemExit(
+                f"--worker-devices {args.worker_devices} takes the "
+                f"first {args.worker_devices} cards of --device cuda; "
+                f"{have} visible (name one device, --device cpu or "
+                "cuda:K, to serve replicas of it)"
+            )
+    if args.mode not in _SERVE_FAMILY:
         if args.warmup_from_ledger is not None:
             raise SystemExit(
                 "--warmup-from-ledger pre-compiles serving kernels at "
@@ -1172,7 +1344,13 @@ def _cli_ledger_row(args, program, engine, engine_used, latency_s,
 def _service_device(args):
     """The analysis service's device from --device: the default "cuda"
     under --replicas is every visible card (None), any other one device
-    (a replica pool serves --replicas replicas on it)."""
+    (a replica pool serves --replicas replicas on it). A serve-worker's
+    --worker-devices D is a list of D devices: the first D cards under
+    "cuda", else the named device D times."""
+    if args.mode == "serve-worker" and args.worker_devices:
+        if args.device == "cuda":
+            return [f"cuda:{i}" for i in range(args.worker_devices)]
+        return [args.device] * args.worker_devices
     if args.device == "cuda" and args.replicas is not None:
         return None
     return args.device
@@ -1228,6 +1406,425 @@ def _resilience_from_args(args):
     return ResilienceConfig(**kw)
 
 
+def _fabric_from_args(args):
+    """FabricConfig from the CLI timing flags (defaults where unset)."""
+    from .config import FabricConfig
+
+    kw = {}
+    for attr in ("hb_interval_s", "hb_timeout_s",
+                 "reconnect_attempts", "reconnect_delay_s",
+                 "stats_interval_s"):
+        v = getattr(args, attr)
+        if v is not None:
+            kw[attr] = v
+    if args.no_fabric_trace:
+        kw["trace_enabled"] = False
+    return FabricConfig(**kw)
+
+
+# The kernel libraries a worker loads before it reports ready: B1's
+# parameter form, its buffer and per-row forms, B3, and B2 (the sharded
+# engine's).
+_WORKER_LIBRARIES = ("sampled_hist", "sampled_hist_buf", "threefry_draw",
+                     "pow2_hist")
+
+
+def _worker_warm(device) -> float | None:
+    """Make a serve-worker able to serve before its ready line: on CUDA,
+    each device's context and the kernel libraries, so neither the first
+    request pays for them nor a library load holds the GIL while the
+    router's heartbeats wait. A library not yet built is built here,
+    under ops/_build.py's lock across processes. Returns the seconds it
+    took; None (nothing done) on the CPU."""
+    import time
+
+    import torch
+
+    t0 = time.perf_counter()
+    devices = device if isinstance(device, (list, tuple)) else [device]
+    cuda = [torch.device("cuda" if d is None else d) for d in devices]
+    cuda = [d for d in cuda if d.type == "cuda"]
+    if not cuda:
+        return None
+    from .ops import _build
+
+    for d in dict.fromkeys(cuda):
+        torch.empty(1, device=d)
+    for name in _WORKER_LIBRARIES:
+        _build.load(name)
+    return time.perf_counter() - t0
+
+
+def _run_worker_front(args, svc) -> int:
+    """The serve-worker serving front: a fabric WorkerServer over the
+    already-wired AnalysisService. Blocks until the router drains this
+    worker (`shutdown` frame -> bye) or SIGTERM/SIGINT lands; either
+    way the service enters graceful drain so _serve's shutdown
+    reporting (and final flight-recorder bundle) fires."""
+    from .service import GracefulShutdown
+    from .service.fabric import WorkerServer, parse_hostport
+
+    warm_s = _worker_warm(_service_device(args))
+    if warm_s is not None:
+        print(f"serve-worker: worker {args.worker_id}: CUDA context and "
+              f"kernel libraries loaded in {warm_s:.3f}s", file=sys.stderr)
+    host, port = ("127.0.0.1", 0)
+    if args.listen:
+        host, port = parse_hostport(args.listen)
+    ws = WorkerServer(
+        svc, worker_id=args.worker_id, host=host, port=port,
+        fabric=_fabric_from_args(args),
+    )
+    host, port = ws.start()
+    # the supervisor (serve-router --workers N) parses this exact
+    # stdout line to learn the ephemeral port — keep it first + flushed
+    print(f"fabric-worker ready {args.worker_id} {host}:{port}",
+          flush=True)
+    print(
+        f"serve-worker: worker {args.worker_id} speaking the fabric "
+        f"wire protocol on {host}:{port}",
+        file=sys.stderr,
+    )
+    try:
+        while not ws.join_drained(timeout=0.5):
+            pass
+        svc.begin_shutdown()
+    except GracefulShutdown:
+        svc.begin_shutdown()
+        ws.drain_local()
+    finally:
+        ws.close()
+    return 0
+
+
+def _spawn_workers(args, children) -> list:
+    """serve-router --workers N: launch N serve-worker subprocesses
+    on ephemeral ports (worker ids 0..N-1), forwarding the service
+    flags and --device (in the place of the JAX CLI's --platform and
+    --compilation-cache-dir) — ONE shared --cache-dir disk tier and
+    ONE shared O_APPEND --ledger across the fleet — and return their
+    wire addresses. Children are appended to `children` as they spawn
+    so the caller's cleanup reaps every process even when a later one
+    fails to come up (the zero-orphans guarantee the check_fabric tool
+    pins)."""
+    import subprocess
+    import threading
+    import time
+
+    from .service.fabric import parse_hostport
+
+    forwarded = []
+    for flag, value in (
+        ("--cache-dir", args.cache_dir),
+        ("--ledger", args.ledger),
+        ("--max-workers", args.max_workers),
+        ("--batch-window-ms", args.batch_window_ms),
+        ("--batch-max-refs", args.batch_max_refs),
+        ("--replicas", args.replicas),
+        ("--worker-devices", args.worker_devices),
+        ("--device", args.device),
+        ("--warmup-from-ledger", args.warmup_from_ledger),
+        ("--fault-spec", args.fault_spec),
+        ("--attempt-timeout-s", args.attempt_timeout_s),
+        ("--max-retries", args.max_retries),
+        ("--hedge-after-s", args.hedge_after_s),
+        ("--queue-limit", args.queue_limit),
+        ("--breaker-failures", args.breaker_failures),
+        ("--breaker-probation-s", args.breaker_probation_s),
+        ("--hb-interval-s", args.hb_interval_s),
+        ("--hb-timeout-s", args.hb_timeout_s),
+        ("--reconnect-attempts", args.reconnect_attempts),
+        ("--reconnect-delay-s", args.reconnect_delay_s),
+    ):
+        if value is not None and flag != "--batch-max-refs":
+            forwarded += [flag, str(value)]
+        elif flag == "--batch-max-refs" and args.batch_window_ms:
+            forwarded += [flag, str(value)]
+    if args.no_shed:
+        forwarded.append("--no-shed")
+    addrs = []
+    spawned = []
+    for i in range(args.workers):
+        spawned.append(time.perf_counter())
+        cmd = [
+            sys.executable, "-m", "pluss_sampler_optimization_torch.cli",
+            "serve-worker", "--listen", "127.0.0.1:0",
+            "--worker-id", str(i),
+        ] + forwarded
+        if args.debug_bundle_dir is not None:
+            import os
+
+            cmd += ["--debug-bundle-dir",
+                    os.path.join(args.debug_bundle_dir, f"worker{i}")]
+        children.append(subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, text=True, bufsize=1,
+        ))
+    # each child's ready line is read as it comes, one thread a child,
+    # so a worker's seconds from spawn to ready are its own
+    ready: list = [("", 0.0)] * len(children)
+
+    def _read_ready(i, proc):
+        ready[i] = (proc.stdout.readline().strip(), time.perf_counter())
+
+    readers = [threading.Thread(target=_read_ready, args=(i, proc),
+                                daemon=True)
+               for i, proc in enumerate(children)]
+    for th in readers:
+        th.start()
+    for i, proc in enumerate(children):
+        readers[i].join()
+        line, t_ready = ready[i]
+        parts = line.split()
+        if (len(parts) != 4 or parts[:2] != ["fabric-worker", "ready"]
+                or parts[2] != str(i)):
+            raise SystemExit(
+                f"serve-router: worker {i} failed to start "
+                f"(got {line!r} instead of its ready line)"
+            )
+        addrs.append(parse_hostport(parts[3]))
+        print(f"serve-router: worker {i} up at {parts[3]} "
+              f"(pid {proc.pid})", file=sys.stderr)
+        print(f"serve-router: worker {i} ready "
+              f"{t_ready - spawned[i]:.3f}s after spawn", file=sys.stderr)
+    return addrs
+
+
+def _serve_router(args) -> int:
+    """`serve-router` mode: the fabric's dispatch plane — consistent-
+    hash request fingerprints over N engine workers (supervised
+    subprocesses via --workers, or externally-launched via --worker),
+    serving the JSONL protocol from --requests/stdin and, with
+    --listen, from TCP clients. SIGTERM/SIGINT drain the WHOLE
+    fabric: the router stops accepting, in-flight entries resolve,
+    every worker gets a `shutdown` frame and drains (each dumping its
+    own final flight-recorder bundle when armed), and supervised
+    children are reaped — zero orphans."""
+    import signal
+
+    from .runtime import faults
+    from .runtime.obs import metrics as obs_metrics
+    from .runtime.obs import profiler as obs_profiler
+    from .runtime.obs import recorder as obs_recorder
+    from .runtime.obs import slo as obs_slo
+    from .service import GracefulShutdown
+    from .service.fabric import Router, parse_hostport
+
+    fabric = _fabric_from_args(args)
+    fin = sys.stdin if args.requests == "-" else open(args.requests)
+    fout = (
+        sys.stdout if args.responses == "-"
+        else open(args.responses, "w")
+    )
+    registry = obs_metrics.enable()
+    injector = None
+    recorder = None
+    router = None
+    server = None
+    children: list = []
+    prev_sigs = {}
+    failures = 0
+    graceful = False
+    if args.fault_spec:
+        # the router arms its own injector for the worker_conn site;
+        # supervised workers get --fault-spec forwarded and draw from
+        # their own (identically-seeded) streams
+        injector = faults.install_from_file(args.fault_spec)
+        print(
+            f"serve-router: fault injection armed from "
+            f"{args.fault_spec} (seed {injector.config.seed}, "
+            f"{len(injector.config.rules)} rule(s))",
+            file=sys.stderr,
+        )
+    if args.debug_bundle_dir is not None:
+        recorder = obs_recorder.enable(
+            args.debug_bundle_dir,
+            ledger_path=args.ledger,
+            config={
+                k: getattr(args, k)
+                for k in (
+                    "cache_dir", "ledger", "workers", "worker",
+                    "listen", "hb_interval_s", "hb_timeout_s",
+                    "reconnect_attempts", "reconnect_delay_s",
+                    "stats_interval_s", "no_fabric_trace",
+                    "fault_spec", "debug_bundle_dir",
+                )
+            },
+        )
+        print(
+            "serve-router: flight recorder on, post-mortem bundles "
+            f"under {args.debug_bundle_dir}",
+            file=sys.stderr,
+        )
+    try:
+        def _graceful_sig(signum, frame):
+            raise GracefulShutdown(f"signal {signum}")
+
+        for _name in ("SIGTERM", "SIGINT"):
+            _num = getattr(signal, _name, None)
+            if _num is None:
+                continue
+            try:
+                prev_sigs[_num] = signal.signal(_num, _graceful_sig)
+            except ValueError:
+                pass
+        if args.workers is not None:
+            addrs = _spawn_workers(args, children)
+        else:
+            addrs = [parse_hostport(spec) for spec in args.worker]
+        # the router shares the workers' O_APPEND ledger: its rows
+        # (source fabric.router, per-request span splits) join the
+        # worker rows on trace_id — tools/assemble_trace.py
+        router = Router(addrs, fabric=fabric,
+                        ledger_path=args.ledger)
+        if (args.slo_latency_p95_s is not None
+                or args.slo_error_budget is not None):
+            from .config import SLOConfig
+            from .runtime.obs import fleet as obs_fleet
+
+            kw = {"burn_rate_threshold": args.slo_burn_threshold}
+            if args.slo_latency_p95_s is not None:
+                kw["latency_p95_s"] = args.slo_latency_p95_s
+            if args.slo_error_budget is not None:
+                kw["error_budget"] = args.slo_error_budget
+            slo_config = SLOConfig(**kw)
+            # workers pre-digest their windows against this threshold
+            # (fabric/worker.py _slo_inputs); the sentinel then reads
+            # the fleet as one registry through FleetView. No ledger
+            # leg here — the shared ledger holds router rows too, and
+            # the workers' own sentinels already watch their tails
+            router.slo_params = {
+                "threshold": args.slo_latency_p95_s,
+                "windows": list(slo_config.windows),
+            }
+            sentinel = obs_slo.SLOSentinel(
+                slo_config, registry=obs_fleet.FleetView(router),
+                interval_s=args.slo_interval_s,
+            )
+            router.slo_sentinel = sentinel
+        router.start()
+        if router.slo_sentinel is not None:
+            router.slo_sentinel.start()
+            print(
+                "serve-router: fleet SLO sentinel on (burn rates "
+                "over the merged worker windows, every "
+                f"{args.slo_interval_s:g}s)",
+                file=sys.stderr,
+            )
+        if recorder is not None:
+            recorder.state_provider = lambda: {
+                "healthz": router.healthz(),
+                "stats": router.stats(),
+            }
+        if args.metrics_port is not None:
+            server = obs_metrics.MetricsServer(
+                registry, port=args.metrics_port,
+                healthz=router.healthz,
+                # cached snapshots (refreshed every stats_interval_s
+                # by the poll loop) — a scrape never blocks on N
+                # worker round-trips
+                stats=(lambda: router.fleet_stats(refresh=False)),
+                prometheus=router.fleet_prometheus_text,
+                bundles=(
+                    (lambda: {
+                        "bundle_dir": recorder.bundle_dir,
+                        "recorder": recorder.stats(),
+                        "bundles": recorder.bundle_index(),
+                    }) if recorder is not None else None
+                ),
+                profile=obs_profiler.snapshot,
+            )
+            print(
+                f"serve-router: live metrics on "
+                f"http://{server.host}:{server.port}/metrics",
+                file=sys.stderr,
+            )
+        if args.listen is not None:
+            th, tp = parse_hostport(args.listen)
+            bh, bp = router.serve_tcp(th, tp)
+            print(f"serve-router: JSONL TCP front on {bh}:{bp}",
+                  file=sys.stderr)
+        if args.requests != "-" or args.listen is None:
+            failures = router.serve_stream(fin, fout)
+        if args.listen is not None:
+            # TCP daemon: serve until a shutdown signal lands
+            import threading as _threading
+
+            _forever = _threading.Event()
+            while not _forever.wait(0.5):
+                pass
+    except GracefulShutdown:
+        graceful = True
+        print(
+            "serve-router: graceful shutdown — stopped accepting, "
+            "draining the fabric",
+            file=sys.stderr,
+        )
+    finally:
+        if router is not None and router.slo_sentinel is not None:
+            try:
+                # final fleet evaluation so short batches (finished
+                # inside one interval) still report, matching _serve
+                router.slo_sentinel.evaluate_once()
+                for line in obs_slo.format_report(
+                    router.slo_sentinel.last_report
+                ):
+                    print(f"serve-router: {line}", file=sys.stderr)
+            except Exception:
+                pass
+            router.slo_sentinel.close()
+        if router is not None:
+            router.close(graceful=True)
+        for proc in children:
+            try:
+                proc.wait(timeout=fabric.drain_timeout_s)
+            except Exception:
+                proc.kill()
+                proc.wait()
+            if proc.stdout is not None:
+                proc.stdout.close()
+        if graceful and recorder is not None:
+            recorder.dump(
+                "shutdown", trigger={"reason": "graceful_shutdown"}
+            )
+        if injector is not None:
+            if injector.total_fired():
+                print(
+                    f"serve-router: faults fired "
+                    f"{injector.total_fired()} time(s): "
+                    f"{injector.stats()}",
+                    file=sys.stderr,
+                )
+            faults.uninstall()
+        if prev_sigs:
+            for _num, _prev in prev_sigs.items():
+                try:
+                    signal.signal(_num, _prev)
+                except ValueError:
+                    pass
+        if server is not None:
+            server.close()
+        if recorder is not None:
+            obs_recorder.disable()
+        obs_metrics.disable()
+        if fin is not sys.stdin:
+            fin.close()
+        if fout is not sys.stdout:
+            fout.close()
+    if graceful and children:
+        print(
+            f"serve-router: graceful shutdown complete — "
+            f"{len(children)} worker(s) drained and reaped",
+            file=sys.stderr,
+        )
+    if failures:
+        print(
+            f"serve-router: {failures} request(s) failed (per-line "
+            "status is in the responses)",
+            file=sys.stderr,
+        )
+    return 0
+
+
 def _serve(args) -> int:
     """`serve` mode: process a JSONL request batch end to end, on
     `--device` (_service_device), under
@@ -1239,7 +1836,15 @@ def _serve(args) -> int:
     SIGTERM/SIGINT trigger a graceful drain: in-flight work finishes,
     queued work is shed with structured responses, and the ledger
     (plus a final flight-recorder bundle) is flushed before exit. The
-    JAX CLI's serve, line for line."""
+    JAX CLI's serve, line for line.
+
+    `serve-worker` mode runs HERE too — the identical stack and
+    wiring, with the serving front swapped: instead of a JSONL batch
+    from --requests, the service answers framed request lines from a
+    fabric router (service/fabric/worker.py) until the router drains
+    it or a signal lands. Same per-line semantics, same responses,
+    same observability — which is what makes fabric results
+    bit-identical to single-process serve."""
     from .runtime import faults
     from .runtime.obs import ledger as obs_ledger
     from .runtime.obs import metrics as obs_metrics
@@ -1247,6 +1852,7 @@ def _serve(args) -> int:
     from .runtime.obs import recorder as obs_recorder
     from .service import AnalysisService, GracefulShutdown, serve_jsonl
 
+    worker_mode = args.mode == "serve-worker"
     fin = sys.stdin if args.requests == "-" else open(args.requests)
     fout = (
         sys.stdout if args.responses == "-"
@@ -1348,6 +1954,7 @@ def _serve(args) -> int:
             replicas=args.replicas,
             resilience=_resilience_from_args(args),
             device=_service_device(args),
+            worker_id=(args.worker_id if worker_mode else None),
         ) as svc:
             if recorder is not None:
                 # live serving state for bundles: replica/mesh view +
@@ -1413,7 +2020,10 @@ def _serve(args) -> int:
                     regress_bench=bench_paths,
                 ).start()
                 svc.slo_sentinel = sentinel
-            failures = serve_jsonl(svc, fin, fout)
+            if worker_mode:
+                failures = _run_worker_front(args, svc)
+            else:
+                failures = serve_jsonl(svc, fin, fout)
             if svc.executor.draining:
                 st = svc.executor.stats()
                 print(
@@ -1652,7 +2262,8 @@ def main(argv=None) -> int:
     if args.mode is None:
         ap.error("mode is required (acc|speed|sample|trace|serve|"
                  "analyze|stats)")
-    if args.program_json and args.mode in ("trace", "stats", "serve"):
+    if args.program_json and args.mode in ("trace", "stats",
+                                           *_SERVE_FAMILY):
         raise SystemExit(
             "--program-json loads an inline frontend document for "
             "acc|speed|sample|analyze; serve modes take a 'program' "
@@ -1668,8 +2279,10 @@ def main(argv=None) -> int:
     if args.mode == "analyze":
         return _analyze(args, program, machine)
     _check_serve_args(args)
-    if args.mode == "serve":
+    if args.mode in ("serve", "serve-worker"):
         return _observed(args, lambda: _serve(args))
+    if args.mode == "serve-router":
+        return _observed(args, lambda: _serve_router(args))
     engine = args.engine or ("sampled" if args.mode == "sample" else "dense")
     _check_args(args, engine)
     return _observed(args, lambda: _execute(args, machine, program, engine))
@@ -1732,3 +2345,7 @@ def _execute(args, machine, program, engine: str) -> int:
             return 1
         print(f"acc dumps identical: {engine} vs {args.diff_against}")
     return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -358,6 +358,76 @@ class ResilienceConfig:
             raise ValueError("queue_limit must be >= 1")
 
 
+@dataclasses.dataclass(frozen=True)
+class FabricConfig:
+    """Connection-health policy of the multi-process serving fabric
+    (service/fabric/): the router<->worker heartbeat cadence, the
+    bounded reconnect schedule, and the drain budget.
+
+    Everything here is transport policy — it moves WHEN a request
+    frame travels and how quickly a dead worker is declared, never
+    what any worker computes: re-dispatched requests are re-submitted
+    byte-identically (the raw request line is what travels), so MRC
+    bytes and fingerprints are bit-identical whatever these knobs say
+    (tests/test_fabric.py pins 1-vs-N-worker identity).
+
+    Attributes:
+      hb_interval_s: how often the router pings each worker link (and
+        the bound on how long a healthy link stays silent — pongs
+        count as traffic).
+      hb_timeout_s: a link with no received frame for this long is
+        treated as failed and enters the reconnect schedule.
+      reconnect_attempts: bounded reconnects after a link failure;
+        exhausting them declares the worker DEAD and re-dispatches
+        its in-flight requests to the ring successor.
+      reconnect_delay_s: pause between reconnect attempts.
+      connect_timeout_s: TCP connect/handshake budget per attempt.
+      drain_timeout_s: graceful-shutdown bound — how long the router
+        waits for in-flight responses (and workers for in-flight
+        executions) before giving up the drain.
+      ring_vnodes: virtual nodes per worker on the consistent-hash
+        ring (service/fabric/ring.py).
+      trace_enabled: attach trace blocks to request frames, measure
+        per-request wire/worker spans, and append router-side ledger
+        rows. Pure observability — toggling it never changes MRC
+        bytes or fingerprints (pinned in tests/test_fabric.py).
+      stats_interval_s: how often the router polls each worker's
+        telemetry snapshot over a `stats` frame (feeds the merged
+        fleet stats/metrics view and the fleet SLO sentinel).
+    """
+
+    hb_interval_s: float = 2.0
+    hb_timeout_s: float = 10.0
+    reconnect_attempts: int = 3
+    reconnect_delay_s: float = 0.2
+    connect_timeout_s: float = 10.0
+    drain_timeout_s: float = 60.0
+    ring_vnodes: int = 64
+    trace_enabled: bool = True
+    stats_interval_s: float = 5.0
+
+    def __post_init__(self) -> None:
+        if self.hb_interval_s <= 0:
+            raise ValueError("hb_interval_s must be > 0")
+        if self.hb_timeout_s < self.hb_interval_s:
+            raise ValueError(
+                "hb_timeout_s must be >= hb_interval_s (a healthy "
+                "link is only guaranteed one frame per interval)"
+            )
+        if self.reconnect_attempts < 0:
+            raise ValueError("reconnect_attempts must be >= 0")
+        if self.reconnect_delay_s < 0:
+            raise ValueError("reconnect_delay_s must be >= 0")
+        if self.connect_timeout_s <= 0:
+            raise ValueError("connect_timeout_s must be > 0")
+        if self.drain_timeout_s <= 0:
+            raise ValueError("drain_timeout_s must be > 0")
+        if self.ring_vnodes < 1:
+            raise ValueError("ring_vnodes must be >= 1")
+        if self.stats_interval_s <= 0:
+            raise ValueError("stats_interval_s must be > 0")
+
+
 # Sites and kinds the fault injector (runtime/faults.py) understands.
 # Declared here so FaultConfig can validate a spec without importing
 # the runtime layer.

@@ -12,12 +12,15 @@ links the objects into one library: the kernels of a part are the code
 a single compile would give them, in a fraction of its time. Each nvcc run, and each make of native/
 (`ensure_native`), is recorded in runtime/telemetry.py's build store
 (`record_build`), and each library's first load in a process counts as a
-cache hit (on disk already) or miss (built) there.
+cache hit (on disk already) or miss (built) there. A build holds a file
+lock beside its library, so processes that start at once (the serving
+fabric's workers) build a library once and load it whole.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -94,6 +97,18 @@ def build(name: str, force: bool = False,
         with open(log_path) as f:
             return out, f.read()
     os.makedirs(BUILD_DIR, exist_ok=True)
+    # one build across processes: a process that finds the lock taken
+    # waits for it, then loads what the holder renamed into place
+    with open(out + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not force and os.path.exists(out):
+            with open(log_path) as f:
+                return out, f.read()
+        return _build_locked(name, defines, out, log_path)
+
+
+def _build_locked(name: str, defines: tuple, out: str,
+                  log_path: str) -> tuple[str, str]:
     tmp = f"{out}.{os.getpid()}.tmp"
     src = os.path.join(CSRC, f"{name}.cu")
     t0 = time.perf_counter()

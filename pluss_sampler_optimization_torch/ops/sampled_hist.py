@@ -689,19 +689,27 @@ def sampled_hist_plain(nt, ref_idx: int, keys_RB, mask_RB, highs, rx_R,
     cold = torch.zeros(R, dtype=torch.int64, device=dev)
     for r in range(R):
         keys = keys_RB[r]
+        lanes = None
         if mask_RB is not None:
-            keys = torch.where(mask_RB[r], keys, 0)
+            # classify the chosen lanes only: an unchosen lane's
+            # residual is SENTINEL and it counts in neither hist nor cold
+            lanes = mask_RB[r].nonzero().squeeze(1)
+            residual[r] = SENTINEL
+            if lanes.numel() == 0:
+                continue
+            keys = keys[lanes]
         samples = decode_sample_keys(keys, highs)
         packed, ri, is_share, found = classify_samples(
             tnt, ref_idx, samples, rx_R[r]
         )
-        live, dead = found, ~found
-        if mask_RB is not None:
-            live, dead = live & mask_RB[r], dead & mask_RB[r]
-        nosh = live & ~is_share & (ri >= 1) & (not raw)
-        residual[r] = torch.where(live & ~nosh, packed, SENTINEL)
+        nosh = found & ~is_share & (ri >= 1) & (not raw)
+        res = torch.where(found & ~nosh, packed, SENTINEL)
+        if lanes is None:
+            residual[r] = res
+        else:
+            residual[r, lanes] = res
         hist[r] = torch.bincount(exp2_floor(ri[nosh]), minlength=N_BINS)
-        cold[r] = dead.sum()
+        cold[r] = (~found).sum()
     return residual, hist, cold
 
 

@@ -75,17 +75,31 @@ _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 )))
 
 
+# co_filename -> (the file part of its frame label, whether the file
+# lives under _PKG_ROOT). Bounded by the number of source files; a
+# sample names every frame of every thread, and os.path.relpath alone
+# costs several microseconds a call, all of it under the GIL.
+_FILES: dict = {}
+
+
+def _file_of(fn: str) -> tuple:
+    got = _FILES.get(fn)
+    if got is None:
+        if fn.startswith(_PKG_ROOT):
+            got = (os.path.relpath(fn, _PKG_ROOT), True)
+        else:
+            got = (os.path.basename(fn), False)
+        _FILES[fn] = got
+    return got
+
+
 def _frame_name(code) -> str:
     """Stable frame label: module path relative to the repo when the
     file lives under it, else the basename — plus the function name.
     Uses co_firstlineno (stable per function) rather than the current
     line, so one function folds to one frame."""
-    fn = code.co_filename
-    if fn.startswith(_PKG_ROOT):
-        fn = os.path.relpath(fn, _PKG_ROOT)
-    else:
-        fn = os.path.basename(fn)
-    return f"{fn}:{code.co_name}:{code.co_firstlineno}"
+    return f"{_file_of(code.co_filename)[0]}:{code.co_name}:" \
+        f"{code.co_firstlineno}"
 
 
 class SamplingProfiler:
@@ -165,6 +179,7 @@ class SamplingProfiler:
         me = threading.get_ident()
         span_paths = telemetry.span_paths_by_thread()
         frames = sys._current_frames()
+        file_of = _file_of
         batch = []
         for tid in sorted(frames):
             if tid == me:
@@ -175,10 +190,9 @@ class SamplingProfiler:
             depth = 0
             while f is not None and depth < self.max_depth:
                 code = f.f_code
-                stack.append(_frame_name(code))
-                if not in_request and code.co_filename.startswith(
-                    _PKG_ROOT
-                ):
+                name, inside = file_of(code.co_filename)
+                stack.append(f"{name}:{code.co_name}:{code.co_firstlineno}")
+                if inside:
                     in_request = True
                 f = f.f_back
                 depth += 1

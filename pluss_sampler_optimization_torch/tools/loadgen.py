@@ -2,8 +2,8 @@
 
 The port's twin of the JAX package's tools/loadgen.py: the same
 command line and output, on the port's modules. `--device` (default
-cuda) is the service's device; `--connect` (a TCP client of the serving
-fabric's listeners) waits for the port's fabric and is refused.
+cuda) is the in-process service's device; `--connect` drives a live
+serving fabric instead (below), whose processes have their own.
 
 Closed-loop clients (submit, wait, repeat) can never demonstrate
 overload: arrival slows to match completion, so the queue never
@@ -39,7 +39,19 @@ precision knobs (tolerance / deadline_s; "none" = absent) from the
 same counter-hash stream, so a precision-mixed load run replays
 exactly. The report then carries a `precision` section — progressive
 requests split into converged vs partial_final vs shed, plus the
-partial-frame count per request.
+partial-frame count per request — both in-process and over
+--connect (where the reader diverts streamed `"partial": true` docs
+into per-id counters instead of mistaking them for finals).
+
+With --connect HOST:PORT the same deterministic arrival sequence is
+driven over TCP against a live fabric `serve-router --listen`
+endpoint (service/fabric/) instead of an in-process service: requests
+go out as JSONL lines at their computed offsets, a reader thread
+matches response documents back by id, and the report has the same
+shape — so a fabric run is directly comparable to the in-process
+baseline. Service-side knobs (--queue-limit, --max-workers,
+--service-time-s, --compare-shed, --device) don't apply over TCP;
+configure the server process instead.
 
 Reused as a library by the check_chaos twin (its synthetic runner and
 request sets).
@@ -51,6 +63,7 @@ import argparse
 import dataclasses
 import json
 import math
+import socket
 import sys
 import threading
 import time
@@ -321,6 +334,150 @@ def _precision_section(docs: list, partial_counts: dict,
     }
 
 
+def request_jsonl(req) -> str:
+    """An AnalysisRequest as one serve_jsonl wire line: the dataclass
+    fields with Nones dropped (parse_request_line refills defaults),
+    so the server-side parse — and therefore the fingerprint — is
+    identical to submitting the same request in-process."""
+    doc = {
+        k: v for k, v in dataclasses.asdict(req).items()
+        if v is not None
+    }
+    return json.dumps(doc, sort_keys=True)
+
+
+def connect_run(addr: str, requests: list, offsets: list[float],
+                timeout_s: float = 120.0) -> dict:
+    """run_load over TCP: submit `requests` open-loop at `offsets` as
+    JSONL lines to a serve/serve-router listener, match response docs
+    by id, and fold the same goodput/tail-latency report.
+
+    Responses arrive as-ready (the router interleaves workers), so a
+    reader thread collects them concurrently with submission — the
+    loop stays open exactly like the in-process path. Requests whose
+    response never arrives inside timeout_s count as failed.
+
+    Send/receive times are stamped per request on THIS client's
+    clock, so the report also splits where time went: overhead_p50/
+    p95_s is client end-to-end minus the worker's self-reported
+    execute_s — i.e. routing + wire + queueing, everything the fabric
+    added on top of engine execution (None against servers that
+    predate the execute_s response field).
+    """
+    from pluss_sampler_optimization_torch.service.executor import (
+        progressive_requested,
+    )
+    from pluss_sampler_optimization_torch.service.fabric import wire
+
+    host, port = wire.parse_hostport(addr)
+    want = {r.id for r in requests}
+    prog_ids = {r.id for r in requests if progressive_requested(r)}
+    docs: dict = {}
+    partial_counts: dict = {}
+    sent: dict = {}
+    recv: dict = {}
+    done = threading.Event()
+    sock = socket.create_connection((host, port), timeout=timeout_s)
+    rfile = sock.makefile("r", encoding="utf-8", newline="\n")
+    wfile = sock.makefile("w", encoding="utf-8", newline="\n")
+
+    def reader() -> None:
+        try:
+            for line in rfile:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    doc = json.loads(line)
+                except ValueError:
+                    continue
+                if isinstance(doc, dict) and doc.get("id") in want:
+                    if doc.get("partial"):
+                        # an interim progressive frame, never the
+                        # final response — count it, keep waiting
+                        rid = doc["id"]
+                        partial_counts[rid] = (
+                            partial_counts.get(rid, 0) + 1
+                        )
+                        continue
+                    recv[doc["id"]] = time.perf_counter()
+                    docs[doc["id"]] = doc
+                    if len(docs) == len(want):
+                        break
+        except OSError:
+            pass
+        finally:
+            done.set()  # EOF/complete: whatever arrived is final
+
+    t0 = time.perf_counter()
+    th = threading.Thread(target=reader, name="loadgen-recv",
+                          daemon=True)
+    th.start()
+    try:
+        for req, off in zip(requests, offsets):
+            now = time.perf_counter() - t0
+            if off > now:
+                time.sleep(off - now)
+            sent[req.id] = time.perf_counter()
+            wfile.write(request_jsonl(req) + "\n")
+            wfile.flush()
+        done.wait(timeout=timeout_s)
+    finally:
+        try:
+            sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        sock.close()
+    th.join(timeout=5.0)
+    wall = time.perf_counter() - t0
+
+    got = list(docs.values())
+    ok = [d for d in got if d.get("ok")]
+    shed = [d for d in got if d.get("shed")]
+    failed = sum(
+        1 for r in requests
+        if not (docs.get(r.id) or {}).get("ok")
+        and not (docs.get(r.id) or {}).get("shed")
+    )
+    lats = sorted(
+        d["latency_s"] for d in ok
+        if d.get("latency_s") is not None
+    )
+    report = {
+        "connect": f"{host}:{port}",
+        "submitted": len(requests),
+        "ok": len(ok),
+        "shed": len(shed),
+        "failed": failed,
+        "missing": len(want) - len(docs),
+        "retried": sum(d.get("retries", 0) for d in got),
+        "hedged": sum(1 for d in got if d.get("hedged")),
+        "wall_s": round(wall, 4),
+        "offered_rps": round(len(requests) / max(1e-9, wall), 2),
+        "goodput_rps": round(len(ok) / max(1e-9, wall), 2),
+    }
+    for name, q in (("p50", 0.50), ("p95", 0.95), ("p99", 0.99)):
+        report[f"latency_{name}_s"] = (
+            round(obs_ledger._percentile(lats, q), 6) if lats
+            else None
+        )
+    overheads = sorted(
+        (recv[rid] - sent[rid]) - float(d["execute_s"])
+        for rid, d in docs.items()
+        if d.get("ok") and d.get("execute_s") is not None
+        and rid in sent and rid in recv
+    )
+    for name, q in (("p50", 0.50), ("p95", 0.95)):
+        report[f"overhead_{name}_s"] = (
+            round(obs_ledger._percentile(overheads, q), 6)
+            if overheads else None
+        )
+    report["precision"] = _precision_section(
+        got, partial_counts, prog_ids
+    )
+    return report
+
+
 def _strip(report: dict) -> dict:
     return {k: v for k, v in report.items() if k != "responses"}
 
@@ -464,12 +621,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="the service's device: cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.connect:
-        raise SystemExit(
-            "--connect drives a serve-router/serve-worker listener; "
-            "the port's serving fabric waits for its own slice (run "
-            "the JAX package's tools/loadgen.py against one)"
-        )
 
     mix = parse_mix(args.mix)
     tol_mix = (parse_value_mix(args.tolerance_mix)
@@ -482,8 +633,23 @@ def main(argv=None) -> int:
         injector = faults.install_from_file(args.fault_spec)
         print(f"loadgen: faults armed (seed {injector.config.seed}, "
               f"{len(injector.config.rules)} rule(s))")
+    if args.connect and args.compare_shed:
+        raise SystemExit(
+            "--compare-shed builds an in-process service pair; it "
+            "cannot target --connect (run the server twice instead)"
+        )
     try:
-        if args.compare_shed:
+        if args.connect:
+            reqs = make_requests(args.requests, args.seed, mix=mix,
+                                 unique_frac=args.unique_frac,
+                                 tolerance_mix=tol_mix,
+                                 deadline_mix=ddl_mix)
+            offs = arrival_offsets(args.requests, args.rate,
+                                   args.seed, burst=burst)
+            report = connect_run(args.connect, reqs, offs,
+                                 timeout_s=args.timeout_s)
+            headline = report
+        elif args.compare_shed:
             report = overload_comparison(
                 n=args.requests, rate_rps=args.rate,
                 queue_limit=args.queue_limit,

@@ -20,6 +20,8 @@ import socket
 import subprocess
 import sys
 
+from _torch_threads import one_thread_env
+
 import pluss_sampler_optimization_torch as T
 from pluss_sampler_optimization_torch.models import REGISTRY
 from pluss_sampler_optimization_torch.parallel import run_sampled_sharded
@@ -95,7 +97,7 @@ def run_workers(world: int, device: str, n: int = 16,
              device, json.dumps(_program(n, model, args)), json.dumps(cfg),
              json.dumps(runs)],
             cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True,
+            text=True, env=one_thread_env(),
         )
         for rank in range(world)
     ]

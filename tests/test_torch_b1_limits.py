@@ -21,6 +21,7 @@ import subprocess
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 from _torch_made import (
     made_program,
     made_tri_program,

@@ -21,6 +21,7 @@ import subprocess
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 import pluss_sampler_optimization_torch as T
 import pluss_sampler_optimization_tpu as J
@@ -43,18 +44,6 @@ from pluss_sampler_optimization_tpu.sampler import sampled as JSA
 CSRC = os.path.join(os.path.dirname(__file__), "..",
                     "pluss_sampler_optimization_torch", "csrc")
 MC = T.MachineConfig
-
-@pytest.fixture(autouse=True, scope="module")
-def one_intra_op_thread():
-    """One torch intra-op thread while this file's services run: their
-    pool threads each run small torch ops at once, and a team of
-    intra-op threads per op only spins against the other test workers'
-    processes (a run of this file beside another took 130 s where it
-    alone takes 25)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # (model, size, seed, device_draw, v2, machine)

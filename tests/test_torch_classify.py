@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 from _torch_made import made_program
 
 import pluss_sampler_optimization_torch as T

@@ -22,6 +22,7 @@ import warnings
 
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 from _torch_dist import DEVICE_DRAW, DEVICE_RUNS, check_workers, run_workers
 
 import pluss_sampler_optimization_torch as T

@@ -19,6 +19,7 @@ comparison is exact. The JAX side runs on the CPU as its own tests do.
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 import pluss_sampler_optimization_torch as T
 import pluss_sampler_optimization_tpu as J

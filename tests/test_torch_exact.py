@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 from _torch_made import tri_step2_program
 from test_torch_classify import host_twin  # noqa: F401 (a fixture)
 

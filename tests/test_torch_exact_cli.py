@@ -16,6 +16,7 @@ import sys
 
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from pluss_sampler_optimization_torch.cli import main
 

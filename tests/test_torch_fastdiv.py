@@ -25,6 +25,7 @@ import subprocess
 
 import numpy as np
 import pytest
+from _torch_threads import one_torch_thread  # noqa: F401
 from hypothesis import HealthCheck, given, settings, strategies as st
 
 import pluss_sampler_optimization_torch as T

@@ -25,6 +25,7 @@ import sys
 
 import pytest
 import torch
+from _torch_threads import one_thread_env, one_torch_thread  # noqa: F401
 from _torch_native import native_built
 
 import pluss_sampler_optimization_torch as T
@@ -288,7 +289,8 @@ def test_analysis_imports_no_jax(tmp_path):
         "print('ok')\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                          capture_output=True, text=True, timeout=300)
+                          capture_output=True, text=True, timeout=300,
+                          env=one_thread_env())
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.endswith("ok\n")
     assert "verdict ok" in proc.stdout

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_thread_env, one_torch_thread  # noqa: F401
 from _torch_made import tri_step2_program
 
 import pluss_sampler_optimization_torch as T
@@ -69,12 +70,13 @@ COPIED = (
     + [f"analysis/{f}" for f in ("__init__.py", "validate.py", "deps.py",
                                  "bounds.py", "lint_common.py")]
     + [f"frontend/{f}" for f in ("__init__.py", "schema.py", "parse.py")]
-    + ["runtime/lockwitness.py", "service/fingerprint.py",
-       "service/fabric/ring.py"]
+    + ["runtime/lockwitness.py", "service/fingerprint.py"]
+    + [f"service/fabric/{f}" for f in ("__init__.py", "ring.py", "wire.py",
+                                       "worker.py", "router.py")]
     + [f"runtime/obs/{f}" for f in ("__init__.py", "exporters.py",
                                     "attribution.py", "ledger.py",
                                     "regress.py", "metrics.py",
-                                    "profiler.py", "slo.py")]
+                                    "slo.py", "fleet.py")]
     + ["runtime/faults.py", "service/breakers.py", "service/cache.py"]
     + [f"analysis/concurrency/{f}" for f in ("_scan.py", "graph.py",
                                              "lints.py", "fixtures.py")]
@@ -195,7 +197,10 @@ def test_port_imports_no_jax():
         "    check_profile, check_regression, check_slo,\n"
         "    check_telemetry_schema, check_service_store, check_chaos,\n"
         "    check_precision, loadgen, check_concurrency,\n"
-        "    lint_determinism)\n"
+        "    lint_determinism, assemble_trace, check_fabric, profile_cost)\n"
+        "from pluss_sampler_optimization_torch.service.fabric import (\n"
+        "    Router, WorkerServer, wire, worker, router)\n"
+        "import pluss_sampler_optimization_torch.runtime.obs.fleet\n"
         "import pluss_sampler_optimization_torch.service\n"
         "import pluss_sampler_optimization_torch.parallel.placement\n"
         "import pluss_sampler_optimization_torch.analysis.concurrency\n"
@@ -226,7 +231,7 @@ def test_port_imports_no_jax():
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-        text=True, timeout=120,
+        text=True, timeout=120, env=one_thread_env(),
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"

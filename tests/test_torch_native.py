@@ -24,6 +24,7 @@ import dataclasses
 
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 from _torch_made import distinct_maps_program, past_limits_programs
 from _torch_native import native_built
 

@@ -23,6 +23,7 @@ import sys
 
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 import pluss_sampler_optimization_torch.config as TC
 import pluss_sampler_optimization_tpu.config as JC

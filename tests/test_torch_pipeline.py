@@ -13,6 +13,7 @@ import dataclasses
 import json
 
 import pytest
+from _torch_threads import one_torch_thread  # noqa: F401
 
 import pluss_sampler_optimization_torch as T
 import pluss_sampler_optimization_tpu as J

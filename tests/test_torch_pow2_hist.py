@@ -28,6 +28,7 @@ import subprocess
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from pluss_sampler_optimization_torch.ops import pow2_hist as TP
 

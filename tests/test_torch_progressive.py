@@ -22,6 +22,7 @@ import os
 
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 import pluss_sampler_optimization_torch as T
 import pluss_sampler_optimization_tpu as J
@@ -42,18 +43,6 @@ from pluss_sampler_optimization_tpu.runtime.baseline import (
 from pluss_sampler_optimization_tpu.sampler import sampled as JS
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU runs here are many small tensor operations, which
-    one thread runs fastest; beside the suite's other workers a thread
-    pool per process only contends. The worker's setting comes back
-    after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_confidence_is_a_copy_and_the_counter_hash_equal():

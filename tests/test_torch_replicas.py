@@ -14,6 +14,7 @@ import json
 
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 import pluss_sampler_optimization_torch.config as TC
 from pluss_sampler_optimization_torch import service as TS
@@ -22,18 +23,6 @@ from pluss_sampler_optimization_torch.parallel import placement
 from pluss_sampler_optimization_torch.runtime import faults as t_faults
 from pluss_sampler_optimization_torch.sampler.sampled import resolve_device
 from pluss_sampler_optimization_tpu.analysis import concurrency as j_conc
-
-@pytest.fixture(autouse=True, scope="module")
-def one_intra_op_thread():
-    """One torch intra-op thread while this file's services run: their
-    pool threads each run small torch ops at once, and a team of
-    intra-op threads per op only spins against the other test workers'
-    processes (a run of this file beside another took 130 s where it
-    alone takes 25)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 REQUESTS = [

@@ -20,7 +20,7 @@ import os
 import shutil
 
 import pytest
-import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 import pluss_sampler_optimization_torch.config as TC
 import pluss_sampler_optimization_tpu.config as JC
@@ -48,18 +48,6 @@ VOLATILE = {"latency_s", "trace_id", "span_id", "queue_s", "execute_s",
             "compile_delta", "in_flight", "executing", "queue_depth",
             "batch_queue_depth", "batched_p50_latency_s",
             "solo_p50_latency_s", "ledger", "ledger_tail", "reopen_in_s"}
-
-@pytest.fixture(autouse=True, scope="module")
-def one_intra_op_thread():
-    """One torch intra-op thread while this file's services run: their
-    pool threads each run small torch ops at once, and a team of
-    intra-op threads per op only spins against the other test workers'
-    processes (a run of this file beside another took 130 s where it
-    alone takes 25)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 LINES = [

@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_thread_env, one_torch_thread  # noqa: F401
 from _torch_dist import (
     CFG,
     DEVICE_DRAW,
@@ -440,7 +441,7 @@ def test_sharded_path_imports_no_jax():
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-        text=True, timeout=120,
+        text=True, timeout=120, env=one_thread_env(),
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"

@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 import pluss_sampler_optimization_torch as T
 import pluss_sampler_optimization_tpu as J
@@ -54,18 +55,6 @@ from pluss_sampler_optimization_tpu.runtime.baseline import (
 from pluss_sampler_optimization_tpu.sampler import sampled as JS
 
 M = T.MachineConfig()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU runs here are many small tensor operations, which
-    one thread runs fastest; beside the suite's other workers a thread
-    pool per process only contends. The worker's setting comes back
-    after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _mrc(state):

@@ -22,6 +22,7 @@ import time
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 import pluss_sampler_optimization_torch as T
 import pluss_sampler_optimization_tpu as J

@@ -26,6 +26,7 @@ import jax.random as jr
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
